@@ -1,0 +1,188 @@
+"""Shared machinery: losses, data access, state containers, Adam in optax
+order and the autograd local-D step.
+
+Port of ``cglgan_tpu/algos/common.py`` on stacked tensors: every function
+takes a leading member axis and returns per-member values, so W client
+updates are one batched pass.
+
+GAN losses reproduce the reference's exact choices:
+* ``bce`` — clipped to [1e-12, 1-1e-7] (not ``nn.BCELoss``'s log clamp);
+* ``ce2`` — 2-class cross-entropy on raw logits (capgan.py:311);
+* ``bce_logits`` — stable BCE on raw logits.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, NamedTuple
+
+import torch
+
+from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+# ---------------------------------------------------------------------------
+# losses: inputs (..., N, C); the mean runs over N, leading axes are members
+# ---------------------------------------------------------------------------
+
+def bce(p: torch.Tensor, target: float) -> torch.Tensor:
+    p = torch.clamp(p.float(), 1e-12, 1.0 - 1e-7)
+    t = target
+    return -torch.mean(t * torch.log(p) + (1.0 - t) * torch.log1p(-p),
+                       dim=(-2, -1))
+
+
+def ce2(logits: torch.Tensor, target_idx: int) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.mean(logp[..., target_idx], dim=-1)
+
+
+def bce_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
+    z = logits.float().squeeze(-1)
+    return torch.mean(torch.clamp(z, min=0) - z * target
+                      + torch.log1p(torch.exp(-torch.abs(z))), dim=-1)
+
+
+def make_adv_loss(head: str) -> Callable:
+    """loss(d_out, is_real: float) for the configured D head."""
+    if head == "sigmoid":
+        return lambda out, t: bce(out, t)
+    if head == "logits2":
+        return lambda out, t: ce2(out, int(t))
+    if head == "raw":
+        return lambda out, t: bce_logits(out, t)
+    raise ValueError(head)
+
+
+# ---------------------------------------------------------------------------
+# data access
+# ---------------------------------------------------------------------------
+
+def normalize_images(x: torch.Tensor) -> torch.Tensor:
+    """uint8 -> float in [-1, 1] (ToTensor + Normalize([0.5], [0.5]))."""
+    x = x.float() / 255.0
+    return (x - 0.5) / 0.5
+
+
+def slice_batch(shards: torch.Tensor, start: int, batch_size: int):
+    """Window [start, start+B) of every client's pre-shuffled shard."""
+    return shards[:, start:start + batch_size]
+
+
+def prepare_real(batch: torch.Tensor, is_image: bool) -> torch.Tensor:
+    return normalize_images(batch) if is_image else batch.float()
+
+
+# ---------------------------------------------------------------------------
+# state containers
+# ---------------------------------------------------------------------------
+
+class AdamState(NamedTuple):
+    count: torch.Tensor    # (N,) int64 per-member step counts
+    mu: Any                # first moments, same tree as params
+    nu: Any                # second moments
+
+
+class NetState(NamedTuple):
+    params: Any            # stacked param list (reference layout)
+    bn: Any                # BatchNorm running stats
+    opt: AdamState
+
+
+class FedState(NamedTuple):
+    g: NetState            # generators, stacked (S, ...)
+    d: NetState            # discriminators, stacked (W, ...)
+    lam: torch.Tensor      # (S,) Lambda game variables
+    t: int                 # round counter (host)
+
+
+def adam_init(params, n: int) -> AdamState:
+    like = tree_leaves(params)[0]
+    zeros = lambda x: torch.zeros_like(x)
+    return AdamState(torch.zeros((n,), dtype=torch.int64, device=like.device),
+                     tree_map(zeros, params), tree_map(zeros, params))
+
+
+def bias_correction(count: torch.Tensor, decay: float) -> torch.Tensor:
+    """``1 - decay**count`` in float32 with a float32 ``decay``, as optax
+    computes it (f32(0.999)**t, not 0.999**t: they differ by ~1e-5
+    relative at small t)."""
+    base = torch.tensor(decay, dtype=torch.float32, device=count.device)
+    return 1.0 - base ** count.float()
+
+
+def adam_leaf(p, g, mu, nu, c1, c2, lr: float, b1: float, b2: float,
+              eps: float = 1e-8):
+    """One Adam update in optax's op order.  ``c1``/``c2`` broadcast
+    against ``p`` (per-member bias corrections)."""
+    mu2 = b1 * mu + (1 - b1) * g
+    nu2 = b2 * nu + (1 - b2) * (g * g)
+    p2 = p + (-lr) * ((mu2 / c1) / (torch.sqrt(nu2 / c2) + eps))
+    return p2, mu2, nu2
+
+
+def adam_update(params, grads, opt: AdamState, lr: float, b1: float,
+                b2: float, eps: float = 1e-8):
+    """optax.adam(lr, b1, b2, eps) + apply_updates over stacked trees, with
+    per-member counts.  Returns (new_params, new_opt)."""
+    count = opt.count + 1
+    c1, c2 = bias_correction(count, b1), bias_correction(count, b2)
+    p_l, g_l = tree_leaves(params), tree_leaves(grads)
+    m_l, n_l = tree_leaves(opt.mu), tree_leaves(opt.nu)
+    outs = []
+    for p, g, m, v in zip(p_l, g_l, m_l, n_l):
+        lead = (-1,) + (1,) * (p.ndim - 1)
+        outs.append(adam_leaf(p, g, m, v, c1.reshape(lead),
+                              c2.reshape(lead), lr, b1, b2, eps))
+    return (tree_unflatten(params, [o[0] for o in outs]),
+            AdamState(count, tree_unflatten(params, [o[1] for o in outs]),
+                      tree_unflatten(params, [o[2] for o in outs])))
+
+
+def with_grad(tree):
+    """Detached leaf copies that require grad, plus the leaf list."""
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(tree)]
+    return tree_unflatten(tree, leaves), leaves
+
+
+# ---------------------------------------------------------------------------
+# the per-client discriminator step, through autograd
+# ---------------------------------------------------------------------------
+
+def d_step_fn(d_model, adv_loss, lr: float, b1: float, b2: float,
+              batch_size: int, is_image: bool, d_loss_half: bool):
+    """``step(d_net, shards, start, fake) -> (d_net, d_loss (W,))``: one
+    local D update of every client on (real window, fakes), real and fake
+    through ONE forward on the (2B, ...) concatenation (exact for the
+    BN-free MLP D).  D loss = real + fake, halved for CAP/Mix."""
+    B = batch_size
+
+    def step(d_net: NetState, shards, start: int, fake):
+        """``fake``: flat (W, B, din) per-client or (B, din) shared."""
+        real = prepare_real(slice_batch(shards, start, B), is_image)
+        fake = fake.detach()
+        if fake.ndim == 2:
+            fake = fake.unsqueeze(0).expand(real.shape[0], -1, -1)
+        both = torch.cat([real, fake.to(real.dtype)], dim=1)
+        params, leaves = with_grad(d_net.params)
+        with torch.enable_grad():
+            out, new_bn = d_model.apply(params, d_net.bn, both, train=True)
+            half = adv_loss(out[:, :B], 1.0) * 0.5 \
+                + adv_loss(out[:, B:], 0.0) * 0.5
+            loss = half if d_loss_half else half * 2.0
+            grads = torch.autograd.grad(loss.sum(), leaves)
+        new_p, new_opt = adam_update(
+            d_net.params, tree_unflatten(d_net.params, list(grads)),
+            d_net.opt, lr, b1, b2)
+        return NetState(new_p, new_bn, new_opt), loss.detach()
+
+    return step
+
+
+def d_epoch_steps(step, epoch: int):
+    """Repeat ``step`` over the ``epoch`` shared window offsets; returns the
+    LAST step's loss (the reference inner loop, capgan.py:324-341)."""
+    def run(d_net: NetState, shards, starts: List[int], fake):
+        loss = None
+        for e in range(epoch):
+            d_net, loss = step(d_net, shards, int(starts[e]), fake)
+        return d_net, loss
+    return run

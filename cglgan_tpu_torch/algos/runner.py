@@ -1,0 +1,70 @@
+"""Runner: the contract every algorithm implements, and the training loop.
+
+Port of ``cglgan_tpu/algos/runner.py``.  A round is one Python call
+``round_fn(state) -> (state, metrics)`` whose work is queued on the device;
+``train`` loops rounds and keeps each tick's metric sums on the device, so
+the host waits for the device once per tick (the counterpart of the
+reference's ``scan_rounds`` chunk means).  Capturing rounds into CUDA
+graphs is a later ROADMAP item (queue 1 item 7).
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
+
+import torch
+
+
+class Runner(NamedTuple):
+    cfg: Any
+    part: Any
+    init_state: Callable[[], Any]                    # () -> FedState
+    round_fn: Callable[..., Any]                     # state -> (state, metrics)
+    sample: Callable[[Any, int], torch.Tensor]       # (state, n) -> samples
+    gen: Optional[Callable[[Any, torch.Tensor], torch.Tensor]] = None
+    gen_batch_multiple: int = 1
+    gen_client: Optional[Callable[[Any, torch.Tensor, int],
+                                  torch.Tensor]] = None
+    device: Optional[torch.device] = None
+
+
+def train(runner: Runner,
+          rounds: Optional[int] = None,
+          eval_every: Optional[int] = None,
+          state=None,
+          evaluator=False) -> Dict[str, Any]:
+    """Run ``rounds`` rounds with a metrics tick every ``eval_every``.
+
+    Returns {"state": final_state, "history": [tick dicts]}; each tick
+    carries the round metrics averaged over its interval, the absolute
+    ``round``, ``wall_s`` and ``rounds_per_s``.  Workload evaluation
+    (FID/IS, KL/DS) is not ported yet: ``evaluator`` must stay False."""
+    if evaluator is not False:
+        raise NotImplementedError("workload evaluation (evalx) is not ported "
+                                  "yet (ROADMAP queue 1 item 13)")
+    cfg = runner.cfg
+    rounds = rounds if rounds is not None else cfg.num_communication
+    eval_every = eval_every if eval_every is not None else cfg.num_plt
+    eval_every = max(1, min(eval_every, rounds))
+    if state is None:
+        state = runner.init_state()
+
+    history: List[Dict[str, Any]] = []
+    t0 = time.perf_counter()
+    done = 0
+    while done < rounds:
+        interval = min(eval_every, rounds - done)     # never overshoot
+        acc: Optional[Dict[str, torch.Tensor]] = None
+        for _ in range(interval):
+            state, m = runner.round_fn(state)
+            acc = dict(m) if acc is None else \
+                {key: acc[key] + m[key] for key in acc}
+        keys = list(acc)
+        means = (torch.stack([acc[key] for key in keys]) / interval).tolist()
+        done += interval
+        tick: Dict[str, Any] = dict(zip(keys, means))
+        tick["round"] = int(state.t)
+        tick["wall_s"] = time.perf_counter() - t0
+        tick["rounds_per_s"] = done / tick["wall_s"]
+        history.append(tick)
+    return {"state": state, "history": history}

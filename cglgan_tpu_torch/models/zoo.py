@@ -1,0 +1,141 @@
+"""Model zoo, stacked: the G/D pairs of the CAP-GAN MNIST slice.
+
+Port of the ``mnist-mlp`` generator and the ``mnist`` discriminator of
+``cglgan_tpu/models/zoo.py`` (same declarative spec lists, same param/state
+list layout with ``None`` holes, so weights transplant entry by entry):
+
+* G ``mnist-mlp``: 100-128-256(BN)-512(BN)-1024(BN)-img, LeakyReLU 0.2,
+  Tanh (model/mnist_model.py:5-29);
+* D ``mnist``: img-512-256-{1 sigmoid | 2 logits} (model/mnist_model.py:71-88).
+
+The other families raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from cglgan_tpu_torch.models import nn
+
+# spec entries: ("linear", din, dout) | ("bn", dim) | ("lrelu", slope)
+#             | ("tanh",) | ("sigmoid",)
+
+
+def mlp_init(gen: torch.Generator, n: int, spec, dtype=torch.float32):
+    """Stacked init of ``n`` members: params/state lists aligned to spec."""
+    params, state = [], []
+    for entry in spec:
+        if entry[0] == "linear":
+            params.append(nn.linear_init(gen, n, entry[1], entry[2], dtype))
+            state.append(None)
+        elif entry[0] == "bn":
+            p, s = nn.bn_init(n, entry[1], dtype)
+            params.append(p)
+            state.append(s)
+        else:
+            params.append(None)
+            state.append(None)
+    return params, state
+
+
+def mlp_apply(spec, params, state, x: torch.Tensor, train: bool):
+    new_state = list(state)
+    for i, entry in enumerate(spec):
+        op = entry[0]
+        if op == "linear":
+            x = nn.linear(params[i], x)
+        elif op == "bn":
+            x, new_state[i] = nn.batchnorm(params[i], state[i], x, train)
+        elif op == "lrelu":
+            x = nn.leaky_relu(x, entry[1])
+        elif op == "tanh":
+            x = torch.tanh(x)
+        elif op == "sigmoid":
+            x = torch.sigmoid(x)
+    return x, new_state
+
+
+def _block(din, dout, bn=True):
+    out = [("linear", din, dout)]
+    if bn:
+        out.append(("bn", dout))
+    out.append(("lrelu", 0.2))
+    return out
+
+
+class Model(NamedTuple):
+    """``init(gen, n) -> (params, state)`` stacked over ``n`` members and
+    ``apply(params, state, x (N, B, ...), train) -> (y, new_state)``."""
+    init: Callable
+    apply: Callable
+    spec: tuple
+    multipath: bool = False
+    out_dim: int = 1
+
+
+def _mlp_model(spec, out_dim: int = 1, out_shape=None) -> Model:
+    spec = tuple(spec)
+
+    def init(gen, n, dtype=torch.float32):
+        return mlp_init(gen, n, spec, dtype)
+
+    def apply(params, state, x, train=True):
+        if x.ndim > 3:           # (N, B, C, H, W) -> (N, B, C*H*W)
+            x = x.reshape(x.shape[0], x.shape[1], -1)
+        y, new_state = mlp_apply(spec, params, state, x, train)
+        if out_shape is not None:
+            y = y.reshape(tuple(y.shape[:2]) + tuple(out_shape))
+        return y, new_state
+
+    return Model(init, apply, spec, out_dim=out_dim)
+
+
+def _mnist_g_spec(out: int):
+    return (_block(100, 128, bn=False) + _block(128, 256) +
+            _block(256, 512) + _block(512, 1024) +
+            [("linear", 1024, out), ("tanh",)])
+
+
+def build_generator(family: str, num_heads: int = 1,
+                    img_shape: Sequence[int] = (1, 28, 28)) -> Model:
+    if family == "mnist-mlp":
+        out = int(np.prod(img_shape))
+        return _mlp_model(_mnist_g_spec(out), out_shape=tuple(img_shape))
+    raise NotImplementedError(
+        f"generator family {family!r} is not ported yet (ROADMAP queue 1: "
+        "item 8 multipath, item 11 2DMG, item 12 conv)")
+
+
+def build_discriminator(family: str, out_dim: int = 1,
+                        in_dim: int = 784) -> Model:
+    if family == "mnist":
+        spec = [("linear", in_dim, 512), ("lrelu", 0.2),
+                ("linear", 512, 256), ("lrelu", 0.2),
+                ("linear", 256, out_dim)]
+        if out_dim == 1:
+            spec.append(("sigmoid",))
+        return _mlp_model(spec, out_dim=out_dim)
+    raise NotImplementedError(
+        f"discriminator family {family!r} is not ported yet (ROADMAP queue "
+        "1: item 11 2DMG, item 12 conv)")
+
+
+def models_for_config(cfg) -> Tuple[Model, Model]:
+    """The (G, D) pair the reference CAP-GAN MNIST script uses."""
+    if cfg.conv:
+        raise NotImplementedError(
+            "conv=True is not ported yet (ROADMAP queue 1 item 12)")
+    if not cfg.is_image:
+        raise NotImplementedError(
+            "the 2DMG workload is not ported yet (ROADMAP queue 1 item 11)")
+    if cfg.algo == "mixgan" or (cfg.algo == "cglgan" and cfg.iid != 0):
+        raise NotImplementedError(
+            "multipath generators are not ported yet (ROADMAP queue 1 "
+            "item 8)")
+    img_shape = (1, cfg.img_size, cfg.img_size)
+    out_dim = 2 if cfg.resolved_d_head == "logits2" else 1
+    g = build_generator("mnist-mlp", img_shape=img_shape)
+    d = build_discriminator("mnist", out_dim, in_dim=int(np.prod(img_shape)))
+    return g, d

@@ -1,0 +1,296 @@
+"""Fused local-D epoch: E discriminator steps for W clients in one call.
+
+Port of ``cglgan_tpu/ops/pallas/fused_dstep.py``.  The Pallas TPU kernel
+``_dstep_kernel`` becomes the hand-written CUDA C++ kernel pipeline in
+``csrc/fused_dstep.cu`` (route: nvcc for sm_90a, plain C interface, ctypes);
+its note gives the bound at the main-path shapes and the design.
+
+``fused_d_epoch_steps`` launches the kernel for CUDA tensors and runs the
+plain PyTorch version (``fused_d_epoch_steps_plain``: the same hand-derived
+forward, backward and Adam loop in torch ops) for CPU tensors; nothing
+else.  ``launches`` counts the kernel's launches (one per call).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence, Tuple
+
+import torch
+
+from cglgan_tpu_torch.algos.common import (AdamState, NetState, adam_leaf,
+                                           bias_correction,
+                                           normalize_images)
+
+SOURCE = "cglgan_tpu_torch/ops/csrc/fused_dstep.cu"
+REPLACES = "cglgan_tpu/ops/pallas/fused_dstep.py:44"
+HEADS = {"sigmoid": 0, "logits2": 1}
+EPS = 1e-8
+
+launches = 0          # kernel launches (wrapper calls that ran the kernel)
+
+
+def eligible(cfg, mesh=None) -> bool:
+    """The reference's engage rule (``fused_dstep.eligible``): auto runs the
+    kernel at epoch > 1 in float32; True forces it (raising when the config
+    cannot take it); False disables it."""
+    if cfg.pallas_dstep is False:
+        return False
+    ok = (not cfg.conv and cfg.dtype in ("float32", "bfloat16")
+          and mesh is None and cfg.dropout_rate == 0.0
+          and cfg.resolved_d_head in HEADS)
+    if cfg.pallas_dstep is True:
+        if not ok:
+            raise ValueError(
+                "pallas_dstep=True requires an MLP discriminator, float32 "
+                "or bfloat16, no --devices mesh and no dropout")
+        return True
+    return ok and cfg.dtype == "float32" and cfg.epoch > 1
+
+
+def bias_corrections(count: torch.Tensor, W: int, E: int, b1: float,
+                     b2: float) -> torch.Tensor:
+    """(W, E, 2) float32 per-client (1 - b1^t, 1 - b2^t) for the steps
+    count+1 .. count+E, built on ``count``'s device."""
+    counts = count.reshape(-1).expand(W)
+    steps = counts[:, None] + torch.arange(1, E + 1, device=count.device)
+    return torch.stack([bias_correction(steps, b1),
+                        bias_correction(steps, b2)], dim=2).contiguous()
+
+
+def fused_d_epoch_steps(params: Sequence[torch.Tensor],
+                        mu: Sequence[torch.Tensor],
+                        nu: Sequence[torch.Tensor], count: torch.Tensor,
+                        shards: torch.Tensor, starts: Sequence[int],
+                        fake: torch.Tensor, *, head: str = "sigmoid",
+                        d_loss_half: bool = False, is_image: bool = True,
+                        lr: float = 2e-4, b1: float = 0.5, b2: float = 0.999):
+    """Run ``len(starts)`` local D steps for W clients.
+
+    params/mu/nu: 6-tuples (w1 (W,din,h1), b1 (W,h1), w2, b2, w3, b3).
+    count: (W,) or () Adam step counts before the call.
+    shards: (W, max_len, din) uint8; step e reads rows
+    ``[starts[e], starts[e] + B)`` of every client's shard.
+    fake: (B, din) shared or (W, B, din) per-client fakes.
+
+    Returns (new_params, new_mu, new_nu, new_count, losses (W,)); inputs
+    are not modified.  CUDA tensors run the kernel, CPU tensors the plain
+    version."""
+    if head not in HEADS:
+        raise ValueError(f"unsupported head {head!r}")
+    if not is_image or shards.dtype != torch.uint8:
+        raise NotImplementedError(
+            "fused_d_epoch_steps takes uint8 image shards; the float 2DMG "
+            "rows are not ported yet (ROADMAP queue 1 item 11)")
+    if shards.device.type == "cuda":
+        return _launch(params, mu, nu, count, shards, starts, fake, head,
+                       d_loss_half, lr, b1, b2)
+    if shards.device.type == "cpu":
+        return fused_d_epoch_steps_plain(
+            params, mu, nu, count, shards, starts, fake, head=head,
+            d_loss_half=d_loss_half, lr=lr, b1=b1, b2=b2)
+    raise ValueError(f"unsupported device {shards.device}")
+
+
+def fused_d_epoch_steps_plain(params, mu, nu, count, shards, starts, fake,
+                              *, head: str, d_loss_half: bool,
+                              lr: float = 2e-4, b1: float = 0.5,
+                              b2: float = 0.999):
+    """The kernel's arithmetic in torch ops (no autograd): the hand-derived
+    forward/backward and Adam of ``_dstep_kernel``, on any device."""
+    W, E = shards.shape[0], len(starts)
+    B = fake.shape[-2]
+    w1, bb1, w2, bb2, w3, bb3 = params
+    state = [list(params), list(mu), list(nu)]
+    cc = bias_corrections(count, W, E, b1, b2)
+    fk = fake if fake.ndim == 3 else fake.unsqueeze(0).expand(W, -1, -1)
+    mult = 1.0 if d_loss_half else 2.0
+    dt = w1.dtype
+    is_real = (torch.arange(2 * B, device=shards.device) < B).to(dt)
+    is_real = is_real.reshape(1, 2 * B, 1)
+    lrelu_grad = lambda z: torch.where(z >= 0, 1.0, 0.2)
+    loss = None
+    for e in range(E):
+        w1, bb1, w2, bb2, w3, bb3 = state[0]
+        s = int(starts[e])
+        x = torch.cat([normalize_images(shards[:, s:s + B]).to(dt),
+                       fk.to(dt)], 1)
+        z1 = torch.bmm(x, w1) + bb1.unsqueeze(1)
+        h1 = torch.where(z1 >= 0, z1, 0.2 * z1)
+        z2 = torch.bmm(h1, w2) + bb2.unsqueeze(1)
+        h2 = torch.where(z2 >= 0, z2, 0.2 * z2)
+        z3 = torch.bmm(h2, w3) + bb3.unsqueeze(1)
+        if head == "sigmoid":
+            p = torch.sigmoid(z3)
+            pc = torch.clamp(p, 1e-12, 1.0 - 1e-7)
+            per = -(is_real * torch.log(pc)
+                    + (1 - is_real) * torch.log1p(-pc))
+            loss = (mult * 0.5) * per.sum(dim=(1, 2)) / B
+            dpc = (mult * 0.5 / B) * (is_real * (-1.0 / pc)
+                                      + (1 - is_real) * (1.0 / (1.0 - pc)))
+            inside = ((p > 1e-12) & (p < 1.0 - 1e-7)).float()
+            g3 = dpc * inside * p * (1.0 - p)
+        else:
+            zs = z3 - z3.amax(dim=-1, keepdim=True)
+            logp = zs - torch.log(torch.exp(zs).sum(dim=-1, keepdim=True))
+            tgt = torch.cat([1.0 - is_real, is_real], dim=2)
+            loss = (mult * 0.5) * (-(tgt * logp).sum(dim=(1, 2)) / B)
+            g3 = (mult * 0.5 / B) * (torch.exp(logp) - tgt)
+        dw3 = torch.bmm(h2.transpose(1, 2), g3)
+        dz2 = torch.bmm(g3, w3.transpose(1, 2)) * lrelu_grad(z2)
+        dw2 = torch.bmm(h1.transpose(1, 2), dz2)
+        dz1 = torch.bmm(dz2, w2.transpose(1, 2)) * lrelu_grad(z1)
+        dw1 = torch.bmm(x.transpose(1, 2), dz1)
+        grads = [dw1, dz1.sum(1), dw2, dz2.sum(1), dw3, g3.sum(1)]
+        c1, c2 = cc[:, e, 0], cc[:, e, 1]
+        for j, g in enumerate(grads):
+            lead = (W,) + (1,) * (g.ndim - 1)
+            state[0][j], state[1][j], state[2][j] = adam_leaf(
+                state[0][j], g, state[1][j], state[2][j],
+                c1.reshape(lead), c2.reshape(lead), lr, b1, b2, EPS)
+    return (tuple(state[0]), tuple(state[1]), tuple(state[2]), count + E,
+            loss)
+
+
+def _check(t: torch.Tensor, name: str, shape, dtype=torch.float32):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        if dtype == torch.float32 and t.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "fused_dstep takes float32 state; bf16 state is ROADMAP "
+                "queue 2 item 1 (bf16)")
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+_LIB = None
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared (built on
+    first use, never at import)."""
+    global _LIB
+    if _LIB is None:
+        from cglgan_tpu_torch.ops import _build
+        lib = _build.load("fused_dstep")
+        vp, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+        lib.fused_dstep_f32.argtypes = [
+            ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp), vp,
+            ctypes.c_longlong, ctypes.POINTER(i), vp, i, vp, vp,
+            i, i, i, i, i, i, i, i, f, f, f, f, f, f, f, f, vp]
+        lib.fused_dstep_f32.restype = i
+        lib.fused_dstep_error_string.argtypes = [i]
+        lib.fused_dstep_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _launch(params, mu, nu, count, shards, starts, fake, head, d_loss_half,
+            lr, b1, b2):
+    global launches
+    W, max_len, din = shards.shape
+    E = len(starts)
+    h1, h2, dout = params[0].shape[2], params[2].shape[2], params[4].shape[2]
+    B = fake.shape[-2]
+    dev = shards.device
+    _check(shards, "shards", (W, max_len, din), torch.uint8)
+    shapes = [(W, din, h1), (W, h1), (W, h1, h2), (W, h2), (W, h2, dout),
+              (W, dout)]
+    state_in: List[torch.Tensor] = list(params) + list(mu) + list(nu)
+    for j, t in enumerate(state_in):
+        _check(t, f"state[{j}]", shapes[j % 6])
+        if t.device != dev:
+            raise ValueError("state and shards on different devices")
+    per_client = fake.ndim == 3
+    _check(fake, "fake", (W, B, din) if per_client else (B, din))
+    if head == "logits2" and dout != 2 or head == "sigmoid" and dout != 1:
+        raise ValueError(f"head {head!r} with {dout} outputs")
+    if any(not 0 <= int(s) <= max_len - B for s in starts):
+        raise ValueError(f"window starts {list(starts)} outside [0, "
+                         f"{max_len - B}]")
+    state_out = [torch.empty_like(t) for t in state_in]
+    R = 2 * B
+    f32 = dict(dtype=torch.float32, device=dev)
+    scratch = [torch.empty((W, R, n), **f32)
+               for n in (din, h1, h1, h2, h2, dout, dout, h2, h1)]
+    scratch += [torch.empty(s, **f32) for s in shapes]
+    cc = bias_corrections(count.to(dev), W, E, b1, b2)
+    loss = torch.empty((W,), **f32)
+    mult = 1.0 if d_loss_half else 2.0
+
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    lib = _library()
+    rc = lib.fused_dstep_f32(
+        ptrs(state_in), ptrs(state_out), ptrs(scratch), shards.data_ptr(),
+        max_len, (ctypes.c_int * E)(*[int(s) for s in starts]),
+        fake.data_ptr(), int(per_client), cc.data_ptr(), loss.data_ptr(),
+        W, E, B, din, h1, h2, dout, HEADS[head], mult * 0.5, mult * 0.5 / B,
+        -lr, b1, 1 - b1, b2, 1 - b2, EPS,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        msg = lib.fused_dstep_error_string(rc).decode()
+        raise RuntimeError(f"fused_dstep launch failed: {msg} ({rc})")
+    launches += 1
+    return (tuple(state_out[:6]), tuple(state_out[6:12]),
+            tuple(state_out[12:]), count + E, loss)
+
+
+# ---------------------------------------------------------------------------
+# the local-D phase of a round, on stacked NetStates
+# ---------------------------------------------------------------------------
+
+def unpack_net(net: NetState) -> Tuple[tuple, tuple, tuple, torch.Tensor]:
+    """Stacked MLP NetState -> (params, mu, nu) 6-tuples + counts."""
+    flat = lambda tree: tuple(x for p in tree if isinstance(p, dict)
+                              for x in (p["w"], p["b"]))
+    return flat(net.params), flat(net.opt.mu), flat(net.opt.nu), net.opt.count
+
+
+def repack_net(net: NetState, six, mu6, nu6, new_count) -> NetState:
+    def put(tree, flat):
+        out, j = [], 0
+        for p in tree:
+            if isinstance(p, dict):
+                out.append({"w": flat[2 * j], "b": flat[2 * j + 1]})
+                j += 1
+            else:
+                out.append(p)
+        return out
+    return NetState(put(net.params, six), net.bn,
+                    AdamState(new_count, put(net.opt.mu, mu6),
+                              put(net.opt.nu, nu6)))
+
+
+def kernel_d_phase(net: NetState, shards, starts, fake, cfg):
+    """Local-D phase over the flat (W, ...) D state; returns
+    (new_net, d_loss (W,))."""
+    six, mu6, nu6, count = unpack_net(net)
+    new_p, new_mu, new_nu, new_count, losses = fused_d_epoch_steps(
+        six, mu6, nu6, count, shards, starts, fake,
+        head=cfg.resolved_d_head, d_loss_half=cfg.algo in ("capgan", "mixgan"),
+        is_image=cfg.is_image, lr=cfg.lr_d, b1=cfg.b1, b2=cfg.b2)
+    return repack_net(net, new_p, new_mu, new_nu, new_count), losses
+
+
+def kernel_local_phase(cfg, g_model, g_net: NetState, d_net: NetState,
+                       shards, starts, z_d):
+    """Round prelude shared with the autograd path: the per-server Xd
+    forward (train mode, no grad: advances the G BN buffers -> gbn1), the
+    full fake batch routed to every client of its server, then the fused
+    D phase.  Returns (new_d, d_loss (W,), gbn1)."""
+    S, B = z_d.shape[0], cfg.batch_size
+    W = shards.shape[0]
+    with torch.no_grad():
+        xd, gbn1 = g_model.apply(g_net.params, g_net.bn, z_d, train=True)
+    xd = xd.reshape(S, B, -1)
+    if S == 1:
+        fake = xd[0].contiguous()                          # shared (B, din)
+    else:
+        fake = xd.unsqueeze(1).expand(S, W // S, B, xd.shape[-1]) \
+            .reshape(W, B, -1).contiguous()
+    new_d, d_loss = kernel_d_phase(d_net, shards, starts, fake, cfg)
+    return new_d, d_loss, gbn1

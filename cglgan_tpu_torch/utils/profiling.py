@@ -1,0 +1,44 @@
+"""Where a round's time goes on the card: ``torch.profiler`` over a few
+rounds, summed by device kernel.
+
+Device time is the sum of every kernel's own time (one stream, so kernels do
+not overlap); the busy share is that sum over the wall time of the profiled
+window, which the profiler itself lengthens on the host, so the share is a
+lower bound.  Used by ``chip_smoke.py``.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict
+
+import torch
+
+
+def profile_rounds(runner, state, rounds: int, top: int = 8
+                   ) -> Dict[str, Any]:
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            state, _ = runner.round_fn(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0:
+            kernels.append((ev.key, us, ev.count))
+    kernels.sort(key=lambda k: -k[1])
+    device_us = sum(k[1] for k in kernels)
+    return {"rounds": rounds, "wall_ms_per_round": wall * 1e3 / rounds,
+            "device_ms_per_round": device_us / 1e3 / rounds,
+            "device_busy_share": device_us / 1e6 / wall,
+            "kernel_launches_per_round": sum(k[2] for k in kernels) / rounds,
+            "top": [{"kernel": k[0][:80], "ms_per_round": k[1] / 1e3 / rounds,
+                     "calls_per_round": k[2] / rounds}
+                    for k in kernels[:top]]}
