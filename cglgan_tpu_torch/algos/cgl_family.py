@@ -30,31 +30,9 @@ from cglgan_tpu_torch.ops import fused_dstep
 from cglgan_tpu_torch.utils.tree import tree_map, tree_unflatten
 
 
-def check_supported(cfg, mesh=None) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for what this
-    slice does not cover."""
-    if cfg.algo != "capgan":
-        raise NotImplementedError(
-            f"algo {cfg.algo!r} is not ported yet (ROADMAP queue 1: item 8 "
-            "cglgan/mixgan, item 9 mdgan/acgan, item 10 flgan/fegan)")
-    if cfg.conv:
-        raise NotImplementedError("conv=True is not ported yet (ROADMAP "
-                                  "queue 1 item 12)")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r} is not ported yet (ROADMAP queue 1 item 5 "
-            "bf16 mode, queue 2 item 1 bf16 fused_dstep state)")
-    if mesh is not None or cfg.model_shards > 1:
-        raise NotImplementedError("meshes and model_shards > 1 are not "
-                                  "ported yet (ROADMAP queue 1 item 17)")
-    if not cfg.is_image:
-        raise NotImplementedError("the 2DMG workload is not ported yet "
-                                  "(ROADMAP queue 1 item 11)")
-
-
 def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
     dev = device_mod.resolve(device)
-    check_supported(cfg)
+    common.check_supported(cfg)
     S, k, W = cfg.num_servers, cfg.clients_per_server, cfg.num_workers
     g_model, d_model = models_for_config(cfg)
     adv = common.make_adv_loss(cfg.resolved_d_head)

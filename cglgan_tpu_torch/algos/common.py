@@ -20,6 +20,48 @@ from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 # ---------------------------------------------------------------------------
+# what the port covers
+# ---------------------------------------------------------------------------
+
+PORTED_ALGOS = ("capgan", "flgan", "fegan")
+
+
+def check_supported(cfg, mesh=None) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for what the
+    ported slices do not cover."""
+    if cfg.algo not in PORTED_ALGOS:
+        raise NotImplementedError(
+            f"algo {cfg.algo!r} is not ported yet (ROADMAP queue 1: item 8 "
+            "cglgan/mixgan, item 9 mdgan/acgan)")
+    if cfg.conv:
+        raise NotImplementedError("conv=True is not ported yet (ROADMAP "
+                                  "queue 1 item 12)")
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r} is not ported yet (ROADMAP queue 1 item 5 "
+            "bf16 mode, queue 2 item 1 bf16 fused_dstep state)")
+    if mesh is not None or cfg.model_shards > 1:
+        raise NotImplementedError("meshes and model_shards > 1 are not "
+                                  "ported yet (ROADMAP queue 1 item 17)")
+    if cfg.algo == "capgan":
+        if not cfg.is_image:
+            raise NotImplementedError(
+                "the CGL family on the 2DMG workload is not ported yet "
+                "(ROADMAP queue 1 item 8)")
+        return
+    # the FedAvg family: the 2DMG "batches" sweep only
+    if cfg.is_image or cfg.resolved_local_sweep == "epochs":
+        raise NotImplementedError(
+            "flgan/fegan on image datasets (the ragged 'epochs' sweep, "
+            "step-count buckets, per-worker BatchNorm state) are not ported "
+            "yet (ROADMAP queue 1 item 10)")
+    if cfg.dropout_rate > 0.0:
+        raise NotImplementedError(
+            "dropout_rate > 0 (participation masks) is not ported yet "
+            "(ROADMAP queue 1 item 10)")
+
+
+# ---------------------------------------------------------------------------
 # losses: inputs (..., N, C); the mean runs over N, leading axes are members
 # ---------------------------------------------------------------------------
 
@@ -88,9 +130,12 @@ class NetState(NamedTuple):
 
 
 class FedState(NamedTuple):
-    g: NetState            # generators, stacked (S, ...)
-    d: NetState            # discriminators, stacked (W, ...)
-    lam: torch.Tensor      # (S,) Lambda game variables
+    """CAP-GAN: G stacked (S, ...), D stacked (W, ...), ``lam`` (S,).
+    FedAvg family: G and D params global and unstacked, Adam moments and
+    counts (fegan: BN state too) stacked (W, ...), ``lam`` is None."""
+    g: NetState
+    d: NetState
+    lam: Any               # (S,) Lambda game variables, or None
     t: int                 # round counter (host)
 
 

@@ -1,42 +1,63 @@
 """Algorithm registry: config -> Runner, loading data and partitioning.
 
-Port of ``cglgan_tpu/algos/registry.py`` for the image datasets and
-CAP-GAN; everything else raises ``NotImplementedError`` naming its ROADMAP
-item.
+Port of ``cglgan_tpu/algos/registry.py`` for CAP-GAN on the image datasets
+and FL-GAN / FeGAN on 2DMG; everything else raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+from cglgan_tpu_torch.algos.common import check_supported
 from cglgan_tpu_torch.core import device as device_mod
+from cglgan_tpu_torch.data.gmm import gmm_dataset
 from cglgan_tpu_torch.data.mnist import load_image_dataset
 from cglgan_tpu_torch.data.partition import Partition, partition
 
 
 def load_partition(cfg) -> Partition:
-    if not cfg.is_image:
-        raise NotImplementedError("the 2DMG dataset is not ported yet "
-                                  "(ROADMAP queue 1 item 11)")
     if cfg.conv:
         raise NotImplementedError("conv=True is not ported yet (ROADMAP "
                                   "queue 1 item 12)")
-    data, labels = load_image_dataset(cfg.dataset, cfg.data_dir,
-                                      seed=cfg.seed)
-    # shards are stored flat (N, H*W): one contiguous window per client
-    data = data.reshape(len(data), -1)
+    if cfg.dataset == "2dmg":
+        data, labels = gmm_dataset(cfg.num_class, cfg.num_sample,
+                                   seed=cfg.seed)
+        num_sample = cfg.num_sample * cfg.num_class  # eval pool: full scale
+        # 2DMG FL-GAN/MD-GAN draw composition sizes from num_workers*2
+        # (FLGAN/2DMG/flgan.py:292-296); others use num_workers**2
+        comp = cfg.num_workers * 2 if cfg.algo in ("flgan", "mdgan") else None
+        run_sub = False   # 2DMG iid=2 hands out whole label runs
+    else:
+        data, labels = load_image_dataset(cfg.dataset, cfg.data_dir,
+                                          seed=cfg.seed)
+        # shards are stored flat (N, H*W): one contiguous window per client
+        data = data.reshape(len(data), -1)
+        num_sample = cfg.num_sample
+        comp = None
+        run_sub = True    # dataset-object variant subsamples runs
     return partition(data, labels, cfg.num_workers, cfg.iid,
-                     num_class=cfg.num_class, num_sample=cfg.num_sample,
-                     seed=cfg.seed, composition_scale=None,
-                     run_subsample=True)
+                     num_class=cfg.num_class, num_sample=num_sample,
+                     seed=cfg.seed, composition_scale=comp,
+                     run_subsample=run_sub)
 
 
 def build_runner(cfg, part: Optional[Partition] = None, device=None):
     """Runner for ``cfg`` on ``device`` (default ``cuda``; raises when no
     card is present unless ``device="cpu"`` is passed)."""
     dev = device_mod.resolve(device)
-    from cglgan_tpu_torch.algos.cgl_family import (build_cgl_family,
-                                                   check_supported)
+    if cfg.pallas_sweep is True:
+        # validate the forced flag for EVERY algo: eligible() raises for a
+        # config that cannot take the kernel instead of running without it
+        from cglgan_tpu_torch.ops import fused_sweep
+        fused_sweep.eligible(cfg)
     check_supported(cfg)
     if part is None:
         part = load_partition(cfg)
+    if cfg.algo == "flgan":
+        from cglgan_tpu_torch.algos.fedavg_family import build_flgan
+        return build_flgan(cfg, part, dev)
+    if cfg.algo == "fegan":
+        from cglgan_tpu_torch.algos.fedavg_family import build_fegan
+        return build_fegan(cfg, part, dev)
+    from cglgan_tpu_torch.algos.cgl_family import build_cgl_family
     return build_cgl_family(cfg, part, dev)

@@ -26,6 +26,7 @@ class Runner(NamedTuple):
     gen_client: Optional[Callable[[Any, torch.Tensor, int],
                                   torch.Tensor]] = None
     device: Optional[torch.device] = None
+    extras: Optional[Dict[str, Any]] = None          # e.g. fegan sk, schedule
 
 
 def train(runner: Runner,

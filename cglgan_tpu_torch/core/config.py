@@ -8,7 +8,8 @@ same names and default semantics.
 The port's own copy of ``cglgan_tpu/core/config.py`` (same fields, defaults,
 validation and ``resolved_*`` properties; ``tests/test_torch_port_modules.py``
 holds the two equal).  The TPU-named knobs keep their names: ``pallas_dstep``
-selects the hand-written CUDA local-D kernel (``ops/fused_dstep.py``).
+selects the hand-written CUDA local-D kernel (``ops/fused_dstep.py``) and
+``pallas_sweep`` the CUDA local D/G-sweep kernel (``ops/fused_sweep.py``).
 """
 from __future__ import annotations
 
@@ -120,30 +121,28 @@ class FedGANConfig:
     # large-G scaling).  1 = off; >1 requires a mesh with a `model` axis of
     # this size (core.meshes.fed_mesh).
     model_shards: int = 1
-    # fused VMEM-resident local-D-epoch Pallas kernel (ops/pallas/
-    # fused_dstep.py): ~3x the D phase at epoch >= 2 on v5e.  None = auto
-    # (on when eligible and epoch > 1), True = force (errors if the config
-    # is ineligible), False = never.  Float-tolerance parity with the XLA
-    # path (MXU accumulation order differs), not bit parity.
+    # fused local-D-epoch kernel (ops/fused_dstep.py, CUDA C++).  None =
+    # auto (on when eligible and epoch > 1), True = force (errors if the
+    # config is ineligible), False = never.  Float-tolerance parity with
+    # the autograd path (sums run in another order), not bit parity.  The
+    # knob keeps the reference's TPU name.
     pallas_dstep: Optional[bool] = None
-    # fused VMEM-resident local D/G-sweep kernel for the FedAvg family
-    # (ops/pallas/fused_sweep.py): runs all ``epoch`` interleaved
-    # (D step, G step) local iterations with BOTH optimizer states resident
-    # in VMEM.  2DMG flgan/fegan only.  Measured 0.78-0.95x the XLA path on
-    # v5e (the tiny 2DMG nets batch better under vmap than a serial kernel
-    # grid) — kept as a documented negative result; None/False = off,
-    # True = force (numerics testing / other TPU generations).
+    # fused local D/G-sweep kernel for the FedAvg family
+    # (ops/fused_sweep.py, CUDA C++): runs all ``epoch`` interleaved
+    # (D step, G step) local iterations of every worker in one call.  2DMG
+    # flgan/fegan only.  The reference's rule is kept: None/False = off,
+    # True = force (errors if the config is ineligible); PERF.md has the
+    # card's numbers for both paths.
     pallas_sweep: Optional[bool] = None
     seed: int = 20211212
-    # param/activation dtype; "bfloat16" = +32% rounds/s on v5e (losses and
-    # the Lambda game stay float32).  See PERF.md for the 2DMG precision
-    # caveat; default float32 matches the reference's torch numerics.
+    # param/activation dtype; losses and the Lambda game stay float32.
+    # Default float32 matches the reference's torch numerics; "bfloat16" is
+    # not ported yet (``algos.common.check_supported``).
     dtype: str = "float32"
-    # bfloat16 + 2DMG is refused at construction (measured fidelity loss,
-    # PERF.md "bfloat16 mode": Distribution Score 0.03 vs 0.91 at 8k
-    # rounds — bf16's ~3 significant digits cannot place outputs inside
-    # the task's 0.01-std clusters).  Set True to run it anyway
-    # (numerics experiments, kernel tests).
+    # bfloat16 + 2DMG is refused at construction, with the reference's
+    # message: the JAX package measured the fidelity loss (bf16's ~3
+    # significant digits cannot place outputs inside the task's 0.01-std
+    # clusters).  Set True to pass construction anyway.
     force_dtype: bool = False
     scan_rounds: int = 0            # rounds fused per lax.scan chunk; 0 = auto
     data_dir: Optional[str] = None  # IDX files for real MNIST, if available

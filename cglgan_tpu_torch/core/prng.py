@@ -65,3 +65,16 @@ def round_streams(cfg, t: int, max_len: int, device
     z_d = torch.randn((S, B, zdim), generator=g, device=device)
     z_g = torch.randn((S, B, zdim), generator=g, device=device)
     return starts, z_d, z_g
+
+
+def sweep_streams(cfg, t: int, max_len: int, steps: int, device
+                  ) -> Tuple[List[int], torch.Tensor, torch.Tensor]:
+    """One FedAvg-family round's draws: ``(starts (steps,), z1, z2
+    (W, steps, B, zdim))`` — z1 feeds each local D step's fake batch, z2
+    the G step, as ``cglgan_tpu``'s ``_local_sweep`` draws them."""
+    W, B, zdim = cfg.num_workers, cfg.batch_size, cfg.latent_dim
+    starts = batch_starts(cfg.seed, t, steps, max_len, B)
+    g = generator(cfg.seed, ROLE_LOCAL, t, device=device)
+    z1 = torch.randn((W, steps, B, zdim), generator=g, device=device)
+    z2 = torch.randn((W, steps, B, zdim), generator=g, device=device)
+    return starts, z1, z2

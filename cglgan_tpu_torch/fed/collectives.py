@@ -1,7 +1,7 @@
 """Federated exchanges as ops on stacked tensors (leading axis = members).
 
-The four functions of ``cglgan_tpu/fed/collectives.py`` that the CAP-GAN
-round reaches, on trees (lists/dicts) of stacked tensors.  Single-device:
+The functions of ``cglgan_tpu/fed/collectives.py`` that the CAP-GAN and
+FedAvg-family rounds reach, on trees (lists/dicts) of stacked tensors.  Single-device:
 the multi-GPU forms (``torch.distributed``) are a later ROADMAP item.
 """
 from __future__ import annotations
@@ -20,6 +20,20 @@ def weighted_avg_tree(stacked, weights: torch.Tensor):
     """Weighted sum over the leading axis of every leaf (callers normalise)."""
     return tree_map(lambda x: torch.sum(x * _lead(weights, x), dim=0),
                     stacked)
+
+
+def fedavg_tree(stacked):
+    """Uniform FedAvg over the leading axis (FL-GAN server running mean,
+    FLGAN/MNIST/flgan.py:148-162)."""
+    return tree_map(lambda x: torch.mean(x, dim=0), stacked)
+
+
+def broadcast_tree(tree, n: int):
+    """Replicate an unstacked tree to a leading axis of size n (the server
+    'put p_g to every worker' fan-out, FLGAN/MNIST/flgan.py:145-147); a
+    view, no copy."""
+    return tree_map(lambda x: x.unsqueeze(0).expand((n,) + tuple(x.shape)),
+                    tree)
 
 
 def sigma_mix(self_tree, avg_tree, segema: float):

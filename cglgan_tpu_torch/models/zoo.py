@@ -1,14 +1,18 @@
-"""Model zoo, stacked: the G/D pairs of the CAP-GAN MNIST slice.
+"""Model zoo, stacked: the single-path MLP G/D pairs.
 
-Port of the ``mnist-mlp`` generator and the ``mnist`` discriminator of
-``cglgan_tpu/models/zoo.py`` (same declarative spec lists, same param/state
-list layout with ``None`` holes, so weights transplant entry by entry):
+Port of the single-path MLP families of ``cglgan_tpu/models/zoo.py`` (same
+declarative spec lists, same param/state list layout with ``None`` holes,
+so weights transplant entry by entry):
 
 * G ``mnist-mlp``: 100-128-256(BN)-512(BN)-1024(BN)-img, LeakyReLU 0.2,
   Tanh (model/mnist_model.py:5-29);
-* D ``mnist``: img-512-256-{1 sigmoid | 2 logits} (model/mnist_model.py:71-88).
+* D ``mnist``: img-512-256-{1 sigmoid | 2 logits} (model/mnist_model.py:71-88);
+* G ``2dmg-mlp``: 100-256-128-2 (FL-GAN, MD-GAN) and ``2dmg-small``:
+  100-32-2, LeakyReLU 0.2, Tanh, no BatchNorm;
+* D ``2dmg``: 2-128-256-1 sigmoid.
 
-The other families raise ``NotImplementedError`` naming their ROADMAP item.
+The multipath and conv families raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -100,16 +104,27 @@ def _mnist_g_spec(out: int):
 
 def build_generator(family: str, num_heads: int = 1,
                     img_shape: Sequence[int] = (1, 28, 28)) -> Model:
+    if family == "2dmg-small":
+        return _mlp_model([("linear", 100, 32), ("lrelu", 0.2),
+                           ("linear", 32, 2), ("tanh",)])
+    if family == "2dmg-mlp":
+        return _mlp_model([("linear", 100, 256), ("lrelu", 0.2),
+                           ("linear", 256, 128), ("lrelu", 0.2),
+                           ("linear", 128, 2), ("tanh",)])
     if family == "mnist-mlp":
         out = int(np.prod(img_shape))
         return _mlp_model(_mnist_g_spec(out), out_shape=tuple(img_shape))
     raise NotImplementedError(
         f"generator family {family!r} is not ported yet (ROADMAP queue 1: "
-        "item 8 multipath, item 11 2DMG, item 12 conv)")
+        "item 8 multipath, item 12 conv)")
 
 
 def build_discriminator(family: str, out_dim: int = 1,
                         in_dim: int = 784) -> Model:
+    if family == "2dmg":
+        return _mlp_model([("linear", 2, 128), ("lrelu", 0.2),
+                           ("linear", 128, 256), ("lrelu", 0.2),
+                           ("linear", 256, 1), ("sigmoid",)], out_dim=1)
     if family == "mnist":
         spec = [("linear", in_dim, 512), ("lrelu", 0.2),
                 ("linear", 512, 256), ("lrelu", 0.2),
@@ -119,21 +134,21 @@ def build_discriminator(family: str, out_dim: int = 1,
         return _mlp_model(spec, out_dim=out_dim)
     raise NotImplementedError(
         f"discriminator family {family!r} is not ported yet (ROADMAP queue "
-        "1: item 11 2DMG, item 12 conv)")
+        "1 item 12 conv)")
 
 
 def models_for_config(cfg) -> Tuple[Model, Model]:
-    """The (G, D) pair the reference CAP-GAN MNIST script uses."""
+    """The (G, D) pair the corresponding reference entry script uses."""
     if cfg.conv:
         raise NotImplementedError(
             "conv=True is not ported yet (ROADMAP queue 1 item 12)")
-    if not cfg.is_image:
-        raise NotImplementedError(
-            "the 2DMG workload is not ported yet (ROADMAP queue 1 item 11)")
     if cfg.algo == "mixgan" or (cfg.algo == "cglgan" and cfg.iid != 0):
         raise NotImplementedError(
             "multipath generators are not ported yet (ROADMAP queue 1 "
             "item 8)")
+    if cfg.dataset == "2dmg":
+        family = "2dmg-mlp" if cfg.algo in ("flgan", "mdgan") else "2dmg-small"
+        return build_generator(family), build_discriminator("2dmg")
     img_shape = (1, cfg.img_size, cfg.img_size)
     out_dim = 2 if cfg.resolved_d_head == "logits2" else 1
     g = build_generator("mnist-mlp", img_shape=img_shape)

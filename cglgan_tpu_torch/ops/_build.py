@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/torch_kernels/<name>-<hash>.so`` under
 the repository root (listed in ``.gitignore``), then loaded with ctypes.
-The hash covers the source and the flags, so an edited source rebuilds.
+The hash covers the source, every header under ``csrc/`` it includes and the
+flags, so an edited source or header rebuilds.
 Nothing is built at import time: ``load`` builds on first use, and
 ``build_all`` starts one ``nvcc`` per source, all at once.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -23,7 +25,8 @@ BUILD_DIR = os.path.join(
         __file__)))), "build", "torch_kernels")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("fused_dstep",)
+KERNELS = ("fused_dstep", "fused_sweep", "fused_adam")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -38,10 +41,26 @@ def nvcc() -> str:
                        "the card")
 
 
+def _source_closure(filename: str, seen=None) -> bytes:
+    """The bytes of ``csrc/<filename>`` followed by those of every header
+    under ``csrc/`` it includes with quotes, transitively, each once."""
+    seen = set() if seen is None else seen
+    if filename in seen:
+        return b""
+    seen.add(filename)
+    with open(os.path.join(CSRC, filename), "rb") as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        if os.path.exists(os.path.join(CSRC, inc.decode())):
+            text += _source_closure(inc.decode(), seen)
+    return text
+
+
 def target(name: str) -> str:
-    """Path of the library built from the current source and flags."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    """Path of the library built from the current source, the headers it
+    includes and the flags."""
+    digest = hashlib.sha256(_source_closure(name + ".cu")
+                            + " ".join(FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -31,93 +31,11 @@
 // thread); no tensor cores, no library GEMM.  wgmma/TMA and keeping state
 // on chip across steps are later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mlp_kernels.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16, TPB = 256;
-constexpr int EPI_STORE = 0, EPI_BIAS = 1, EPI_BIAS_LRELU = 2,
-              EPI_LRELU_GRAD = 3;
 constexpr int HEAD_SIGMOID = 0, HEAD_LOGITS2 = 1;
-// the reference clips probabilities to [1e-12, 1 - 1e-7] in float32
-constexpr float P_LO = 1e-12f;
-constexpr float P_HI = (float)(1.0 - 1e-7);
-
-// C[b] (M x N, row-major, ld N) = A[b] (M x K) * B[b] (K x N) + epilogue.
-// Operands are addressed through strides, so one kernel serves X W
-// (NN), A^T G (TN) and G W^T (NT).  A_K_CONTIG / B_N_CONTIG say which index
-// is contiguous in memory, so tile loads stay coalesced.
-template <bool A_K_CONTIG, bool B_N_CONTIG, int EPI>
-__global__ void __launch_bounds__(TPB) gemm_kernel(
-    int M, int N, int K,
-    const float* __restrict__ A, long long sAb, long long sAm, long long sAk,
-    const float* __restrict__ Bm, long long sBb, long long sBk, long long sBn,
-    float* __restrict__ C, long long sCb,
-    const float* __restrict__ bias, long long sBiasb,
-    float* __restrict__ H, const float* __restrict__ Zaux) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  A += b * sAb;
-  Bm += b * sBb;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += TPB) {
-      int kk, mm;
-      if (A_K_CONTIG) { kk = i % BK; mm = i / BK; }
-      else            { mm = i % BM; kk = i / BM; }
-      const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = (gm < M && gk < K) ? A[gm * sAm + gk * sAk] : 0.f;
-    }
-    for (int i = tid; i < BN * BK; i += TPB) {
-      int kk, nn;
-      if (B_N_CONTIG) { nn = i % BN; kk = i / BN; }
-      else            { kk = i % BK; nn = i / BK; }
-      const int gn = n0 + nn, gk = k0 + kk;
-      Bs[kk][nn] = (gn < N && gk < K) ? Bm[gk * sBk + gn * sBn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  const long long cb = b * sCb;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      const long long o = cb + (long long)m * N + n;
-      float v = acc[i][j];
-      if (EPI == EPI_BIAS || EPI == EPI_BIAS_LRELU) v += bias[b * sBiasb + n];
-      if (EPI == EPI_LRELU_GRAD) v *= (Zaux[o] >= 0.f ? 1.f : 0.2f);
-      C[o] = v;
-      if (EPI == EPI_BIAS_LRELU) H[o] = v >= 0.f ? v : 0.2f * v;
-    }
-  }
-}
 
 // X[w] = concat(normalised u8 window, fake): grid (2B, W).
 __global__ void prep_kernel(const uint8_t* __restrict__ shards,
@@ -181,55 +99,7 @@ __global__ void head_kernel(const float* __restrict__ Z3,
   }
 }
 
-// out[w][n] = sum_r G[w][r][n]: grid (ceil(N/TPB), W).
-__global__ void colsum_kernel(const float* __restrict__ G,
-                              float* __restrict__ out, int R, int N) {
-  const int w = blockIdx.y, n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const float* g = G + (long long)w * R * N + n;
-  float s = 0.f;
-  for (int r = 0; r < R; ++r) s += g[(long long)r * N];
-  out[(long long)w * N + n] = s;
-}
-
-// One optax-ordered Adam update of a (W, n_per) tensor; p/m/v may alias
-// po/mo/vo (each element reads, then writes, only its own index).  The
-// _rn intrinsics keep nvcc from contracting into FMAs, so the update
-// rounds exactly as the unfused formula does.
-__global__ void adam_kernel(const float* p, const float* m, const float* v,
-                            const float* __restrict__ g, float* po, float* mo,
-                            float* vo, long long n_per, int W,
-                            const float* __restrict__ cc, int E, int e,
-                            float neg_lr, float b1, float omb1, float b2,
-                            float omb2, float eps) {
-  const long long total = n_per * W;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const int w = (int)(i / n_per);
-    const float c1 = cc[(w * E + e) * 2], c2 = cc[(w * E + e) * 2 + 1];
-    const float gg = g[i];
-    const float mu2 = __fadd_rn(__fmul_rn(b1, m[i]), __fmul_rn(omb1, gg));
-    const float nu2 = __fadd_rn(__fmul_rn(b2, v[i]),
-                                __fmul_rn(omb2, __fmul_rn(gg, gg)));
-    const float upd = __fdiv_rn(__fdiv_rn(mu2, c1),
-                                __fadd_rn(__fsqrt_rn(__fdiv_rn(nu2, c2)), eps));
-    po[i] = __fadd_rn(p[i], __fmul_rn(neg_lr, upd));
-    mo[i] = mu2;
-    vo[i] = nu2;
-  }
-}
-
-inline dim3 gemm_grid(int M, int N, int W) {
-  return dim3((N + BN - 1) / BN, (M + BM - 1) / BM, W);
-}
-
 }  // namespace
-
-#define CHECK_LAUNCH()                         \
-  do {                                         \
-    cudaError_t err_ = cudaGetLastError();     \
-    if (err_ != cudaSuccess) return (int)err_; \
-  } while (0)
 
 extern "C" {
 

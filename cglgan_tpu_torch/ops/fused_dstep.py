@@ -79,8 +79,9 @@ def fused_d_epoch_steps(params: Sequence[torch.Tensor],
         raise ValueError(f"unsupported head {head!r}")
     if not is_image or shards.dtype != torch.uint8:
         raise NotImplementedError(
-            "fused_d_epoch_steps takes uint8 image shards; the float 2DMG "
-            "rows are not ported yet (ROADMAP queue 1 item 11)")
+            "fused_d_epoch_steps takes uint8 image shards; float 2DMG rows "
+            "(the CGL and MD-GAN families on 2DMG) are not ported yet "
+            "(ROADMAP queue 1 items 8 and 9)")
     if shards.device.type == "cuda":
         return _launch(params, mu, nu, count, shards, starts, fake, head,
                        d_loss_half, lr, b1, b2)
@@ -243,14 +244,18 @@ def _launch(params, mu, nu, count, shards, starts, fake, head, d_loss_half,
 # the local-D phase of a round, on stacked NetStates
 # ---------------------------------------------------------------------------
 
-def unpack_net(net: NetState) -> Tuple[tuple, tuple, tuple, torch.Tensor]:
-    """Stacked MLP NetState -> (params, mu, nu) 6-tuples + counts."""
-    flat = lambda tree: tuple(x for p in tree if isinstance(p, dict)
-                              for x in (p["w"], p["b"]))
+def unpack_net_generic(net: NetState):
+    """Stacked MLP NetState (flat leading axis) -> (params, mu, nu, count)
+    as flat per-layer [w, b, w, b, ...] tensor lists, for any number of
+    linear layers."""
+    flat = lambda tree: [x for p in tree if isinstance(p, dict)
+                         for x in (p["w"], p["b"])]
     return flat(net.params), flat(net.opt.mu), flat(net.opt.nu), net.opt.count
 
 
-def repack_net(net: NetState, six, mu6, nu6, new_count) -> NetState:
+def repack_net_generic(net: NetState, flat_p, flat_mu, flat_nu,
+                       new_count) -> NetState:
+    """Write flat per-layer tensor lists back into the NetState tree."""
     def put(tree, flat):
         out, j = [], 0
         for p in tree:
@@ -260,9 +265,20 @@ def repack_net(net: NetState, six, mu6, nu6, new_count) -> NetState:
             else:
                 out.append(p)
         return out
-    return NetState(put(net.params, six), net.bn,
-                    AdamState(new_count, put(net.opt.mu, mu6),
-                              put(net.opt.nu, nu6)))
+    return NetState(put(net.params, flat_p), net.bn,
+                    AdamState(new_count, put(net.opt.mu, flat_mu),
+                              put(net.opt.nu, flat_nu)))
+
+
+def unpack_net(net: NetState) -> Tuple[tuple, tuple, tuple, torch.Tensor]:
+    """3-layer-MLP special case of ``unpack_net_generic`` (6-tuples)."""
+    p, mu, nu, count = unpack_net_generic(net)
+    return tuple(p), tuple(mu), tuple(nu), count
+
+
+def repack_net(net: NetState, six, mu6, nu6, new_count) -> NetState:
+    return repack_net_generic(net, list(six), list(mu6), list(nu6),
+                              new_count)
 
 
 def kernel_d_phase(net: NetState, shards, starts, fake, cfg):

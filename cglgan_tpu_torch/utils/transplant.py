@@ -3,10 +3,12 @@
 ``from_jax_numpy`` takes the reference's ``FedState`` after
 ``jax.tree.map(np.asarray, state)`` — NamedTuples of numpy arrays, read by
 attribute and list position (``.params``, ``.bn``, ``.opt[0].count/.mu/.nu``),
-so this module imports neither jax nor optax.  The reference stacks D state
-``(S, k, ...)``; the port keeps it flat ``(W, ...)``.  ``to_numpy`` is the
-inverse view used by the tests: plain dicts of numpy arrays in the port's
-layout.
+so this module imports neither jax nor optax.  CAP-GAN: the reference stacks
+D state ``(S, k, ...)``; the port keeps it flat ``(W, ...)``.  FedAvg family
+(flgan, fegan): both packages keep G and D params unstacked and the Adam
+state (fegan: the BN state too) stacked ``(W, ...)``, and ``lam`` is None,
+so every array carries over as it is.  ``to_numpy`` is the inverse view used
+by the tests: plain dicts of numpy arrays in the port's layout.
 """
 from __future__ import annotations
 
@@ -36,6 +38,9 @@ def from_jax_numpy(tree, cfg, device) -> FedState:
                         AdamState(count, tree_map(conv, list(adam.mu)),
                                   tree_map(conv, list(adam.nu))))
 
+    if cfg.algo in ("flgan", "fegan"):
+        return FedState(net(tree.g, False), net(tree.d, False), None,
+                        int(tree.t))
     return FedState(net(tree.g, False), net(tree.d, True),
                     torch.from_numpy(np.array(tree.lam, np.float32)).to(dev),
                     int(tree.t))
@@ -49,5 +54,6 @@ def to_numpy(state: FedState) -> Dict[str, Any]:
                 "count": npy(n.opt.count), "mu": tree_map(npy, n.opt.mu),
                 "nu": tree_map(npy, n.opt.nu)}
 
-    return {"g": net(state.g), "d": net(state.d), "lam": npy(state.lam),
+    lam = None if state.lam is None else npy(state.lam)
+    return {"g": net(state.g), "d": net(state.d), "lam": lam,
             "t": int(state.t)}

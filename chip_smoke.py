@@ -4,23 +4,38 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  device    the card (nvidia-smi name and power limit) and the kernel build;
+  device    the card (nvidia-smi name and power limit) and the kernel build
+            (one ``nvcc`` per source, all started together);
   kernel    every ported kernel against its plain PyTorch version on the
-            card at the main path's shapes (16 clients, E=5, B=100, 784-512-
-            256-{2,1}), both heads, diverging per-client Adam counts; times
-            of the kernel, the plain version and the autograd path beside
-            the kernel's bound;
-  reference a shrunk CAP-GAN on the card (kernel path) against the same
-            rounds on the CPU (plain path) from one init and one stream;
+            card at its path's shapes, with the times of the kernel, the
+            plain version, the autograd path or library call, and the bound:
+            ``fused_dstep`` (16 clients, E=5, B=100, 784-512-256-{2,1}, both
+            heads, diverging per-client Adam counts); ``fused_sweep`` (16
+            workers, E=5, B=100, G 100-256-128-2 and 100-32-2, D 2-128-256-1,
+            diverging per-worker G and D counts); ``fused_adam`` (the
+            16-client discriminator stack, float32 / bfloat16 / stochastic
+            bfloat16 moments, then three steps through ``init``/``step``);
+  reference a shrunk CAP-GAN, FL-GAN and FeGAN on the card (kernel path)
+            against the same rounds on the CPU (plain path) from one init
+            and one stream;
   main      16-client CAP-GAN on MNIST shapes at epoch=5 (the kernel path),
             20 rounds through ``build_runner`` and ``train``; the kernel's
             launch count must rise by exactly 20 and every metric be finite;
-  autograd  the same configuration at epoch=1 (the autograd D path).
-Each of the last two also profiles 10 further rounds (device time by
-kernel, busy share; ``cglgan_tpu_torch/utils/profiling.py``).
+  autograd  the same configuration at epoch=1 (the autograd D path);
+  fedavg    16-worker FL-GAN and FeGAN (frac_workers=0.5) on 2DMG at
+            epoch=5 through ``load_partition``, ``build_runner`` and
+            ``train``, 20 rounds each with ``pallas_sweep=True`` (the sweep
+            kernel's launch count must rise by exactly 20) and with the
+            default (autograd; the count must stay 0); KL and Distribution
+            Score of 10 000 samples are printed, not gated.
+The round phases also profile a few further rounds (device time by kernel,
+busy share; ``cglgan_tpu_torch/utils/profiling.py``).
 Then the card line, the ``kernels`` line and, last, the ok line.  Any
 failure raises and exits non-zero; without a card it exits 2 and prints
-no result.  Imports nothing of JAX.
+no result.  ``--phases a,b`` runs only the named phases (of ``dstep sweep
+adam reference main fedavg``) for a short first look at a new kernel; the
+``kernels`` and ok lines are printed only by a full run.  Imports nothing
+of JAX.
 """
 import json
 import math
@@ -34,6 +49,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the main path's kernel shapes
 W, E, B, DIN, H1, H2 = 16, 5, 100, 784, 512, 256
 ROUNDS = 20
+PROFILE_ROUNDS = 5
+# the FedAvg-family path's kernel shapes: G widths by algorithm, D widths
+G_DIMS = {"flgan": (100, 256, 128, 2), "fegan": (100, 32, 2)}
+D_DIMS = (2, 128, 256, 1)
+FEDAVG = dict(dataset="2dmg", num_workers=16, num_class=8, num_sample=1000,
+              batch_size=100, iid=1, epoch=5)
 # Kernel vs plain on the card, both full float32, same inputs.  Sums run in
 # another order (tiled FMA vs cuBLAS).  When the order flips the sign of a
 # pre-activation within ~1e-7 of 0 (8.2M of them per call), LeakyReLU's
@@ -45,6 +66,22 @@ ROUNDS = 20
 # missing term gives O(1).
 TOL_SCALED = 1e-2
 TOL_LOSS = 1e-5
+# fused_sweep is held to the same two limits for the same reason: 15M
+# pre-activations per call pass a LeakyReLU, and the G step differentiates
+# through the D that the D step has just updated, so one flipped slope moves
+# both nets by ~1e-3 of a tensor's scale.  On these seeded inputs no slope
+# flipped: measured on an H100, every state tensor within 1.4e-6 of its
+# scale and both losses within 1.7e-7 relative.
+#
+# fused_adam is elementwise, with no sum to reorder: kernel and plain
+# version do the same float32 operations in the same order (the kernel's _rn
+# intrinsics forbid FMA contraction), so params and float32 moments must
+# agree to 1e-6 of each tensor's largest entry.  bfloat16 moments are one
+# rounding of those float32 values: they may differ from the plain version's
+# by one bfloat16 step where the float32 values differ in the last place
+# across a rounding boundary, on at most 1e-4 of the elements.
+TOL_ADAM = 1e-6
+TOL_BF16_SHARE = 1e-4
 
 
 def emit(obj):
@@ -99,24 +136,27 @@ def dstep_work(W, E, B, din, h1, h2, dout):
     return flops, bytes_
 
 
+def scaled_errs(got, ref, tol):
+    """Max abs error and max of max|got - ref| / max|ref| over two tensor
+    lists."""
+    abs_err = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(got, ref))
+    scaled = max(float((x.float() - y.float()).abs().max()
+                       / y.float().abs().max().clamp_min(1e-30))
+                 for x, y in zip(got, ref))
+    return {"max_abs_err": abs_err, "max_scaled_err": scaled,
+            "tol_scaled": tol, "ok": scaled <= tol}
+
+
 def compare(got, ref):
-    """Per group (params, mu, nu, loss): the max abs error and the max of
-    max|got - ref| / max|ref| over its tensors, and whether both are
-    within tolerance."""
+    """fused_dstep results per group (params, mu, nu, loss) against the
+    plain version's, each with its tolerance."""
     import torch
     if not torch.equal(got[3].cpu(), ref[3].cpu()):
         raise AssertionError("Adam counts differ")
-    out = {}
-    for i, group in enumerate(("params", "mu", "nu", "loss")):
-        a = got[i] if i < 3 else [got[4]]
-        b = ref[i] if i < 3 else [ref[4]]
-        abs_err = max(float((x - y).abs().max()) for x, y in zip(a, b))
-        scaled = max(float((x - y).abs().max()
-                           / y.abs().max().clamp_min(1e-30))
-                     for x, y in zip(a, b))
-        tol = TOL_LOSS if group == "loss" else TOL_SCALED
-        out[group] = {"max_abs_err": abs_err, "max_scaled_err": scaled,
-                      "tol_scaled": tol, "ok": scaled <= tol}
+    out = {g: scaled_errs(got[i], ref[i], TOL_SCALED)
+           for i, g in enumerate(("params", "mu", "nu"))}
+    out["loss"] = scaled_errs([got[4]], [ref[4]], TOL_LOSS)
     return out
 
 
@@ -188,11 +228,291 @@ def phase_kernel(card_name):
     return results
 
 
+def sweep_work(W, E, B, gdims, ddims):
+    """(FLOP, bytes) one fused_sweep_steps call must do.  Per worker and
+    iteration: G forward twice, D forward on 2B and on B rows, D weight
+    grads and the two hidden input grads on 2B rows, D input grads down to
+    the samples on B rows, G weight grads and hidden input grads; each
+    input read once and each output written once."""
+    pair = lambda d: sum(a * b for a, b in zip(d[:-1], d[1:]))
+    inner = lambda d: sum(a * b for a, b in zip(d[1:-1], d[2:]))
+    fg, fd = 2 * B * pair(gdims), 2 * B * pair(ddims)
+    per_iter = (fg                                  # fake = G(z1)
+                + 2 * fd + 2 * fd + 2 * 2 * B * inner(ddims)   # D step
+                + fg + fd + fd                      # G(z2), D fwd, D dx
+                + fg + 2 * B * inner(gdims))        # G grads
+    flops = W * E * per_iter
+    n_state = sum(a * b + b for d in (gdims, ddims)
+                  for a, b in zip(d[:-1], d[1:]))
+    bytes_ = (2 * 3 * W * n_state * 4 + W * E * B * ddims[0] * 4
+              + 2 * W * E * B * gdims[0] * 4 + 2 * W * E * 2 * 4
+              + 2 * W * 8 + 2 * W * 4)
+    return flops, bytes_
+
+
+def phase_kernel_sweep(card_name):
+    import torch
+    from cglgan_tpu_torch.algos import common, fedavg_family
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.data.gmm import gmm_modes
+    from cglgan_tpu_torch.models.zoo import (build_discriminator,
+                                             build_generator)
+    from cglgan_tpu_torch.ops import fused_dstep, fused_sweep
+
+    dev = torch.device("cuda")
+    results = []
+    d_model = build_discriminator("2dmg")
+    for algo, family in (("flgan", "2dmg-mlp"), ("fegan", "2dmg-small")):
+        gdims = G_DIMS[algo]
+        gen = torch.Generator().manual_seed(4321 + len(gdims))
+        g_model = build_generator(family)
+
+        def net(model, count):
+            params, bn = model.init(gen, W)
+            to = lambda fn: [None if p is None else
+                             {k: fn(x).to(dev) for k, x in p.items()}
+                             for p in params]
+            return common.NetState(
+                to(lambda x: x), bn, common.AdamState(
+                    count.to(dev),
+                    to(lambda x: torch.randn(x.shape, generator=gen) * 1e-3),
+                    to(lambda x: torch.randn(x.shape, generator=gen).abs()
+                       * 1e-6)))
+
+        # per-worker counts that differ between workers and between G and D
+        g_net = net(g_model, torch.arange(W, dtype=torch.int64) * 3)
+        d_net = net(d_model, torch.arange(W, dtype=torch.int64) * 2 + 1)
+        modes = torch.from_numpy(gmm_modes(8)).float()
+        lab = torch.randint(0, 8, (W, E, B), generator=gen)
+        reals = (modes[lab] + 0.01 * torch.randn((W, E, B, 2), generator=gen)
+                 ).to(dev)
+        z1 = torch.randn((W, E, B, gdims[0]), generator=gen).to(dev)
+        z2 = torch.randn((W, E, B, gdims[0]), generator=gen).to(dev)
+        gp, gmu, gnu, gc = fused_dstep.unpack_net_generic(g_net)
+        dp, dmu, dnu, dc = fused_dstep.unpack_net_generic(d_net)
+        args = (gp, gmu, gnu, gc, dp, dmu, dnu, dc, reals, z1, z2)
+        kw = dict(lr_g=2e-4, lr_d=2e-4, b1=0.5, b2=0.999)
+
+        before = [t.clone() for t in gp + gmu + gnu + dp + dmu + dnu]
+        got = fused_sweep.fused_sweep_steps(*args, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in
+                   zip(before, gp + gmu + gnu + dp + dmu + dnu)):
+            raise AssertionError("fused_sweep modified its inputs")
+        ref = fused_sweep.fused_sweep_steps_plain(*args, **kw)
+        names = ("g.params", "g.mu", "g.nu", "d.params", "d.mu", "d.nu")
+        errs = {n: scaled_errs(got[i], ref[i], TOL_SCALED)
+                for i, n in enumerate(names)}
+        errs["d_loss"] = scaled_errs([got[6]], [ref[6]], TOL_LOSS)
+        errs["g_loss"] = scaled_errs([got[7]], [ref[7]], TOL_LOSS)
+
+        kernel_ms = cuda_ms(lambda: fused_sweep.fused_sweep_steps(
+            *args, **kw), 20)
+        plain_ms = cuda_ms(lambda: fused_sweep.fused_sweep_steps_plain(
+            *args, **kw), 5)
+        cfg = FedGANConfig(algo=algo, **FEDAVG)
+        sweep = fedavg_family._local_sweep(
+            cfg, g_model, d_model, common.make_adv_loss("sigmoid"))
+        shards = reals.reshape(W, E * B, 2)
+        starts = [e * B for e in range(E)]
+        autograd_ms = cuda_ms(lambda: sweep(g_net, d_net, shards, starts,
+                                            z1, z2, E), 5)
+
+        flops, nbytes = sweep_work(W, E, B, gdims, D_DIMS)
+        f32_peak, hbm = peaks(card_name)
+        t_ops, t_bytes = flops / f32_peak * 1e3, nbytes / hbm * 1e3
+        res = {"phase": "kernel", "kernel": "fused_sweep", "algo": algo,
+               "shape": {"W": W, "E": E, "B": B, "g": list(gdims),
+                         "d": list(D_DIMS)},
+               "errors": errs, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "autograd_ms": autograd_ms, "gflop": flops / 1e9,
+               "mbytes": nbytes / 1e6, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "launches_inside_call": E * (25 + 7 * (len(gdims) - 1))}
+        emit(res)
+        results.append(res)
+        if not all(v["ok"] for v in errs.values()):
+            raise AssertionError(f"fused_sweep ({algo}) disagrees with its "
+                                 f"plain version: {errs}")
+    return results
+
+
+ADAM_SHAPES = ((W, DIN, H1), (W, H1), (W, H1, H2), (W, H2), (W, H2, 2),
+               (W, 2))
+
+
+def library_adam_ms(ps, gs, ms, vs, kw):
+    """Time of the one PyTorch call that computes an Adam step over the same
+    tensor list (``torch._fused_adam_``, what ``torch.optim.Adam(fused=True)``
+    calls; that optimizer's own ``step`` if the private name is missing).
+    A yardstick only: the port never calls it."""
+    import torch
+    ps, ms, vs = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+    if hasattr(torch, "_fused_adam_"):
+        steps = [torch.full((), 7.0, device=ps[0].device) for _ in ps]
+        fn = lambda: torch._fused_adam_(
+            ps, gs, ms, vs, [], steps, lr=kw["lr"], beta1=kw["b1"],
+            beta2=kw["b2"], weight_decay=0.0, eps=kw["eps"], amsgrad=False,
+            maximize=False)
+        return cuda_ms(fn, 20), "torch._fused_adam_"
+    for p, g in zip(ps, gs):
+        p.grad = g
+    opt = torch.optim.Adam(ps, lr=kw["lr"], betas=(kw["b1"], kw["b2"]),
+                           eps=kw["eps"], fused=True)
+    return cuda_ms(opt.step, 20), "torch.optim.Adam(fused=True).step"
+
+
+def phase_kernel_adam(card_name):
+    import torch
+    from cglgan_tpu_torch.ops import fused_adam as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(99)
+    rnd = lambda s, scale: (torch.randn(s, generator=gen) * scale).to(dev)
+    ps = [rnd(s, 0.05) for s in ADAM_SHAPES]
+    gs = [rnd(s, 1e-2) for s in ADAM_SHAPES]
+    ms32 = [rnd(s, 1e-3) for s in ADAM_SHAPES]
+    vs32 = [rnd(s, 1e-6).abs() for s in ADAM_SHAPES]
+    count = torch.tensor(7, dtype=torch.int64, device=dev)
+    kw = dict(lr=2e-4, b1=0.5, b2=0.999, eps=1e-8)
+    n_el = sum(p.numel() for p in ps)
+    _, hbm = peaks(card_name)
+    results = []
+
+    def run(ms, vs, stochastic, plain):
+        outs = []
+        for j, (g, p, m, v) in enumerate(zip(gs, ps, ms, vs)):
+            if plain:
+                outs.append(fa.fused_adam_step_plain(g, p, m, v, count, **kw))
+            else:
+                outs.append(fa.fused_adam_leaf(g, p, m, v, count, j,
+                                               stochastic=stochastic, **kw))
+        return outs
+
+    for mode in ("f32", "bf16", "bf16_sr"):
+        bf = mode != "f32"
+        ms = [m.bfloat16() for m in ms32] if bf else ms32
+        vs = [v.bfloat16() for v in vs32] if bf else vs32
+        sr = mode == "bf16_sr"
+        got = run(ms, vs, sr, plain=False)
+        torch.cuda.synchronize()
+        ref = run(ms, vs, False, plain=True)
+        errs = {"params": scaled_errs([o[0] for o in got],
+                                      [o[0] for o in ref], TOL_ADAM)}
+        if mode == "f32":
+            errs["m"] = scaled_errs([o[1] for o in got], [o[1] for o in ref],
+                                    TOL_ADAM)
+            errs["v"] = scaled_errs([o[2] for o in got], [o[2] for o in ref],
+                                    TOL_ADAM)
+        elif mode == "bf16":
+            for k, name in ((1, "m"), (2, "v")):
+                a = torch.cat([o[k].reshape(-1) for o in got])
+                b = torch.cat([o[k].reshape(-1) for o in ref])
+                step = (a.view(torch.int16).int()
+                        - b.view(torch.int16).int()).abs()
+                share = float((step > 0).float().mean())
+                errs[name] = {
+                    "max_abs_err": float((a.float() - b.float()).abs().max()),
+                    "share_off_by_one_bf16_step": share,
+                    "max_bf16_steps": int(step.max()),
+                    "tol_share": TOL_BF16_SHARE,
+                    "ok": share <= TOL_BF16_SHARE and int(step.max()) <= 1}
+        else:
+            # the float32 moments the plain version computes from the same
+            # bfloat16 inputs; each stored moment must be one of their two
+            # bfloat16 neighbours, and the signed rounding error, in units
+            # of the neighbours' distance, must average to zero
+            f32 = run([m.float() for m in ms], [v.float() for v in vs],
+                      False, plain=True)
+            for k, name in ((1, "m"), (2, "v")):
+                x = torch.cat([o[k].reshape(-1) for o in f32])
+                y = torch.cat([o[k].reshape(-1) for o in got]).float()
+                lo = (x.view(torch.int32) & -65536)
+                hi = lo + 65536
+                lo_f, hi_f = lo.view(torch.float32), hi.view(torch.float32)
+                neighbour = (y == lo_f) | (y == hi_f)
+                unit = ((y - x) / (hi_f - lo_f)).double()
+                mean = float(unit.mean())
+                se = float(unit.std()) / math.sqrt(unit.numel())
+                errs[name] = {
+                    "max_abs_err": float((y - x).abs().max()),
+                    "not_a_neighbour": int((~neighbour).sum()),
+                    "rounded_up_share": float((y == hi_f).float().mean()),
+                    "mean_signed_err_in_steps": mean, "std_err": se,
+                    "ok": bool(neighbour.all()) and abs(mean) <= 3 * se}
+        kernel_ms = cuda_ms(lambda: run(ms, vs, sr, plain=False), 20)
+        plain_ms = cuda_ms(lambda: run(ms, vs, False, plain=True), 5)
+        lib_ms, lib_name = (library_adam_ms(ps, gs, ms, vs, kw)
+                            if mode == "f32" else (None, None))
+        nbytes = n_el * (28 if mode == "f32" else 20)
+        res = {"phase": "kernel", "kernel": "fused_adam", "mode": mode,
+               "shapes": [list(s) for s in ADAM_SHAPES],
+               "elements": n_el, "errors": errs, "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_call": lib_name, "mbytes": nbytes / 1e6,
+               "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes",
+               "gbytes_per_s": nbytes / kernel_ms / 1e6}
+        emit(res)
+        results.append(res)
+        if not all(v["ok"] for v in errs.values()):
+            raise AssertionError(f"fused_adam ({mode}) disagrees with its "
+                                 f"plain version: {errs}")
+
+    # the public surface: three steps on a small tree (a leaf whose size is
+    # no multiple of 4 takes the tail path), counts set to 0 just before
+    tree = [{"w": rnd((130, 170), 0.05), "b": rnd((171,), 0.05)}]
+    grads = [{"w": rnd((130, 170), 1e-2), "b": rnd((171,), 1e-2)}]
+    opt = fa.fused_adam(2e-4, b1=0.5, b2=0.999)       # bf16, stochastic
+    state = opt.init(tree)
+    fa.launches = 0
+    params = tree
+    for _ in range(3):
+        params, state = opt.step(grads, state, params)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    moved = float((params[0]["w"] - tree[0]["w"]).abs().max())
+    res = {"phase": "kernel", "kernel": "fused_adam", "mode": "init/step",
+           "steps": 3, "count": int(state.count), "launches": launches,
+           "moment_dtype": str(state.m[0]["w"].dtype),
+           "max_param_move": moved}
+    emit(res)
+    finite = all(bool(torch.isfinite(x.float()).all())
+                 for x in (params[0]["w"], params[0]["b"], state.m[0]["b"],
+                           state.v[0]["w"]))
+    if int(state.count) != 3 or launches != 6 or not finite \
+            or not 0 < moved < 3 * 2e-4 * 1.01 / 0.5:
+        raise AssertionError(f"fused_adam init/step: {res}")
+    return results, launches
+
+
 def finite_metrics(history):
     for tick in history:
         for key, v in tick.items():
             if not math.isfinite(float(v)):
                 raise AssertionError(f"metric {key} = {v}")
+
+
+def state_errs(card_state, cpu_state):
+    """Card rounds against CPU rounds: per net and group (params, mu, nu)
+    the largest |card - cpu| over the group's largest |cpu| entry (the G's
+    pre-BN linear biases have an exactly-zero gradient, so their moments are
+    rounding noise on both devices, as in the JAX reference; scaling by the
+    group keeps them from deciding).  Adam counts must be equal."""
+    import numpy as np
+    from cglgan_tpu_torch.utils.transplant import to_numpy
+    from cglgan_tpu_torch.utils.tree import tree_leaves
+    a, b = to_numpy(card_state), to_numpy(cpu_state)
+    errs = {}
+    for net in ("g", "d"):
+        if not np.array_equal(a[net]["count"], b[net]["count"]):
+            raise AssertionError(f"{net} Adam counts differ")
+        for group in ("params", "mu", "nu"):
+            pairs = list(zip(tree_leaves(a[net][group]),
+                             tree_leaves(b[net][group])))
+            errs[f"{net}.{group}"] = (
+                max(float(np.abs(x - y).max()) for x, y in pairs)
+                / max(float(np.abs(y).max()) for _, y in pairs))
+    return errs
 
 
 def phase_reference():
@@ -203,8 +523,6 @@ def phase_reference():
     from cglgan_tpu_torch.core import prng
     from cglgan_tpu_torch.core.config import FedGANConfig
     from cglgan_tpu_torch.data.partition import Partition
-    from cglgan_tpu_torch.utils.transplant import to_numpy
-    from cglgan_tpu_torch.utils.tree import tree_leaves
 
     rng = np.random.default_rng(7)
     nw, L, d = 4, 48, 64
@@ -223,18 +541,7 @@ def phase_reference():
         starts, z_d, z_g = prng.round_streams(cfg, t, L, "cpu")
         sg, mg = gpu.round_fn(sg, (starts, z_d, z_g))
         sc, mc = cpu.round_fn(sc, (starts, z_d, z_g))
-    a, b = to_numpy(sg), to_numpy(sc)
-    errs = {}
-    for net in ("g", "d"):
-        for part_name in ("params", "mu", "nu"):
-            pairs = list(zip(tree_leaves(a[net][part_name]),
-                             tree_leaves(b[net][part_name])))
-            # scaled by the group's largest entry: the G's pre-BN linear
-            # biases have an exactly-zero gradient, so their moments are
-            # rounding noise on both devices (as in the JAX reference)
-            errs[f"{net}.{part_name}"] = (
-                max(float(np.abs(x - y).max()) for x, y in pairs)
-                / max(float(np.abs(y).max()) for _, y in pairs))
+    errs = state_errs(sg, sc)
     merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
     # same float32 math on two devices, sums in another order: as in the
     # kernel phase, scaled by each tensor's max; metrics 1e-4 absolute
@@ -286,12 +593,110 @@ def phase_rounds(epoch, part, expect_launches):
            "last_tick": out["history"][-1],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            # after the counted run: where a round's time goes
-           "profile": profile_rounds(runner, out["state"], 10)}
+           "profile": profile_rounds(runner, out["state"], PROFILE_ROUNDS)}
     emit(res)
     return res, launches
 
 
-def main():
+def phase_reference_fedavg():
+    """Shrunk FL-GAN and FeGAN: card (kernel path) vs CPU (plain path)."""
+    from cglgan_tpu_torch.algos.registry import build_runner, load_partition
+    from cglgan_tpu_torch.core import prng
+    from cglgan_tpu_torch.core.config import FedGANConfig
+
+    out = []
+    for algo, extra in (("flgan", {}), ("fegan", {"frac_workers": 0.5})):
+        cfg = FedGANConfig(algo=algo, dataset="2dmg", num_workers=4,
+                           num_class=4, num_sample=64, batch_size=16, iid=1,
+                           epoch=2, num_communication=8, pallas_sweep=True,
+                           **extra)
+        part = load_partition(cfg)
+        gpu = build_runner(cfg, part)
+        cpu = build_runner(cfg, part, device="cpu")
+        sg, sc = gpu.init_state(), cpu.init_state()
+        for t in range(3):
+            streams = prng.sweep_streams(cfg, t, part.data.shape[1],
+                                         cfg.epoch, "cpu")
+            sg, mg = gpu.round_fn(sg, streams)
+            sc, mc = cpu.round_fn(sc, streams)
+        errs = state_errs(sg, sc)
+        merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
+        # as for capgan: the same float32 math on two devices, scaled by the
+        # group's largest entry; metrics 1e-4 absolute
+        res = {"phase": "reference", "algo": algo, "rounds": 3,
+               "max_scaled_err": errs, "tol_scaled": TOL_SCALED,
+               "metrics_max_abs_err": merr, "tol_metrics": 1e-4}
+        emit(res)
+        if max(errs.values()) > TOL_SCALED or merr > 1e-4:
+            raise AssertionError(f"card and CPU rounds disagree: {res}")
+        out.append(res)
+    return out
+
+
+def phase_fedavg(algo, use_kernel):
+    """One full-width 2DMG configuration through ``load_partition``,
+    ``build_runner`` and ``train``; returns (result, sweep launches)."""
+    import torch
+    from cglgan_tpu_torch.algos.registry import build_runner, load_partition
+    from cglgan_tpu_torch.algos.runner import train
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.evalx import hist2d
+    from cglgan_tpu_torch.ops import fused_sweep
+    from cglgan_tpu_torch.utils.profiling import profile_rounds
+
+    extra = {"frac_workers": 0.5} if algo == "fegan" else {}
+    cfg = FedGANConfig(algo=algo, pallas_sweep=True if use_kernel else None,
+                       **FEDAVG, **extra)
+    t0 = time.perf_counter()
+    part = load_partition(cfg)
+    runner = build_runner(cfg, part)
+    setup_s = time.perf_counter() - t0
+    state = train(runner, 2, eval_every=2)["state"]      # warm-up rounds
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_sweep.launches = 0
+    t0 = time.perf_counter()
+    out = train(runner, ROUNDS, eval_every=10, state=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_sweep.launches
+    finite_metrics(out["history"])
+    expect = ROUNDS if use_kernel else 0
+    if launches != expect:
+        raise AssertionError(f"{algo}: fused_sweep launches {launches}, "
+                             f"expected {expect}")
+    n = 10000
+    pts = runner.sample(out["state"], n)
+    if tuple(pts.shape) != (n, 2) or not bool(torch.isfinite(pts).all()) \
+            or float(pts.abs().max()) > 1.0:
+        raise AssertionError(f"bad samples {tuple(pts.shape)}")
+    real = torch.from_numpy(part.eval_pool).to(pts.device)
+    kl, ds = hist2d.kl_and_distribution_score(pts, real, 16)
+    res = {"phase": "fedavg", "path": "kernel" if use_kernel else "autograd",
+           "config": {"algo": algo, **FEDAVG, **extra,
+                      "pallas_sweep": cfg.pallas_sweep},
+           "shards": list(part.data.shape), "setup_s": setup_s,
+           "rounds": ROUNDS, "wall_s": wall, "rounds_per_s": ROUNDS / wall,
+           "fused_sweep_launches": launches,
+           "uses_kernel": fused_sweep.eligible(cfg),
+           "last_tick": out["history"][-1],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "kl_score": float(kl), "distribution_score": float(ds),
+           "mode_coverage": float(hist2d.mode_coverage(pts, real, 16)),
+           "profile": profile_rounds(runner, out["state"], PROFILE_ROUNDS)}
+    emit(res)
+    return res, launches
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    all_phases = ("dstep", "sweep", "adam", "reference", "main", "fedavg")
+    ap.add_argument("--phases", default=",".join(all_phases),
+                    help="comma-separated subset of: " + " ".join(all_phases))
+    phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
+    if any(p not in all_phases for p in phases):
+        ap.error(f"unknown phase in {phases}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to measure",
@@ -301,7 +706,8 @@ def main():
     from cglgan_tpu_torch.algos.registry import load_partition
     from cglgan_tpu_torch.core.config import FedGANConfig
     from cglgan_tpu_torch.data import native
-    from cglgan_tpu_torch.ops import _build, fused_dstep
+    from cglgan_tpu_torch.ops import (_build, fused_adam, fused_dstep,
+                                      fused_sweep)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -315,30 +721,61 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
           "built": {k: os.path.relpath(v[0], ROOT) for k, v in built.items()},
-          "ptxas": _build.ptxas_report("fused_dstep").splitlines()})
+          "ptxas": {k: _build.ptxas_report(k).splitlines()
+                    for k in _build.KERNELS}})
 
-    kernel_res = phase_kernel(name)
-    phase_reference()
+    done = {}
+    if "dstep" in phases:
+        done["dstep"] = phase_kernel(name)
+    if "sweep" in phases:
+        done["sweep"] = phase_kernel_sweep(name)
+    if "adam" in phases:
+        done["adam"], done["adam_launches"] = phase_kernel_adam(name)
+    if "reference" in phases:
+        phase_reference()
+        phase_reference_fedavg()
+    if "main" in phases:
+        t0 = time.perf_counter()
+        cfg = FedGANConfig(algo="capgan", dataset="synthetic-mnist",
+                           num_workers=16, num_servers=1, iid=1,
+                           batch_size=100)
+        part = load_partition(cfg)
+        emit({"phase": "data", "seconds": time.perf_counter() - t0,
+              "glyph_backend": "native" if native.available() else "numpy",
+              "shards": list(part.data.shape)})
+        _, done["dstep_launches"] = phase_rounds(5, part, ROUNDS)
+        phase_rounds(1, part, 0)
+    if "fedavg" in phases:
+        _, done["sweep_launches"] = phase_fedavg("flgan", True)
+        phase_fedavg("flgan", False)
+        phase_fedavg("fegan", True)
+        phase_fedavg("fegan", False)
+    if len(phases) != len(all_phases):
+        print(card, flush=True)
+        emit({"partial": phases})
+        return 0
 
-    t0 = time.perf_counter()
-    cfg = FedGANConfig(algo="capgan", dataset="synthetic-mnist",
-                       num_workers=16, num_servers=1, iid=1, batch_size=100)
-    part = load_partition(cfg)
-    emit({"phase": "data", "seconds": time.perf_counter() - t0,
-          "glyph_backend": "native" if native.available() else "numpy",
-          "shards": list(part.data.shape)})
-    _, launches = phase_rounds(5, part, ROUNDS)
-    phase_rounds(1, part, 0)
-
-    head = kernel_res[0]
-    kernels = [{
-        "name": "fused_dstep", "route": "cuda", "source": fused_dstep.SOURCE,
-        "replaces": fused_dstep.REPLACES, "launches": launches,
-        "max_abs_err": max(r["errors"][g]["max_abs_err"] for r in kernel_res
-                           for g in r["errors"]),
-        "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None}]
+    worst = lambda rs: max(v["max_abs_err"] for r in rs
+                           for v in r["errors"].values())
+    entry = lambda mod, launches, rs, head, lib: {
+        "name": mod.__name__.rsplit(".", 1)[1], "route": "cuda",
+        "source": mod.SOURCE, "replaces": mod.REPLACES, "launches": launches,
+        "max_abs_err": worst(rs), "ms": head["kernel_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": lib}
+    adam_f32 = done["adam"][0]
+    kernels = [
+        entry(fused_dstep, done["dstep_launches"], done["dstep"],
+              done["dstep"][0], None),
+        # the FL-GAN pair's shape; launches from its 20 kernel-path rounds
+        entry(fused_sweep, done["sweep_launches"], done["sweep"],
+              done["sweep"][0], None),
+        # float32 moments (the mode with a library call); launches from
+        # the three init/step steps over a two-leaf tree
+        entry(fused_adam, done["adam_launches"], done["adam"], adam_f32,
+              adam_f32["library_ms"])]
+    if any(k["launches"] < 1 for k in kernels):
+        raise AssertionError(f"a kernel was never launched: {kernels}")
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -231,10 +231,20 @@ def test_models_for_config_and_unported():
     g, d = zoo.models_for_config(cfg)
     assert d.out_dim == 2 and d.spec[0] == ("linear", 64, 512)
     assert g.spec[-2] == ("linear", 1024, 64)
-    for kw in (dict(conv=True), dict(dataset="2dmg"),
-               dict(algo="mixgan")):
+    # the 2DMG single-path pairs are ported; multipath and conv are not
+    g2, d2 = zoo.models_for_config(cfg.replace(dataset="2dmg"))
+    assert g2.spec[0] == ("linear", 100, 32) and d2.spec[0] == (
+        "linear", 2, 128)
+    for kw in (dict(conv=True), dict(algo="mixgan"),
+               dict(algo="mixgan", dataset="2dmg"),
+               dict(algo="cglgan", dataset="2dmg", iid=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             zoo.models_for_config(cfg.replace(**kw))
+    for family in ("2dmg-multipath", "mnist-multipath", "conv"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            zoo.build_generator(family)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        zoo.build_discriminator("conv")
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +335,10 @@ def test_port_imports_no_jax():
         os.path.relpath(os.path.join(dp, f), ROOT)[:-3].replace(os.sep, ".")
         for dp, _, fs in os.walk(os.path.join(ROOT, "cglgan_tpu_torch"))
         for f in fs if f.endswith(".py"))
-    assert "cglgan_tpu_torch.ops.fused_dstep" in mods
+    for name in ("ops.fused_dstep", "ops.fused_sweep", "ops.fused_adam",
+                 "algos.fedavg_family", "data.gmm", "fed.sampling",
+                 "evalx.hist2d"):
+        assert f"cglgan_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
         "for name in ('jax', 'jaxlib', 'optax', 'cglgan_tpu'):\n"
