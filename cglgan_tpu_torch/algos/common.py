@@ -146,12 +146,25 @@ def adam_init(params, n: int) -> AdamState:
                      tree_map(zeros, params), tree_map(zeros, params))
 
 
+_DECAYS = {}
+
+
+def _decay_on(decay: float, device: torch.device) -> torch.Tensor:
+    """float32(decay) as a 0-dim tensor on ``device``, made once: a copy from
+    host memory on every Adam step (``torch.tensor(decay, device=...)``)
+    makes the host wait for the stream each time."""
+    key = (float(decay), device)
+    if key not in _DECAYS:
+        _DECAYS[key] = torch.full((), decay, dtype=torch.float32,
+                                  device=device)
+    return _DECAYS[key]
+
+
 def bias_correction(count: torch.Tensor, decay: float) -> torch.Tensor:
     """``1 - decay**count`` in float32 with a float32 ``decay``, as optax
     computes it (f32(0.999)**t, not 0.999**t: they differ by ~1e-5
     relative at small t)."""
-    base = torch.tensor(decay, dtype=torch.float32, device=count.device)
-    return 1.0 - base ** count.float()
+    return 1.0 - _decay_on(decay, count.device) ** count.float()
 
 
 def adam_leaf(p, g, mu, nu, c1, c2, lr: float, b1: float, b2: float,

@@ -13,29 +13,45 @@
 // the outputs in place); `loss[w]` holds the last step's loss.
 //
 // Bound at the main-path shapes (W=16, E=5, B=100, din=784, 512, 256, 2):
-// forward + backward are ~479 MFLOP per client-step, 38.3 GFLOP per call,
-// all f32 FMA: ~0.57 ms at the H100 SXM's 67 TFLOP/s of non-tensor f32.
-// The least traffic is one read and one write of the 16 clients' state
-// (~102 MB, ~0.06 ms at 3.35 TB/s), so the call is compute-bound.
+// forward + backward are ~479 MFLOP per client-step, 38.3 GFLOP per call.
+// At float32 accuracy the card's fastest way is three TF32 tensor-core
+// passes (3 x 38.3 GFLOP at 495 TFLOP/s = 0.232 ms; the non-tensor f32 rate
+// of 67 TFLOP/s gives 0.572 ms).  The least traffic is one read and one
+// write of the 16 clients' state plus the shards' windows (~212 MB, 0.063 ms
+// at 3.35 TB/s), so the call is bound by operations.
 //
-// Design (simple and right first): the TPU kernel kept one client's 6.4 MB
-// of state resident in VMEM across the E steps; an SM has 227 KB of shared
-// memory, so here every step is a pipeline of small kernels on one stream
-// and re-reads the state from device memory (L2 holds part of it):
-//   prep (u8 window + fake -> X) | 3 forward GEMMs with bias/LeakyReLU
-//   epilogues | head (loss, dL/dz3) | 3 weight-grad GEMMs (A^T B) and
-//   2 input-grad GEMMs (A B^T, LeakyReLU-derivative epilogue) | 3 column
-//   sums (bias grads) | 6 Adam passes.
-// The GEMM is one batched tiled SIMT kernel (blockIdx.z = client, 64x64
-// tiles, 16-deep k slabs in shared memory, 4x4 f32 FMA accumulators per
-// thread); no tensor cores, no library GEMM.  wgmma/TMA and keeping state
-// on chip across steps are later work.
+// Design.  The TPU kernel kept one client's 6.4 MB of state resident in VMEM
+// across the E steps; an SM has 227 KB of shared memory, so every step is a
+// pipeline of kernels on one stream, batched over clients, and re-reads the
+// state from device memory (L2 holds part of it).  What held the first
+// version back was, in order: no tensor cores; every weight gradient written
+// out and read back by a separate Adam pass; 19 launches a step.  Now a
+// step is 8 launches:
+//   prep        u8 window + fake -> X
+//   z1, z2      X W1, h1 W2 on the tensor cores (mma_tf32.cuh, 3xTF32),
+//               bias + LeakyReLU in the epilogue; only h is stored (its sign
+//               is the pre-activation's, which is all the backward needs)
+//   head        one warp a row: z3 = h2 W3 + b3, the row's loss term,
+//               g3 = dL/dz3 and dz2 = (g3 W3^T) * lrelu'(h2); SIMT, the
+//               layers with 1 or 2 outputs have almost no work
+//   small       dW3 = h2^T g3, db3, their Adam updates and the loss; SIMT
+//   dz1         dz2 W2^T * lrelu'(h1) on the tensor cores
+//   dW2, dW1    h1^T dz2, X^T dz1 on the tensor cores; the block that holds
+//               a tile of dW applies Adam to that tile of (p, mu, nu) and
+//               the first row of blocks sums dz's columns for the bias
+//               gradient: no gradient reaches device memory, no Adam pass,
+//               no column-sum pass
+// Order: every product with W_l^T is enqueued before the kernel that
+// updates W_l (head before small, dz1 before dW2).  wgmma + TMA, and keeping
+// a client's layer on chip across steps, are later work.
 
-#include "mlp_kernels.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr int HEAD_SIGMOID = 0, HEAD_LOGITS2 = 1;
+constexpr int MAX_OUT = 2;          // the heads have 1 or 2 outputs
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // X[w] = concat(normalised u8 window, fake): grid (2B, W).
 __global__ void prep_kernel(const uint8_t* __restrict__ shards,
@@ -54,48 +70,129 @@ __global__ void prep_kernel(const uint8_t* __restrict__ shards,
   }
 }
 
-// Loss and dL/dz3 per client: grid (W,), one block of TPB threads.
-__global__ void head_kernel(const float* __restrict__ Z3,
-                            float* __restrict__ G3, float* __restrict__ loss,
-                            int B, int dout, int head, float loss_scale,
-                            float grad_scale) {
-  __shared__ float red[TPB];
-  const int w = blockIdx.x, R = 2 * B;
-  const float* z = Z3 + (long long)w * R * dout;
-  float* g = G3 + (long long)w * R * dout;
-  float part = 0.f;
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    const float is_real = r < B ? 1.f : 0.f;
-    if (head == HEAD_SIGMOID) {
-      const float p = 1.f / (1.f + expf(-z[r]));
-      const float pc = fminf(fmaxf(p, P_LO), P_HI);
-      part += -(is_real * logf(pc) + (1.f - is_real) * log1pf(-pc));
-      const float dpc = grad_scale * (is_real * (-1.f / pc)
-                                      + (1.f - is_real) * (1.f / (1.f - pc)));
-      const float inside = (p > P_LO && p < P_HI) ? 1.f : 0.f;
-      g[r] = dpc * inside * p * (1.f - p);
-    } else {
-      const float z0 = z[2 * r], z1 = z[2 * r + 1];
-      const float zmax = fmaxf(z0, z1);
-      const float s0 = z0 - zmax, s1 = z1 - zmax;
-      const float lse = logf(expf(s0) + expf(s1));
-      const float lp0 = s0 - lse, lp1 = s1 - lse;
-      const float t0 = 1.f - is_real, t1 = is_real;   // real rows: class 1
-      part += t0 * lp0 + t1 * lp1;
-      g[2 * r] = grad_scale * (expf(lp0) - t0);
-      g[2 * r + 1] = grad_scale * (expf(lp1) - t1);
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(FULL, x, s);
+  return x;
+}
+
+// One warp a row r of client w: z3, the row's loss term PER[w][r], G3 =
+// dL/dz3 and DZ2 = (g3 W3^T) * lrelu'(h2), all from the W3 of before this
+// step's update.  grid (ceil(2B / 8), W), 256 threads.
+__global__ void __launch_bounds__(256) head_kernel(
+    const float* __restrict__ H2, const float* __restrict__ W3,
+    const float* __restrict__ b3, float* __restrict__ G3,
+    float* __restrict__ PER, float* __restrict__ DZ2, int B, int h2, int dout,
+    int head, float grad_scale) {
+  const int w = blockIdx.y, R = 2 * B;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const float* h = H2 + ((long long)w * R + r) * h2;
+  const float* w3 = W3 + (long long)w * h2 * dout;
+  float z[MAX_OUT] = {0.f, 0.f};
+  for (int k = lane; k < h2; k += 32) {
+    const float hv = h[k];
+    for (int j = 0; j < dout; ++j) z[j] = fmaf(hv, w3[k * dout + j], z[j]);
+  }
+  for (int j = 0; j < dout; ++j) z[j] = warp_sum(z[j]) + b3[w * dout + j];
+
+  const float is_real = r < B ? 1.f : 0.f;
+  float g[MAX_OUT] = {0.f, 0.f}, per;
+  if (head == HEAD_SIGMOID) {
+    const float p = 1.f / (1.f + expf(-z[0]));
+    const float pc = fminf(fmaxf(p, P_LO), P_HI);
+    per = -(is_real * logf(pc) + (1.f - is_real) * log1pf(-pc));
+    const float dpc = grad_scale * (is_real * (-1.f / pc)
+                                    + (1.f - is_real) * (1.f / (1.f - pc)));
+    const float inside = (p > P_LO && p < P_HI) ? 1.f : 0.f;
+    g[0] = dpc * inside * p * (1.f - p);
+  } else {
+    const float zmax = fmaxf(z[0], z[1]);
+    const float s0 = z[0] - zmax, s1 = z[1] - zmax;
+    const float lse = logf(expf(s0) + expf(s1));
+    const float lp0 = s0 - lse, lp1 = s1 - lse;
+    const float t0 = 1.f - is_real, t1 = is_real;     // real rows: class 1
+    per = t0 * lp0 + t1 * lp1;
+    g[0] = grad_scale * (expf(lp0) - t0);
+    g[1] = grad_scale * (expf(lp1) - t1);
+  }
+  if (lane == 0) {
+    PER[(long long)w * R + r] = per;
+    for (int j = 0; j < dout; ++j) G3[((long long)w * R + r) * dout + j] = g[j];
+  }
+  float* dz = DZ2 + ((long long)w * R + r) * h2;
+  for (int k = lane; k < h2; k += 32) {
+    float s = 0.f;
+    for (int j = 0; j < dout; ++j) s = fmaf(g[j], w3[k * dout + j], s);
+    dz[k] = s * (h[k] >= 0.f ? 1.f : 0.2f);
+  }
+}
+
+// dW3 = h2^T g3 and its Adam update: a block owns 32 rows of W3, its 8
+// warps each sum every 8th row of the batch and the partial sums are added
+// in a fixed order.  In the first block of a client, warp 0 also sums g3's
+// columns (db3) and updates b3, and warp 1 sums the rows' loss terms.
+// grid (ceil(h2 / 32), W), 256 threads.
+__global__ void __launch_bounds__(256) small_grads_kernel(
+    const float* __restrict__ H2, const float* __restrict__ G3,
+    const float* __restrict__ PER, const float* p, const float* m,
+    const float* v, float* po, float* mo, float* vo, const float* bp,
+    const float* bm, const float* bv, float* bpo, float* bmo, float* bvo,
+    float* __restrict__ loss, const float* __restrict__ cc, int E, int e,
+    int B, int h2, int dout, int head, float loss_scale, AdamConsts kc) {
+  __shared__ float part[8][32][MAX_OUT];
+  const int w = blockIdx.y, R = 2 * B;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * 32 + lane;
+  const float c1 = cc[(w * E + e) * 2], c2 = cc[(w * E + e) * 2 + 1];
+  const float* g3 = G3 + (long long)w * R * dout;
+  float acc[MAX_OUT] = {0.f, 0.f};
+  if (k < h2) {
+    const float* h = H2 + (long long)w * R * h2 + k;
+#pragma unroll 4
+    for (int r = warp; r < R; r += 8) {
+      const float hv = h[(long long)r * h2];
+      for (int j = 0; j < dout; ++j)
+        acc[j] = fmaf(hv, g3[r * dout + j], acc[j]);
     }
   }
-  red[threadIdx.x] = part;
+  for (int j = 0; j < MAX_OUT; ++j) part[warp][lane][j] = acc[j];
   __syncthreads();
-  for (int s = TPB / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
+  if (warp == 0 && k < h2) {
+    for (int j = 0; j < dout; ++j) {
+      float s = 0.f;
+      for (int q = 0; q < 8; ++q) s += part[q][lane][j];
+      const long long o = ((long long)w * h2 + k) * dout + j;
+      float pn, mn, vn;
+      adam_one(p[o], m[o], v[o], s, c1, c2, kc, &pn, &mn, &vn);
+      po[o] = pn;
+      mo[o] = mn;
+      vo[o] = vn;
+    }
   }
-  if (threadIdx.x == 0) {
-    const float tot = red[0];
-    loss[w] = head == HEAD_SIGMOID ? loss_scale * tot / (float)B
-                                   : loss_scale * (-tot / (float)B);
+  if (blockIdx.x != 0) return;
+  if (warp == 0) {
+    for (int j = 0; j < dout; ++j) {
+      float s = 0.f;
+      for (int r = lane; r < R; r += 32) s += g3[r * dout + j];
+      s = warp_sum(s);
+      if (lane == 0) {
+        const long long o = (long long)w * dout + j;
+        float pn, mn, vn;
+        adam_one(bp[o], bm[o], bv[o], s, c1, c2, kc, &pn, &mn, &vn);
+        bpo[o] = pn;
+        bmo[o] = mn;
+        bvo[o] = vn;
+      }
+    }
+  } else if (warp == 1) {
+    float s = 0.f;
+    for (int r = lane; r < R; r += 32) s += PER[(long long)w * R + r];
+    s = warp_sum(s);
+    if (lane == 0)
+      loss[w] = head == HEAD_SIGMOID ? loss_scale * s / (float)B
+                                     : loss_scale * (-s / (float)B);
   }
 }
 
@@ -109,8 +206,9 @@ const char* fused_dstep_error_string(int code) {
 
 // state_in/state_out: 18 device pointers each, in the order
 //   w1 b1 w2 b2 w3 b3 | mu of the same | nu of the same.
-// scratch: 15 device pointers: X Z1 H1 Z2 H2 Z3 G3 DZ2 DZ1 dW1 db1 dW2 db2
-//   dW3 db3.  starts: E host ints.  cc: (W, E, 2) device.  loss: (W,).
+// scratch: 7 device pointers: X (W,2B,din) H1 (W,2B,h1) H2 (W,2B,h2)
+//   G3 (W,2B,dout) PER (W,2B) DZ2 (W,2B,h2) DZ1 (W,2B,h1).
+// starts: E host ints.  cc: (W, E, 2) device.  loss: (W,).  dout <= 2.
 // Returns 0 or the first cudaGetLastError() code.
 int fused_dstep_f32(void* const* state_in, void* const* state_out,
                     void* const* scratch, const uint8_t* shards,
@@ -120,88 +218,74 @@ int fused_dstep_f32(void* const* state_in, void* const* state_out,
                     float loss_scale, float grad_scale, float neg_lr,
                     float b1, float omb1, float b2, float omb2, float eps,
                     void* stream) {
+  if (dout < 1 || dout > MAX_OUT) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float* const* s = (float* const*)scratch;
-  float *X = s[0], *Z1 = s[1], *H1 = s[2], *Z2 = s[3], *H2 = s[4],
-        *Z3 = s[5], *G3 = s[6], *DZ2 = s[7], *DZ1 = s[8];
-  float* grads[6] = {s[9], s[10], s[11], s[12], s[13], s[14]};
-  const long long R = 2LL * B;
-  const long long n_per[6] = {(long long)din * h1, h1, (long long)h1 * h2,
-                              h2, (long long)h2 * dout, dout};
+  float *X = s[0], *H1 = s[1], *H2 = s[2], *G3 = s[3], *PER = s[4],
+        *DZ2 = s[5], *DZ1 = s[6];
+  const int R = 2 * B;
   float* const* out = (float* const*)state_out;
   float* const* in = (float* const*)state_in;
   const long long fake_sw = fake_per_client ? (long long)B * din : 0;
+  const AdamConsts kc{neg_lr, b1, omb1, b2, omb2, eps};
+  int rc;
 
   for (int e = 0; e < E; ++e) {
     float* const* cur = e == 0 ? in : out;
-    const float *W1 = cur[0], *bb1 = cur[1], *W2 = cur[2], *bb2 = cur[3],
-                *W3 = cur[4], *bb3 = cur[5];
 
     prep_kernel<<<dim3((unsigned)R, W), 256, 0, st>>>(
         shards, max_len, starts[e], fake, fake_sw, X, B, din);
     CHECK_LAUNCH();
-    // ---- forward ----
-    gemm_kernel<true, true, EPI_BIAS_LRELU><<<gemm_grid(R, h1, W), TPB, 0, st>>>(
-        R, h1, din, X, R * din, din, 1, W1, (long long)din * h1, h1, 1,
-        Z1, R * h1, bb1, h1, H1, nullptr);
+
+    // ---- forward: h_l = lrelu(h_{l-1} W_l + b_l) ----
+    auto forward = [&](const float* A, int K, const float* Wl,
+                       const float* bl, int N, float* H) {
+      tc::GemmArgs a{};
+      a.M = R; a.N = N; a.K = K;
+      a.A = A; a.sA = (long long)R * K; a.ldA = K;
+      a.B = Wl; a.sB = (long long)K * N; a.ldB = N;
+      a.out = H; a.bias = bl;
+      return tc::launch_gemm3x<true, true, tc::EPI_BIAS_LRELU>(a, W, st);
+    };
+    if ((rc = forward(X, din, cur[0], cur[1], h1, H1)) != 0) return rc;
+    if ((rc = forward(H1, h1, cur[2], cur[3], h2, H2)) != 0) return rc;
+
+    head_kernel<<<dim3((R + 7) / 8, W), 256, 0, st>>>(
+        H2, cur[4], cur[5], G3, PER, DZ2, B, h2, dout, head, grad_scale);
     CHECK_LAUNCH();
-    gemm_kernel<true, true, EPI_BIAS_LRELU><<<gemm_grid(R, h2, W), TPB, 0, st>>>(
-        R, h2, h1, H1, R * h1, h1, 1, W2, (long long)h1 * h2, h2, 1,
-        Z2, R * h2, bb2, h2, H2, nullptr);
+    small_grads_kernel<<<dim3((h2 + 31) / 32, W), 256, 0, st>>>(
+        H2, G3, PER, cur[4], cur[10], cur[16], out[4], out[10], out[16],
+        cur[5], cur[11], cur[17], out[5], out[11], out[17], loss, cc, E, e, B,
+        h2, dout, head, loss_scale, kc);
     CHECK_LAUNCH();
-    gemm_kernel<true, true, EPI_BIAS><<<gemm_grid(R, dout, W), TPB, 0, st>>>(
-        R, dout, h2, H2, R * h2, h2, 1, W3, (long long)h2 * dout, dout, 1,
-        Z3, R * dout, bb3, dout, nullptr, nullptr);
-    CHECK_LAUNCH();
-    head_kernel<<<W, TPB, 0, st>>>(Z3, G3, loss, B, dout, head, loss_scale,
-                                   grad_scale);
-    CHECK_LAUNCH();
-    // ---- backward ----
-    // dW3 = h2^T g3
-    gemm_kernel<false, true, EPI_STORE><<<gemm_grid(h2, dout, W), TPB, 0, st>>>(
-        h2, dout, R, H2, R * h2, 1, h2, G3, R * dout, dout, 1,
-        grads[4], (long long)h2 * dout, nullptr, 0, nullptr, nullptr);
-    CHECK_LAUNCH();
-    colsum_kernel<<<dim3((dout + TPB - 1) / TPB, W), TPB, 0, st>>>(
-        G3, grads[5], (int)R, dout);
-    CHECK_LAUNCH();
-    // dz2 = (g3 W3^T) * lrelu'(z2)
-    gemm_kernel<true, false, EPI_LRELU_GRAD><<<gemm_grid(R, h2, W), TPB, 0, st>>>(
-        R, h2, dout, G3, R * dout, dout, 1, W3, (long long)h2 * dout, 1, dout,
-        DZ2, R * h2, nullptr, 0, nullptr, Z2);
-    CHECK_LAUNCH();
-    // dW2 = h1^T dz2
-    gemm_kernel<false, true, EPI_STORE><<<gemm_grid(h1, h2, W), TPB, 0, st>>>(
-        h1, h2, R, H1, R * h1, 1, h1, DZ2, R * h2, h2, 1,
-        grads[2], (long long)h1 * h2, nullptr, 0, nullptr, nullptr);
-    CHECK_LAUNCH();
-    colsum_kernel<<<dim3((h2 + TPB - 1) / TPB, W), TPB, 0, st>>>(
-        DZ2, grads[3], (int)R, h2);
-    CHECK_LAUNCH();
-    // dz1 = (dz2 W2^T) * lrelu'(z1)
-    gemm_kernel<true, false, EPI_LRELU_GRAD><<<gemm_grid(R, h1, W), TPB, 0, st>>>(
-        R, h1, h2, DZ2, R * h2, h2, 1, W2, (long long)h1 * h2, 1, h2,
-        DZ1, R * h1, nullptr, 0, nullptr, Z1);
-    CHECK_LAUNCH();
-    // dW1 = x^T dz1
-    gemm_kernel<false, true, EPI_STORE><<<gemm_grid(din, h1, W), TPB, 0, st>>>(
-        din, h1, R, X, R * din, 1, din, DZ1, R * h1, h1, 1,
-        grads[0], (long long)din * h1, nullptr, 0, nullptr, nullptr);
-    CHECK_LAUNCH();
-    colsum_kernel<<<dim3((h1 + TPB - 1) / TPB, W), TPB, 0, st>>>(
-        DZ1, grads[1], (int)R, h1);
-    CHECK_LAUNCH();
-    // ---- Adam (one count per client, shared by the six tensors) ----
-    for (int j = 0; j < 6; ++j) {
-      const long long total = n_per[j] * W;
-      long long blocks = (total + TPB - 1) / TPB;
-      if (blocks > 4096) blocks = 4096;
-      adam_kernel<<<(unsigned)blocks, TPB, 0, st>>>(
-          cur[j], (e == 0 ? in : out)[6 + j], (e == 0 ? in : out)[12 + j],
-          grads[j], out[j], out[6 + j], out[12 + j], n_per[j], W, cc, E, e,
-          neg_lr, b1, omb1, b2, omb2, eps);
-      CHECK_LAUNCH();
+
+    // ---- dz1 = (dz2 W2^T) * lrelu'(h1), from the W2 of before its update
+    {
+      tc::GemmArgs a{};
+      a.M = R; a.N = h1; a.K = h2;
+      a.A = DZ2; a.sA = (long long)R * h2; a.ldA = h2;
+      a.B = cur[2]; a.sB = (long long)h1 * h2; a.ldB = h2;
+      a.out = DZ1; a.aux = H1;
+      rc = tc::launch_gemm3x<true, false, tc::EPI_LRELU_GRAD>(a, W, st);
+      if (rc != 0) return rc;
     }
+
+    // ---- dW_l = h_{l-1}^T dz_l with Adam on (W_l, b_l) in the epilogue ----
+    auto weight_grad = [&](const float* A, int M, const float* DZ, int N,
+                           int j) {
+      tc::GemmArgs a{};
+      a.M = M; a.N = N; a.K = R;
+      a.A = A; a.sA = (long long)R * M; a.ldA = M;
+      a.B = DZ; a.sB = (long long)R * N; a.ldB = N;
+      a.p = cur[j]; a.m = cur[6 + j]; a.v = cur[12 + j];
+      a.po = out[j]; a.mo = out[6 + j]; a.vo = out[12 + j];
+      a.bp = cur[j + 1]; a.bm = cur[7 + j]; a.bv = cur[13 + j];
+      a.bpo = out[j + 1]; a.bmo = out[7 + j]; a.bvo = out[13 + j];
+      a.cc = cc; a.E = E; a.e = e; a.k = kc;
+      return tc::launch_gemm3x<false, true, tc::EPI_ADAM>(a, W, st);
+    };
+    if ((rc = weight_grad(H1, h1, DZ2, h2, 2)) != 0) return rc;
+    if ((rc = weight_grad(X, din, DZ1, h1, 0)) != 0) return rc;
   }
   return 0;
 }

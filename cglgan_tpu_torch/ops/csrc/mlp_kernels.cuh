@@ -1,7 +1,8 @@
-// mlp_kernels.cuh — the device kernels the port's fused MLP pipelines share
-// (fused_dstep.cu, fused_sweep.cu): one strided, batched, tiled SIMT GEMM
-// with fused epilogues, a column sum and an optax-ordered Adam pass.
-// No tensor cores, no library GEMM.
+// mlp_kernels.cuh — the device code the port's fused MLP pipelines share:
+// one strided, batched, tiled SIMT GEMM with fused epilogues, a column sum
+// and an optax-ordered Adam pass (fused_sweep.cu), and the per-element Adam
+// update and the head's constants that fused_dstep.cu and mma_tf32.cuh use
+// too.  No tensor cores here (mma_tf32.cuh has them), no library GEMM.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -108,10 +109,31 @@ __global__ void colsum_kernel(const float* __restrict__ G,
   out[(long long)w * N + n] = s;
 }
 
-// One optax-ordered Adam update of a (W, n_per) tensor; p/m/v may alias
-// po/mo/vo (each element reads, then writes, only its own index).  The
-// _rn intrinsics keep nvcc from contracting into FMAs, so the update
-// rounds exactly as the unfused formula does.
+// The constants of one optax-ordered Adam step (lr negated; omb = 1 - b).
+struct AdamConsts {
+  float neg_lr, b1, omb1, b2, omb2, eps;
+};
+
+// One element's optax-ordered Adam update with the bias corrections
+// c1 = 1 - b1^t, c2 = 1 - b2^t.  The _rn intrinsics keep nvcc from
+// contracting into FMAs, so the update rounds exactly as the unfused
+// formula does.
+__device__ __forceinline__ void adam_one(float p, float m, float v, float gg,
+                                         float c1, float c2,
+                                         const AdamConsts& k, float* po,
+                                         float* mo, float* vo) {
+  const float mu2 = __fadd_rn(__fmul_rn(k.b1, m), __fmul_rn(k.omb1, gg));
+  const float nu2 = __fadd_rn(__fmul_rn(k.b2, v),
+                              __fmul_rn(k.omb2, __fmul_rn(gg, gg)));
+  const float upd = __fdiv_rn(__fdiv_rn(mu2, c1),
+                              __fadd_rn(__fsqrt_rn(__fdiv_rn(nu2, c2)), k.eps));
+  *po = __fadd_rn(p, __fmul_rn(k.neg_lr, upd));
+  *mo = mu2;
+  *vo = nu2;
+}
+
+// One Adam update of a (W, n_per) tensor; p/m/v may alias po/mo/vo (each
+// element reads, then writes, only its own index).
 __global__ void adam_kernel(const float* p, const float* m, const float* v,
                             const float* __restrict__ g, float* po, float* mo,
                             float* vo, long long n_per, int W,
@@ -119,19 +141,16 @@ __global__ void adam_kernel(const float* p, const float* m, const float* v,
                             float neg_lr, float b1, float omb1, float b2,
                             float omb2, float eps) {
   const long long total = n_per * W;
+  const AdamConsts k{neg_lr, b1, omb1, b2, omb2, eps};
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
     const int w = (int)(i / n_per);
     const float c1 = cc[(w * E + e) * 2], c2 = cc[(w * E + e) * 2 + 1];
-    const float gg = g[i];
-    const float mu2 = __fadd_rn(__fmul_rn(b1, m[i]), __fmul_rn(omb1, gg));
-    const float nu2 = __fadd_rn(__fmul_rn(b2, v[i]),
-                                __fmul_rn(omb2, __fmul_rn(gg, gg)));
-    const float upd = __fdiv_rn(__fdiv_rn(mu2, c1),
-                                __fadd_rn(__fsqrt_rn(__fdiv_rn(nu2, c2)), eps));
-    po[i] = __fadd_rn(p[i], __fmul_rn(neg_lr, upd));
-    mo[i] = mu2;
-    vo[i] = nu2;
+    float pn, mn, vn;
+    adam_one(p[i], m[i], v[i], g[i], c1, c2, k, &pn, &mn, &vn);
+    po[i] = pn;
+    mo[i] = mn;
+    vo[i] = vn;
   }
 }
 

@@ -3,8 +3,10 @@
 Port of ``cglgan_tpu/ops/pallas/fused_adam.py``.  The Pallas TPU kernel
 ``_adam_kernel`` becomes the hand-written CUDA C++ kernel in
 ``csrc/fused_adam.cu`` (route: nvcc for sm_90a, plain C interface, ctypes):
-parameter, moment update and step fused in ONE launch per tensor, so p, m, v
-and g each cross device memory once per direction; moments stored in
+parameter, moment update and step fused, ONE launch for a whole list of up
+to ``MAX_TENSORS`` tensors (the list's pointers and chunk offsets travel in
+a table passed as a kernel parameter; ``plan_launches`` makes it), so p, m,
+v and g each cross device memory once per direction; moments stored in
 float32, in bfloat16 rounded to nearest, or in bfloat16 with stochastic
 rounding (unbiased, so the quantisation does not drift).
 
@@ -23,13 +25,14 @@ else.  The plain version takes the random bits as an argument, so a test
 can feed it any bits; on CPU tensors ``step`` draws them from a
 ``torch.Generator`` seeded with the same (seed, leaf) pair — it never
 changes mode silently.  ``launches`` counts kernel launches (one per
-tensor).  As in the JAX package, no algorithm calls this module.
+``MAX_TENSORS`` non-empty tensors of a list).  As in the JAX package, no
+algorithm calls this module.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Any, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,7 +43,10 @@ REPLACES = "cglgan_tpu/ops/pallas/fused_adam.py:37"
 MODE_F32, MODE_BF16_RN, MODE_BF16_SR = 0, 1, 2
 _PARAM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0          # kernel launches (one per tensor)
+MAX_TENSORS = 24      # leaves per launch (the kernel's table size)
+CHUNK = 4096          # elements per thread block
+
+launches = 0          # kernel launches (one per MAX_TENSORS non-empty leaves)
 
 
 class FusedAdamState(NamedTuple):
@@ -98,6 +104,35 @@ def fused_adam_step_plain(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
     return p_out, m2.to(m.dtype), v2.to(v.dtype)
 
 
+class Launch(NamedTuple):
+    """One kernel launch: the non-empty leaves it covers, as parallel tuples
+    of list index, element count and first block, and its grid size."""
+    leaves: Tuple[int, ...]
+    sizes: Tuple[int, ...]
+    first: Tuple[int, ...]
+    blocks: int
+
+
+def plan_launches(sizes: Sequence[int], max_tensors: int = MAX_TENSORS,
+                  chunk: int = CHUNK) -> List[Launch]:
+    """Cut a list of leaf sizes into launches of at most ``max_tensors``
+    non-empty leaves.  Inside a launch leaf ``s`` owns the blocks
+    ``first[s] .. first[s] + ceil(n / chunk) - 1``; block ``b`` of a leaf
+    updates its elements ``[b * chunk, min((b + 1) * chunk, n))``.  Empty
+    leaves get no block and keep their index (the Philox key)."""
+    live = [(j, int(n)) for j, n in enumerate(sizes) if n]
+    out = []
+    for lo in range(0, len(live), max_tensors):
+        group = live[lo:lo + max_tensors]
+        first, blocks = [], 0
+        for _, n in group:
+            first.append(blocks)
+            blocks += -(-n // chunk)
+        out.append(Launch(tuple(j for j, _ in group),
+                          tuple(n for _, n in group), tuple(first), blocks))
+    return out
+
+
 _LIB = None
 
 
@@ -109,12 +144,20 @@ def _library() -> ctypes.CDLL:
         from cglgan_tpu_torch.ops import _build
         lib = _build.load("fused_adam")
         vp, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-        lib.fused_adam_step.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, i, i, i,
-            f, f, f, f, f, f, f, f, vp]
-        lib.fused_adam_step.restype = i
+        arr = ctypes.POINTER(vp)
+        lib.fused_adam_list.argtypes = [
+            i, arr, arr, arr, arr, arr, arr, arr,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(i),
+            ctypes.POINTER(i), vp, i, i, f, f, f, f, f, f, f, f, vp]
+        lib.fused_adam_list.restype = i
         lib.fused_adam_error_string.argtypes = [i]
         lib.fused_adam_error_string.restype = ctypes.c_char_p
+        for fn in (lib.fused_adam_max_tensors, lib.fused_adam_chunk):
+            fn.argtypes, fn.restype = [], i
+        if (lib.fused_adam_max_tensors(), lib.fused_adam_chunk()) \
+                != (MAX_TENSORS, CHUNK):
+            raise RuntimeError("fused_adam.cu and fused_adam.py disagree on "
+                               "MAX_TENSORS / CHUNK")
         _LIB = lib
     return _LIB
 
@@ -127,64 +170,110 @@ def _mode(m: torch.Tensor, stochastic: bool) -> int:
     raise ValueError(f"moment dtype {m.dtype}: float32 or bfloat16")
 
 
+def fused_adam_leaves(gs, ps, ms, vs, count: torch.Tensor, *, lr: float,
+                      b1: float, b2: float, eps: float, stochastic: bool,
+                      first_leaf: int = 0):
+    """One Adam step of a list of tensors.  ``count`` is the 0-dim int64
+    step number t >= 1 on the params' device; leaf ``j`` of the list has the
+    random-bit key ``first_leaf + j``.  Returns a list of new (p, m, v);
+    inputs are not modified.  CUDA tensors run the kernel (one launch per
+    ``MAX_TENSORS`` non-empty leaves), CPU tensors the plain version."""
+    gs, ps, ms, vs = list(gs), list(ps), list(ms), list(vs)
+    if not len(gs) == len(ps) == len(ms) == len(vs):
+        raise ValueError("gs, ps, ms, vs must have one entry per leaf")
+    if not ps:
+        return []
+    mode = _mode(ms[0], stochastic)
+    for g, p, m, v in zip(gs, ps, ms, vs):
+        if v.dtype != m.dtype or m.shape != p.shape or v.shape != p.shape \
+                or g.shape != p.shape:
+            raise ValueError("g, p, m, v must share a shape and m, v a dtype")
+        if p.dtype != ps[0].dtype or m.dtype != ms[0].dtype:
+            raise ValueError(
+                "mixed list: every leaf must have the first leaf's param "
+                f"dtype {ps[0].dtype} and moment dtype {ms[0].dtype}")
+        if p.device != ps[0].device:
+            raise ValueError("the leaves must lie on one device")
+    dev = ps[0].device
+    if dev.type == "cuda":
+        return _launch(gs, ps, ms, vs, count, first_leaf, mode, lr, b1, b2,
+                       eps)
+    if dev.type == "cpu":
+        outs = []
+        for j, (g, p, m, v) in enumerate(zip(gs, ps, ms, vs)):
+            bits_m = bits_v = None
+            if mode == MODE_BF16_SR:
+                gen = torch.Generator().manual_seed(
+                    (round_seed(int(count)) << 20) + first_leaf + j)
+                bits_m = torch.randint(0, 65536, p.shape, generator=gen)
+                bits_v = torch.randint(0, 65536, p.shape, generator=gen)
+            outs.append(fused_adam_step_plain(
+                g, p, m, v, count, lr=lr, b1=b1, b2=b2, eps=eps,
+                bits_m=bits_m, bits_v=bits_v))
+        return outs
+    raise ValueError(f"unsupported device {dev}")
+
+
 def fused_adam_leaf(g, p, m, v, count: torch.Tensor, leaf: int, *,
                     lr: float, b1: float, b2: float, eps: float,
                     stochastic: bool):
-    """One Adam step of one tensor.  ``count`` is the 0-dim int64 step
-    number t >= 1 on ``p``'s device.  Returns new (p, m, v); inputs are not
-    modified.  CUDA tensors run the kernel, CPU tensors the plain version."""
-    mode = _mode(m, stochastic)
-    if v.dtype != m.dtype or m.shape != p.shape or v.shape != p.shape \
-            or g.shape != p.shape:
-        raise ValueError("g, p, m, v must share a shape and m, v a dtype")
-    if p.device.type == "cuda":
-        return _launch(g, p, m, v, count, leaf, mode, lr, b1, b2, eps)
-    if p.device.type == "cpu":
-        bits_m = bits_v = None
-        if mode == MODE_BF16_SR:
-            gen = torch.Generator().manual_seed(
-                (round_seed(int(count)) << 20) + leaf)
-            bits_m = torch.randint(0, 65536, p.shape, generator=gen)
-            bits_v = torch.randint(0, 65536, p.shape, generator=gen)
-        return fused_adam_step_plain(g, p, m, v, count, lr=lr, b1=b1, b2=b2,
-                                     eps=eps, bits_m=bits_m, bits_v=bits_v)
-    raise ValueError(f"unsupported device {p.device}")
+    """One Adam step of one tensor: the one-leaf case of
+    ``fused_adam_leaves`` with the random-bit key ``leaf``.  Returns new
+    (p, m, v)."""
+    return fused_adam_leaves([g], [p], [m], [v], count, lr=lr, b1=b1, b2=b2,
+                             eps=eps, stochastic=stochastic,
+                             first_leaf=leaf)[0]
 
 
-def _launch(g, p, m, v, count, leaf, mode, lr, b1, b2, eps):
+def _launch(gs, ps, ms, vs, count, first_leaf, mode, lr, b1, b2, eps):
     global launches
-    dev = p.device
-    if p.dtype not in _PARAM_DTYPES:
-        raise ValueError(f"param dtype {p.dtype}: float32 or bfloat16")
+    dev = ps[0].device
+    if ps[0].dtype not in _PARAM_DTYPES:
+        raise ValueError(f"param dtype {ps[0].dtype}: float32 or bfloat16")
     if count.device != dev or count.dtype != torch.int64 or count.ndim != 0:
         raise ValueError("count must be a 0-dim int64 tensor on the params' "
                          "device")
-    g = g.to(torch.float32)      # grads are cast outside, as in the reference
-    for name, t in (("g", g), ("p", p), ("m", m), ("v", v)):
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, expected {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    # the kernel moves four elements per 16-byte access: a view that starts
-    # inside its storage is copied to an aligned buffer
-    g, p, m, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-                  for t in (g, p, m, v))
-    p_out, m_out, v_out = (torch.empty_like(p), torch.empty_like(m),
-                           torch.empty_like(v))
-    n = p.numel()
-    if n:
+    # grads are cast outside the kernel, as in the reference
+    gs = [g if g.dtype == torch.float32 else g.to(torch.float32) for g in gs]
+    keep, ptrs = [], []          # aligned copies kept alive; 7 pointer columns
+    for name, ts in (("g", gs), ("p", ps), ("m", ms), ("v", vs)):
+        col = []
+        for t in ts:
+            if t.device != dev:
+                raise ValueError(f"{name} on {t.device}, expected {dev}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+            ptr = t.data_ptr()
+            if ptr % 16:
+                # the kernel moves four elements per 16-byte access: a view
+                # that starts inside its storage is copied to an aligned buffer
+                t = t.clone()
+                keep.append(t)
+                ptr = t.data_ptr()
+            col.append(ptr)
+        ptrs.append(col)
+    outs = [[torch.empty_like(t) for t in ts] for ts in (ps, ms, vs)]
+    ptrs += [[t.data_ptr() for t in ts] for ts in outs]
+    plan = plan_launches([p.numel() for p in ps])
+    if plan:
         lib = _library()
-        rc = lib.fused_adam_step(
-            g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(),
-            p_out.data_ptr(), m_out.data_ptr(), v_out.data_ptr(),
-            count.data_ptr(), n, _PARAM_DTYPES[p.dtype], mode, leaf,
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    for launch in plan:
+        k = len(launch.leaves)
+        rc = lib.fused_adam_list(
+            k, *[(ctypes.c_void_p * k)(*[col[j] for j in launch.leaves])
+                 for col in ptrs],
+            (ctypes.c_longlong * k)(*launch.sizes),
+            (ctypes.c_int * (k + 1))(*launch.first, launch.blocks),
+            (ctypes.c_int * k)(*[first_leaf + j for j in launch.leaves]),
+            count.data_ptr(), _PARAM_DTYPES[ps[0].dtype], mode,
             lr, b1, 1.0 - b1, b2, 1.0 - b2, eps, math.log(b1), math.log(b2),
-            torch.cuda.current_stream(dev).cuda_stream)
+            stream)
         if rc != 0:
             msg = lib.fused_adam_error_string(rc).decode()
             raise RuntimeError(f"fused_adam launch failed: {msg} ({rc})")
         launches += 1
-    return p_out, m_out, v_out
+    return list(zip(*outs))
 
 
 def fused_adam(lr: float, b1: float = 0.9, b2: float = 0.999,
@@ -192,7 +281,7 @@ def fused_adam(lr: float, b1: float = 0.9, b2: float = 0.999,
                stochastic: bool = True) -> _OptLike:
     """Returns an object with ``init(params)`` and
     ``step(grads, state, params) -> (new_params, new_state)`` over trees
-    (lists/dicts) of tensors, one fused update per leaf."""
+    (lists/dicts) of tensors, one fused update over all leaves."""
     if moment_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"moment dtype {moment_dtype}: float32 or bfloat16")
 
@@ -206,11 +295,10 @@ def fused_adam(lr: float, b1: float = 0.9, b2: float = 0.999,
 
     def step(grads, state: FusedAdamState, params):
         count = state.count + 1
-        outs = [fused_adam_leaf(g, p, m, v, count, j, lr=lr, b1=b1, b2=b2,
-                                eps=eps, stochastic=stochastic)
-                for j, (g, p, m, v) in enumerate(zip(
-                    tree_leaves(grads), tree_leaves(params),
-                    tree_leaves(state.m), tree_leaves(state.v)))]
+        outs = fused_adam_leaves(
+            tree_leaves(grads), tree_leaves(params), tree_leaves(state.m),
+            tree_leaves(state.v), count, lr=lr, b1=b1, b2=b2, eps=eps,
+            stochastic=stochastic)
         pick = lambda k: tree_unflatten(params, [o[k] for o in outs])
         return pick(0), FusedAdamState(count, pick(1), pick(2))
 

@@ -3,17 +3,22 @@
 Port of ``cglgan_tpu/ops/pallas/fused_dstep.py``.  The Pallas TPU kernel
 ``_dstep_kernel`` becomes the hand-written CUDA C++ kernel pipeline in
 ``csrc/fused_dstep.cu`` (route: nvcc for sm_90a, plain C interface, ctypes);
-its note gives the bound at the main-path shapes and the design.
+its note gives the bound at the main-path shapes and the design: the five
+large products of a step run on the tensor cores in 3xTF32
+(``csrc/mma_tf32.cuh``), Adam and the bias gradients are fused into the
+weight-gradient products, ``LAUNCHES_PER_STEP`` CUDA launches a step.
 
 ``fused_d_epoch_steps`` launches the kernel for CUDA tensors and runs the
 plain PyTorch version (``fused_d_epoch_steps_plain``: the same hand-derived
 forward, backward and Adam loop in torch ops) for CPU tensors; nothing
 else.  ``launches`` counts the kernel's launches (one per call).
+``matmul_3xtf32_plain`` emulates the kernel's product arithmetic in torch
+ops, so the choice of 3xTF32 over one TF32 pass is checked where no card is.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -25,6 +30,8 @@ SOURCE = "cglgan_tpu_torch/ops/csrc/fused_dstep.cu"
 REPLACES = "cglgan_tpu/ops/pallas/fused_dstep.py:44"
 HEADS = {"sigmoid": 0, "logits2": 1}
 EPS = 1e-8
+
+LAUNCHES_PER_STEP = 8  # CUDA launches per local step inside one call
 
 launches = 0          # kernel launches (wrapper calls that ran the kernel)
 
@@ -152,6 +159,31 @@ def fused_d_epoch_steps_plain(params, mu, nu, count, shards, starts, fake,
             loss)
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds; returned as float32."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo up to 2^-21 |x|: hi = tf32(x); lo = the TF32 part of the
+    exact remainder x - hi (its low 13 mantissa bits dropped, as the tensor
+    cores read an operand)."""
+    hi = round_tf32(x)
+    lo = ((x - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, lo
+
+
+def matmul_3xtf32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's product in torch ops: a_lo b_hi + a_hi b_lo + a_hi b_hi
+    with float32 sums (TF32 x TF32 products are exact in float32); the
+    a_lo b_lo term is dropped."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
 def _check(t: torch.Tensor, name: str, shape, dtype=torch.float32):
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -166,9 +198,25 @@ def _check(t: torch.Tensor, name: str, shape, dtype=torch.float32):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start at a 16-byte boundary")
 
 
 _LIB = None
+_SCRATCH: Dict[tuple, List[torch.Tensor]] = {}
+
+
+def _scratch(dev, stream: int, W, B, din, h1, h2, dout) -> List[torch.Tensor]:
+    """The call's work space (X, H1, H2, G3, PER, DZ2, DZ1), kept per device,
+    stream and shape: every call on a stream overwrites it in stream order
+    and nothing of it is returned."""
+    key = (dev.index, stream, W, B, din, h1, h2, dout)
+    if key not in _SCRATCH:
+        R = 2 * B
+        _SCRATCH[key] = [torch.empty((W, R, n), dtype=torch.float32,
+                                     device=dev)
+                         for n in (din, h1, h2, dout, 1, h2, h1)]
+    return _SCRATCH[key]
 
 
 def _library() -> ctypes.CDLL:
@@ -214,13 +262,10 @@ def _launch(params, mu, nu, count, shards, starts, fake, head, d_loss_half,
         raise ValueError(f"window starts {list(starts)} outside [0, "
                          f"{max_len - B}]")
     state_out = [torch.empty_like(t) for t in state_in]
-    R = 2 * B
-    f32 = dict(dtype=torch.float32, device=dev)
-    scratch = [torch.empty((W, R, n), **f32)
-               for n in (din, h1, h1, h2, h2, dout, dout, h2, h1)]
-    scratch += [torch.empty(s, **f32) for s in shapes]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _scratch(dev, stream, W, B, din, h1, h2, dout)
     cc = bias_corrections(count.to(dev), W, E, b1, b2)
-    loss = torch.empty((W,), **f32)
+    loss = torch.empty((W,), dtype=torch.float32, device=dev)
     mult = 1.0 if d_loss_half else 2.0
 
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
@@ -230,8 +275,7 @@ def _launch(params, mu, nu, count, shards, starts, fake, head, d_loss_half,
         max_len, (ctypes.c_int * E)(*[int(s) for s in starts]),
         fake.data_ptr(), int(per_client), cc.data_ptr(), loss.data_ptr(),
         W, E, B, din, h1, h2, dout, HEADS[head], mult * 0.5, mult * 0.5 / B,
-        -lr, b1, 1 - b1, b2, 1 - b2, EPS,
-        torch.cuda.current_stream(dev).cuda_stream)
+        -lr, b1, 1 - b1, b2, 1 - b2, EPS, stream)
     if rc != 0:
         msg = lib.fused_dstep_error_string(rc).decode()
         raise RuntimeError(f"fused_dstep launch failed: {msg} ({rc})")

@@ -8,8 +8,10 @@ ten steps, on the ``(130, 170)`` + ``(170,)`` tree of
 tests/test_pallas_ops.py (the second leaf's size is no multiple of 128).
 Stochastic rounding cannot be compared bit for bit with a TPU's generator:
 it is held to what it promises (only the two bfloat16 neighbours, unbiased).
+The planning that cuts a tensor list into launches and blocks
+(``plan_launches``) and the list call on CPU tensors are held here too.
 The CUDA kernel is held to the plain version on the card by the ``cuda``
-case, which skips without a card."""
+cases, which skip without a card."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -173,6 +175,129 @@ def test_cpu_step_keeps_stochastic_mode():
                                    rtol=1.01 * BF16_STEP, atol=0)
     assert fa.round_seed(1) == 2654435761 & 0x7FFFFFFF
     assert fa.round_seed(3) == (3 * 2654435761 % 2 ** 32) & 0x7FFFFFFF
+
+
+def _covered(sizes, max_tensors, chunk):
+    """Per leaf, how often ``plan_launches`` touches each element."""
+    seen = [np.zeros(n, np.int64) for n in sizes]
+    plan = fa.plan_launches(sizes, max_tensors, chunk)
+    for launch in plan:
+        assert 1 <= len(launch.leaves) <= max_tensors
+        assert len(launch.leaves) == len(launch.sizes) == len(launch.first)
+        bounds = list(launch.first) + [launch.blocks]
+        assert bounds[0] == 0 and bounds == sorted(bounds)
+        for block in range(launch.blocks):
+            # the kernel's scan: the last leaf whose first block is <= block
+            s = max(i for i, f in enumerate(launch.first) if f <= block)
+            leaf, n = launch.leaves[s], launch.sizes[s]
+            assert n == sizes[leaf]
+            lo = (block - launch.first[s]) * chunk
+            assert lo < n, "a block with nothing to do"
+            seen[leaf][lo:min(lo + chunk, n)] += 1
+    return plan, seen
+
+
+@pytest.mark.parametrize("sizes,max_tensors,chunk,n_launches", [
+    ([22100, 170], fa.MAX_TENSORS, fa.CHUNK, 1),       # the test tree
+    ([5, 0, 4097, 3, 8192, 1], 4, 4096, 2),            # tails, an empty leaf
+    ([7, 100_003, 9, 2], 8, 64, 1),                    # one leaf dwarfs the rest
+    ([3] * 50 + [0] * 7 + [130], fa.MAX_TENSORS, fa.CHUNK, 3),
+    ([0, 0], fa.MAX_TENSORS, fa.CHUNK, 0),
+], ids=["tree", "tails_and_empty", "one_large", "longer_than_a_launch",
+        "all_empty"])
+def test_plan_covers_every_element_once(sizes, max_tensors, chunk,
+                                        n_launches):
+    plan, seen = _covered(sizes, max_tensors, chunk)
+    assert len(plan) == n_launches
+    for j, hits in enumerate(seen):
+        assert bool((hits == 1).all()), f"leaf {j}"
+    live = [j for j, n in enumerate(sizes) if n]
+    assert [j for launch in plan for j in launch.leaves] == live
+
+
+def _leaf_lists(dt, seed=11):
+    rng = np.random.default_rng(seed)
+    shapes = [(13, 7), (0,), (170,), (3,), (64, 5)]
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    ps = [t(rng.normal(size=s)) for s in shapes]
+    gs = [t(0.1 * rng.normal(size=s)) for s in shapes]
+    ms = [t(1e-3 * rng.normal(size=s)).to(dt) for s in shapes]
+    vs = [t(1e-6 * np.abs(rng.normal(size=s))).to(dt) for s in shapes]
+    return gs, ps, ms, vs
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bf16_sr"])
+def test_cpu_leaves_equal_plain_per_leaf(mode):
+    """``fused_adam_leaves`` on CPU tensors is ``fused_adam_step_plain`` per
+    leaf, bit for bit; in stochastic mode with the bits of a generator
+    seeded by (round seed, leaf index), and it does round stochastically."""
+    dt = torch.float32 if mode == "f32" else torch.bfloat16
+    gs, ps, ms, vs = _leaf_lists(dt)
+    count = torch.tensor(4, dtype=torch.int64)
+    kw = dict(lr=LR, b1=B1, b2=B2, eps=1e-8)
+    got = fa.fused_adam_leaves(gs, ps, ms, vs, count,
+                               stochastic=mode == "bf16_sr", **kw)
+    assert len(got) == len(ps)
+    for j, (g, p, m, v) in enumerate(zip(gs, ps, ms, vs)):
+        bits = {}
+        if mode == "bf16_sr":
+            gen = torch.Generator().manual_seed((fa.round_seed(4) << 20) + j)
+            bits = dict(
+                bits_m=torch.randint(0, 65536, p.shape, generator=gen),
+                bits_v=torch.randint(0, 65536, p.shape, generator=gen))
+        ref = fa.fused_adam_step_plain(g, p, m, v, count, **kw, **bits)
+        one = fa.fused_adam_leaf(g, p, m, v, count, j,
+                                 stochastic=mode == "bf16_sr", **kw)
+        for a, b, c in zip(got[j], ref, one):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a, b) and torch.equal(a, c)
+    if mode == "bf16_sr":
+        near = fa.fused_adam_leaves(gs, ps, ms, vs, count, stochastic=False,
+                                    **kw)
+        assert float((got[4][1] != near[4][1]).float().mean()) > 0.2
+
+
+def test_mixed_list_raises():
+    gs, ps, ms, vs = _leaf_lists(torch.float32)
+    count = torch.tensor(1, dtype=torch.int64)
+    kw = dict(lr=LR, b1=B1, b2=B2, eps=1e-8, stochastic=False)
+    mixed_m = [m.bfloat16() if j == 2 else m for j, m in enumerate(ms)]
+    mixed_v = [v.bfloat16() if j == 2 else v for j, v in enumerate(vs)]
+    with pytest.raises(ValueError, match="mixed list"):
+        fa.fused_adam_leaves(gs, ps, mixed_m, mixed_v, count, **kw)
+    mixed_p = [p.bfloat16() if j == 3 else p for j, p in enumerate(ps)]
+    with pytest.raises(ValueError, match="mixed list"):
+        fa.fused_adam_leaves(gs, mixed_p, ms, vs, count, **kw)
+    with pytest.raises(ValueError, match="one entry per leaf"):
+        fa.fused_adam_leaves(gs[:-1], ps, ms, vs, count, **kw)
+    assert fa.fused_adam_leaves([], [], [], [], count, **kw) == []
+
+
+@pytest.mark.cuda
+def test_cuda_list_is_one_launch_and_bit_equal():
+    """A list longer than one launch takes, with an empty leaf and tails, on
+    the card: the right number of launches, bit-equal to the plain version
+    with float32 moments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(5)
+    sizes = [(5 * j + 1) % 997 for j in range(fa.MAX_TENSORS + 3)]
+    sizes[4] = 0
+    cu = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    ps = [cu(rng.normal(size=n)) for n in sizes]
+    gs = [cu(0.1 * rng.normal(size=n)) for n in sizes]
+    ms = [cu(1e-3 * rng.normal(size=n)) for n in sizes]
+    vs = [cu(1e-6 * np.abs(rng.normal(size=n))) for n in sizes]
+    count = torch.tensor(4, dtype=torch.int64, device="cuda")
+    kw = dict(lr=LR, b1=B1, b2=B2, eps=1e-8)
+    launched = fa.launches
+    got = fa.fused_adam_leaves(gs, ps, ms, vs, count, stochastic=False, **kw)
+    assert fa.launches == launched + len(fa.plan_launches(sizes)) \
+        == launched + 2
+    for o, g, p, m, v in zip(got, gs, ps, ms, vs):
+        ref = fa.fused_adam_step_plain(g, p, m, v, count, **kw)
+        for a, b in zip(o, ref):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

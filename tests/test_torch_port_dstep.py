@@ -5,8 +5,10 @@ its plain PyTorch version; it must match the reference kernel
 ``cglgan_tpu.ops.pallas.fused_dstep.fused_d_epoch_steps(interpret=True)``
 on the same inputs, for both discriminator heads and per-client Adam
 counts, at the tolerances of tests/test_pallas_dstep.py (float32; the sums
-run in another order).  The CUDA kernel itself is held to the plain
-version on the card by the ``cuda`` case, which skips without a card."""
+run in another order).  The kernel's product arithmetic (3xTF32) is held
+to float32 through its emulation in torch ops.  The CUDA kernel itself is
+held to the plain version on the card by the ``cuda`` cases, which skip
+without a card."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,26 +123,128 @@ def test_bias_corrections_match_reference():
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
 
 
+# the kernel's five tensor-core products at the main-path shape, one client:
+# (M, K, N) of z1, z2, dz1, dW2, dW1
+PRODUCTS = {"z1": (200, 784, 512), "z2": (200, 512, 256),
+            "dz1": (200, 256, 512), "dW2": (512, 200, 256),
+            "dW1": (784, 200, 512)}
+# max |product - float64 product| over the largest |entry|.  float32 sums of
+# K <= 784 terms measure 5.6e-7..6.8e-7 here for torch.matmul and for the
+# 3xTF32 emulation alike (the dropped a_lo b_lo term is 2^-22 of a product);
+# one TF32 pass measures 2.5e-4..3.2e-4, far above the 1e-5 the losses are
+# held to on the card.
+TOL_F32_GRADE = 2e-6
+TOL_LOSS_ON_CARD = 1e-5
+
+
+@pytest.mark.parametrize("name", sorted(PRODUCTS))
+def test_3xtf32_product_is_float32_grade(name):
+    M, K, N = PRODUCTS[name]
+    rng = np.random.default_rng(sorted(PRODUCTS).index(name))
+    a = torch.from_numpy(rng.uniform(-1, 1, (M, K)).astype(np.float32))
+    b = torch.from_numpy((0.05 * rng.normal(size=(K, N))).astype(np.float32))
+    ref = a.double() @ b.double()
+    err = lambda x: float((x.double() - ref).abs().max() / ref.abs().max())
+    assert err(a @ b) <= TOL_F32_GRADE                 # the yardstick itself
+    assert err(fused_dstep.matmul_3xtf32_plain(a, b)) <= TOL_F32_GRADE
+    one_pass = fused_dstep.round_tf32(a) @ fused_dstep.round_tf32(b)
+    assert err(one_pass) > TOL_LOSS_ON_CARD
+
+
+def test_split_tf32_rounds_to_ten_bits():
+    """hi and lo are TF32 values (13 low mantissa bits zero), hi is x rounded
+    to nearest with ties away from zero, and hi + lo recovers x to 2^-22."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((rng.normal(size=4096) * np.logspace(
+        -6, 6, 4096)).astype(np.float32))
+    hi, lo = fused_dstep.split_tf32(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert bool(((hi - x).abs() <= x.abs() * 2.0 ** -11).all())
+    assert bool(((hi + lo - x).abs() <= x.abs() * 2.0 ** -21).all())
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0, 0.0])
+    want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 0.0])
+    assert torch.equal(fused_dstep.round_tf32(tie), want)
+
+
+def _ragged_inputs(out_dim, seed=5):
+    """W=3, B=37, 50-24-40: no size a multiple of a tile or of 8, and rows
+    of the first layer's input that are not 16-byte aligned."""
+    rng = np.random.default_rng(seed)
+    w, b, din, h1, h2, length = 3, 37, 50, 24, 40, 90
+    dims = (din, h1, h2, out_dim)
+    f32 = lambda a: np.asarray(a, np.float32)
+    six = [x for i, o in zip(dims[:-1], dims[1:])
+           for x in (f32(rng.normal(size=(w, i, o)) / np.sqrt(i)),
+                     f32(0.1 * rng.normal(size=(w, o))))]
+    mu6 = [f32(1e-3 * rng.normal(size=x.shape)) for x in six]
+    nu6 = [f32(1e-6 * np.abs(rng.normal(size=x.shape))) for x in six]
+    shard = rng.integers(0, 256, size=(w, length, din)).astype(np.uint8)
+    fake = f32(np.tanh(rng.normal(size=(b, din))))
+    return six, mu6, nu6, np.asarray([2, 7, 3], np.int32), shard, fake
+
+
+def _on_card(args, starts, head, half):
+    """(kernel result, plain result) on the card, as numpy."""
+    t = lambda x: torch.from_numpy(np.array(x)).cuda()
+    six, mu6, nu6, count, shard, fake = args
+    targs = ([t(x) for x in six], [t(x) for x in mu6], [t(x) for x in nu6],
+             t(count.astype(np.int64)), t(shard), starts, t(fake))
+    kw = dict(head=head, d_loss_half=half, lr=LR, b1=B1, b2=B2)
+    npy = lambda out: ([x.cpu().numpy() for x in out[0]],
+                       [x.cpu().numpy() for x in out[1]],
+                       [x.cpu().numpy() for x in out[2]],
+                       out[3].cpu().numpy(), out[4].cpu().numpy())
+    got = npy(fused_dstep.fused_d_epoch_steps(*targs, **kw))
+    return got, npy(fused_dstep.fused_d_epoch_steps_plain(*targs, **kw))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["tiles", "ragged"])
 @pytest.mark.parametrize("head,out_dim,half", [("sigmoid", 1, False),
                                                ("logits2", 2, True)])
-def test_cuda_kernel_matches_plain(head, out_dim, half):
+def test_cuda_kernel_matches_plain(head, out_dim, half, shape):
     """The CUDA kernel against the plain version on the card, same inputs
-    (TF32 off: both sides are full float32)."""
+    (TF32 off: the plain side is full float32, the kernel 3xTF32), at the
+    file's small shape and at a ragged one (partial tiles in M, N and K)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     launched = fused_dstep.launches
-    args = _inputs(out_dim, [0, 7, 3])
-    got = _port_run(*args, head, half, "cuda")
+    if shape == "tiles":
+        args, starts = _inputs(out_dim, [0, 7, 3]), STARTS
+    else:
+        args, starts = _ragged_inputs(out_dim), [0, 53, 21]
+    got, ref = _on_card(args, starts, head, half)
     assert fused_dstep.launches == launched + 1
+    _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_cached_scratch_between_calls():
+    """Two calls in a row with different window starts share the module's
+    cached work space; each must give what it gives with a fresh one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _inputs(2, [0, 7, 3])
     t = lambda x: torch.from_numpy(np.array(x)).cuda()
     six, mu6, nu6, count, shard, fake = args
-    plain = fused_dstep.fused_d_epoch_steps_plain(
+    targs = lambda starts: (
         [t(x) for x in six], [t(x) for x in mu6], [t(x) for x in nu6],
-        t(count.astype(np.int64)), t(shard), STARTS, t(fake), head=head,
-        d_loss_half=half, lr=LR, b1=B1, b2=B2)
-    npy = lambda x: x.cpu().numpy()
-    ref = ([npy(x) for x in plain[0]], [npy(x) for x in plain[1]],
-           [npy(x) for x in plain[2]], npy(plain[3]), npy(plain[4]))
-    _assert_close(got, ref)
+        t(count.astype(np.int64)), t(shard), starts, t(fake))
+    kw = dict(head="logits2", d_loss_half=True, lr=LR, b1=B1, b2=B2)
+    flat = lambda out: [x.clone() for g in out[:3] for x in g] + [out[4]]
+    fresh = []
+    for starts in ([1, 17], [20, 3]):
+        fused_dstep._SCRATCH.clear()
+        fresh.append(flat(fused_dstep.fused_d_epoch_steps(*targs(starts),
+                                                          **kw)))
+    fused_dstep._SCRATCH.clear()
+    first = fused_dstep.fused_d_epoch_steps(*targs([1, 17]), **kw)
+    second = fused_dstep.fused_d_epoch_steps(*targs([20, 3]), **kw)
+    assert len(fused_dstep._SCRATCH) == 1
+    for got, want in ((flat(first), fresh[0]), (flat(second), fresh[1])):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert not torch.equal(first[0][0], second[0][0])
