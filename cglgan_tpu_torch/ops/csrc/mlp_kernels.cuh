@@ -1,8 +1,8 @@
-// mlp_kernels.cuh — the device code the port's fused MLP pipelines share:
-// one strided, batched, tiled SIMT GEMM with fused epilogues, a column sum
-// and an optax-ordered Adam pass (fused_sweep.cu), and the per-element Adam
-// update and the head's constants that fused_dstep.cu and mma_tf32.cuh use
-// too.  No tensor cores here (mma_tf32.cuh has them), no library GEMM.
+// mlp_kernels.cuh — the device code the port's fused MLP kernels share: one
+// block's 64x64 tile of a strided SIMT matrix product (fused_sweep.cu), and
+// the per-element Adam update and the head's constants that fused_dstep.cu
+// and mma_tf32.cuh use too.  No tensor cores here (mma_tf32.cuh has them),
+// no library GEMM.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,102 +11,118 @@
 namespace {
 
 constexpr int BM = 64, BN = 64, BK = 16, TPB = 256;
-// GEMM epilogues: plain store | + bias | + bias, C = z and H = lrelu(z) |
-// * lrelu'(Zaux) | + bias, C = tanh(z) | * (1 - Zaux^2) (tanh derivative
-// from the tanh's output)
-constexpr int EPI_STORE = 0, EPI_BIAS = 1, EPI_BIAS_LRELU = 2,
-              EPI_LRELU_GRAD = 3, EPI_BIAS_TANH = 4, EPI_TANH_GRAD = 5;
 // the reference clips probabilities to [1e-12, 1 - 1e-7] in float32
 constexpr float P_LO = 1e-12f;
 constexpr float P_HI = (float)(1.0 - 1e-7);
 
-// C[b] (M x N, row-major, ld N) = A[b] (M x K) * B[b] (K x N) + epilogue.
-// Operands are addressed through strides, so one kernel serves X W
-// (NN), A^T G (TN) and G W^T (NT).  A_K_CONTIG / B_N_CONTIG say which index
-// is contiguous in memory, so tile loads stay coalesced.
-template <bool A_K_CONTIG, bool B_N_CONTIG, int EPI>
-__global__ void __launch_bounds__(TPB) gemm_kernel(
-    int M, int N, int K,
-    const float* __restrict__ A, long long sAb, long long sAm, long long sAk,
-    const float* __restrict__ Bm, long long sBb, long long sBk, long long sBn,
-    float* __restrict__ C, long long sCb,
-    const float* __restrict__ bias, long long sBiasb,
-    float* __restrict__ H, const float* __restrict__ Zaux) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+// A load through L2 only.  A kernel that runs a whole pipeline in one launch
+// reads what other blocks wrote earlier in the same launch; the read-only
+// path (LDG.NC) and L1 need not see those writes, L2 does once a barrier
+// has ordered them.
+__device__ __forceinline__ float ld(const float* p) { return __ldcg(p); }
+
+// One product C (M x N) = A (M x K) * B (K x N), addressed through strides
+// so that one loop serves X W (NN), G W^T (NT) and A^T G (TN): element (m, k)
+// of A is at a[m * sam + k * sak], except that rows m >= split come from a2
+// (row m - split), so that two inputs of one layer go through in one pass;
+// element (k, n) of B is at b[k * sbk + n * sbn].
+struct Gemm {
+  int M, N, K;
+  const float *a, *a2;
+  int split;
+  long long sam, sak;
+  const float* b;
+  long long sbk, sbn;
+};
+
+// Two 16-deep slabs of A and B: one is summed while the next is stored.
+struct TileSmem {
+  __align__(16) float As[2][BK][BM + 4];
+  __align__(16) float Bs[2][BK][BN + 4];
+};
+
+__device__ __forceinline__ int tile_count(int M, int N) {
+  return ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+}
+
+// The block's 256 threads sum tile (m0, n0) of g into acc: thread (ty, tx)
+// = (tid / 16, tid % 16) holds rows m0 + 4 ty + i and columns n0 + 4 tx + j.
+// Edges are masked (zero-filled loads).  Each 16-deep slab of A and B is
+// loaded into registers while the previous one is summed from shared memory
+// (two buffers, one barrier a slab); a thread reads its 4 rows and 4 columns
+// of a slab step as two 16-byte loads.  A_K_CONTIG / B_N_CONTIG say which
+// index is contiguous in memory, so that neighbouring threads load
+// neighbouring addresses.
+template <bool A_K_CONTIG, bool B_N_CONTIG>
+__device__ __forceinline__ void tile_product(const Gemm& g, int m0, int n0,
+                                             TileSmem& s,
+                                             float (&acc)[4][4]) {
+  constexpr int PER = BM * BK / TPB;     // elements of a slab a thread loads
+  static_assert(BM == 64 && BN == 64 && PER * TPB == BM * BK,
+                "64x64 tiles, whole slabs a thread");
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  A += b * sAb;
-  Bm += b * sBb;
-  float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += TPB) {
-      int kk, mm;
-      if (A_K_CONTIG) { kk = i % BK; mm = i / BK; }
-      else            { mm = i % BM; kk = i / BM; }
-      const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = (gm < M && gk < K) ? A[gm * sAm + gk * sAk] : 0.f;
+  // Element q of a thread's share of a slab: A at (am[q], k0 + ak[q]), B at
+  // (k0 + bk[q], bn[q]).  The row / column start is fixed for the tile, so
+  // only the k offset moves from slab to slab.
+  int am[PER], ak[PER], bn[PER], bk[PER];
+  const float* arow[PER];
+  const float* bcol[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int i = tid + q * TPB;
+    if (A_K_CONTIG) { ak[q] = i % BK; am[q] = i / BK; }
+    else            { am[q] = i % BM; ak[q] = i / BM; }
+    if (B_N_CONTIG) { bn[q] = i % BN; bk[q] = i / BN; }
+    else            { bk[q] = i % BK; bn[q] = i / BK; }
+    const int gm = m0 + am[q], gn = n0 + bn[q];
+    arow[q] = gm >= g.M ? nullptr
+              : gm < g.split ? g.a + gm * g.sam
+                             : g.a2 + (gm - g.split) * g.sam;
+    bcol[q] = gn < g.N ? g.b + gn * g.sbn : nullptr;
+  }
+  float ra[PER], rb[PER];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int ka = k0 + ak[q], kb = k0 + bk[q];
+      ra[q] = arow[q] && ka < g.K ? ld(arow[q] + ka * g.sak) : 0.f;
+      rb[q] = bcol[q] && kb < g.K ? ld(bcol[q] + kb * g.sbk) : 0.f;
     }
-    for (int i = tid; i < BN * BK; i += TPB) {
-      int kk, nn;
-      if (B_N_CONTIG) { nn = i % BN; kk = i / BN; }
-      else            { kk = i % BK; nn = i / BK; }
-      const int gn = n0 + nn, gk = k0 + kk;
-      Bs[kk][nn] = (gn < N && gk < K) ? Bm[gk * sBk + gn * sBn] : 0.f;
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      s.As[buf][ak[q]][am[q]] = ra[q];
+      s.Bs[buf][bk[q]][bn[q]] = rb[q];
     }
-    __syncthreads();
+  };
+
+  const int nk = (g.K + BK - 1) / BK;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int t = 0; t < nk; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < nk) load((t + 1) * BK);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
+      const float4 a4 = *reinterpret_cast<const float4*>(&s.As[buf][kk][4 * ty]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&s.Bs[buf][kk][4 * tx]);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
     }
+    if (t + 1 < nk) store(buf ^ 1);
     __syncthreads();
   }
-
-  const long long cb = b * sCb;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      const long long o = cb + (long long)m * N + n;
-      float v = acc[i][j];
-      if (EPI == EPI_BIAS || EPI == EPI_BIAS_LRELU || EPI == EPI_BIAS_TANH)
-        v += bias[b * sBiasb + n];
-      if (EPI == EPI_LRELU_GRAD) v *= (Zaux[o] >= 0.f ? 1.f : 0.2f);
-      if (EPI == EPI_TANH_GRAD) v *= 1.f - Zaux[o] * Zaux[o];
-      if (EPI == EPI_BIAS_TANH) v = tanhf(v);
-      C[o] = v;
-      if (EPI == EPI_BIAS_LRELU) H[o] = v >= 0.f ? v : 0.2f * v;
-    }
-  }
-}
-
-// out[w][n] = sum_r G[w][r][n]: grid (ceil(N/TPB), W).
-__global__ void colsum_kernel(const float* __restrict__ G,
-                              float* __restrict__ out, int R, int N) {
-  const int w = blockIdx.y, n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const float* g = G + (long long)w * R * N + n;
-  float s = 0.f;
-  for (int r = 0; r < R; ++r) s += g[(long long)r * N];
-  out[(long long)w * N + n] = s;
 }
 
 // The constants of one optax-ordered Adam step (lr negated; omb = 1 - b).
@@ -130,32 +146,6 @@ __device__ __forceinline__ void adam_one(float p, float m, float v, float gg,
   *po = __fadd_rn(p, __fmul_rn(k.neg_lr, upd));
   *mo = mu2;
   *vo = nu2;
-}
-
-// One Adam update of a (W, n_per) tensor; p/m/v may alias po/mo/vo (each
-// element reads, then writes, only its own index).
-__global__ void adam_kernel(const float* p, const float* m, const float* v,
-                            const float* __restrict__ g, float* po, float* mo,
-                            float* vo, long long n_per, int W,
-                            const float* __restrict__ cc, int E, int e,
-                            float neg_lr, float b1, float omb1, float b2,
-                            float omb2, float eps) {
-  const long long total = n_per * W;
-  const AdamConsts k{neg_lr, b1, omb1, b2, omb2, eps};
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const int w = (int)(i / n_per);
-    const float c1 = cc[(w * E + e) * 2], c2 = cc[(w * E + e) * 2 + 1];
-    float pn, mn, vn;
-    adam_one(p[i], m[i], v[i], g[i], c1, c2, k, &pn, &mn, &vn);
-    po[i] = pn;
-    mo[i] = mn;
-    vo[i] = vn;
-  }
-}
-
-inline dim3 gemm_grid(int M, int N, int W) {
-  return dim3((N + BN - 1) / BN, (M + BM - 1) / BM, W);
 }
 
 }  // namespace

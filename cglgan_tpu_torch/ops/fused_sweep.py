@@ -2,9 +2,15 @@
 step) iterations for W workers in one call.
 
 Port of ``cglgan_tpu/ops/pallas/fused_sweep.py``.  The Pallas TPU kernel
-``_sweep_kernel`` becomes the hand-written CUDA C++ kernel pipeline in
-``csrc/fused_sweep.cu`` (route: nvcc for sm_90a, plain C interface, ctypes);
-its note gives the bound at the main-path shapes and the design.
+``_sweep_kernel`` becomes one hand-written CUDA C++ kernel,
+``csrc/fused_sweep.cu`` (route: nvcc for sm_90a, plain C interface, ctypes),
+launched once a call: one thread-block cluster of ``cluster_occupancy()
+["cluster"]`` blocks per worker runs all E iterations, with a cluster
+barrier between the layers' phases.  The call is bound by operations (~95
+MFLOP per worker-iteration of f32 FMA at the main-path shapes); the design
+takes the TPU kernel's one program per worker onto a cluster of SMs, so the
+call costs one launch instead of a pipeline of small kernels a layer.  The
+source's note has the phases and the bound.
 
 Per local iteration, the reference worker loop (FLGAN/2DMG/flgan.py:229-256,
 fegan.py:282-303):
@@ -26,7 +32,7 @@ True only when ``pallas_sweep=True`` forces it.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -218,6 +224,7 @@ def _check(t: torch.Tensor, name: str, shape, dev):
 
 
 _LIB = None
+_SCRATCH: Dict[tuple, torch.Tensor] = {}
 
 
 def _library() -> ctypes.CDLL:
@@ -228,16 +235,65 @@ def _library() -> ctypes.CDLL:
         from cglgan_tpu_torch.ops import _build
         lib = _build.load("fused_sweep")
         vp, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-        pp = ctypes.POINTER(vp)
+        pp, ip = ctypes.POINTER(vp), ctypes.POINTER(i)
         lib.fused_sweep_f32.argtypes = [
-            pp, pp, pp, pp, pp, vp, vp, vp, vp, vp, vp, vp,
-            i, i, i, i, ctypes.POINTER(i), i, i,
-            f, f, f, f, f, f, f, vp]
+            pp, pp, pp, pp, vp, vp, vp, vp, vp, i, vp, i, vp, vp,
+            i, i, i, i, ip, i, i, f, f, f, f, f, f, f, vp]
         lib.fused_sweep_f32.restype = i
+        lib.fused_sweep_scratch_floats.argtypes = [i, i, ip, i, i]
+        lib.fused_sweep_scratch_floats.restype = ctypes.c_longlong
+        lib.fused_sweep_max_active_clusters.argtypes = [i, ip]
+        lib.fused_sweep_max_active_clusters.restype = i
+        lib.fused_sweep_cluster_size.restype = i
         lib.fused_sweep_error_string.argtypes = [i]
         lib.fused_sweep_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _raise_on(lib, rc: int, what: str):
+    if rc != 0:
+        msg = lib.fused_sweep_error_string(rc).decode()
+        raise RuntimeError(f"fused_sweep {what} failed: {msg} ({rc})")
+
+
+def cluster_occupancy() -> dict:
+    """The kernel's cluster size (a constant of the source) and how many
+    such clusters the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _library()
+    size = lib.fused_sweep_cluster_size()
+    n = ctypes.c_int(0)
+    _raise_on(lib, lib.fused_sweep_max_active_clusters(size, ctypes.byref(n)),
+              "occupancy query")
+    return {"cluster": size, "max_active_clusters": n.value}
+
+
+def _scratch(lib, dev, stream: int, W, B, gdims, dh1, dh2) -> torch.Tensor:
+    """The call's work space (activations and dz of every layer, all
+    workers), kept per device, stream and shape: every call on a stream
+    overwrites it in stream order and nothing of it is returned."""
+    key = (dev.index, stream, W, B, tuple(gdims), dh1, dh2)
+    if key not in _SCRATCH:
+        L_g = len(gdims) - 1
+        n = lib.fused_sweep_scratch_floats(
+            B, L_g, (ctypes.c_int * len(gdims))(*gdims), dh1, dh2)
+        if n < 0:
+            raise ValueError(
+                f"fused_sweep takes samples at most 4 wide and layers into "
+                f"its per-row stages at most 256 wide; got G widths {gdims}, "
+                f"D hidden widths {dh1}, {dh2}")
+        _SCRATCH[key] = torch.empty((W * n,), dtype=torch.float32,
+                                    device=dev)
+    return _SCRATCH[key]
+
+
+def _counts(count: torch.Tensor, W: int, dev, name: str):
+    """(int64 tensor on dev, 1 if it holds one count per worker else 0)."""
+    c = count.to(device=dev, dtype=torch.int64).reshape(-1).contiguous()
+    if c.numel() not in (1, W):
+        raise ValueError(f"{name}: {c.numel()} counts for {W} workers")
+    return c, int(c.numel() > 1)
 
 
 def layer_shapes(dims: Sequence[int], W: int) -> List[Tuple[int, ...]]:
@@ -271,40 +327,25 @@ def _launch(g_p, g_mu, g_nu, g_count, d_p, d_mu, d_nu, d_count, reals, z1,
         _check(t, f"g_state[{j}]", g_shapes[j % (2 * L_g)], dev)
     for j, t in enumerate(d_in):
         _check(t, f"d_state[{j}]", d_shapes[j % 6], dev)
+    gc, gc_per = _counts(g_count, W, dev, "g_count")
+    dc, dc_per = _counts(d_count, W, dev, "d_count")
     g_out = [torch.empty_like(t) for t in g_in]
     d_out = [torch.empty_like(t) for t in d_in]
-
-    f32 = dict(dtype=torch.float32, device=dev)
-    R = 2 * B
+    d_loss = torch.empty((W,), dtype=torch.float32, device=dev)
+    g_loss = torch.empty((W,), dtype=torch.float32, device=dev)
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     dh1, dh2 = ddims[1], ddims[2]
-    # scratch, in the order csrc/fused_sweep.cu reads it
-    scratch = [torch.empty((W, R, xdim), **f32),            # X
-               torch.empty((W, B, xdim), **f32),            # FAKE2
-               torch.empty((W, B, xdim), **f32)]            # DFAKE
-    scratch += [torch.empty((W, R, n), **f32)
-                for n in (dh1, dh1, dh2, dh2, 1, 1, dh2, dh1)]
-    scratch += [torch.empty(s, **f32) for s in d_shapes]    # D grads
-    for i in range(L_g - 1):                                # GZ, GH, GDZ
-        scratch += [torch.empty((W, B, gdims[i + 1]), **f32)
-                    for _ in range(3)]
-    scratch += [torch.empty(s, **f32) for s in g_shapes]    # G grads
-    ccg = bias_corrections(g_count.to(dev), W, E, b1, b2)
-    ccd = bias_corrections(d_count.to(dev), W, E, b1, b2)
-    d_loss = torch.empty((W,), **f32)
-    g_loss = torch.empty((W,), **f32)
+    scratch = _scratch(lib, dev, stream, W, B, gdims, dh1, dh2)
 
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-    lib = _library()
     rc = lib.fused_sweep_f32(
-        ptrs(g_in), ptrs(g_out), ptrs(d_in), ptrs(d_out), ptrs(scratch),
-        reals.data_ptr(), z1.data_ptr(), z2.data_ptr(), ccg.data_ptr(),
-        ccd.data_ptr(), d_loss.data_ptr(), g_loss.data_ptr(),
+        ptrs(g_in), ptrs(g_out), ptrs(d_in), ptrs(d_out), scratch.data_ptr(),
+        reals.data_ptr(), z1.data_ptr(), z2.data_ptr(), gc.data_ptr(),
+        gc_per, dc.data_ptr(), dc_per, d_loss.data_ptr(), g_loss.data_ptr(),
         W, E, B, L_g, (ctypes.c_int * len(gdims))(*gdims), dh1, dh2,
-        -lr_g, -lr_d, b1, 1 - b1, b2, 1 - b2, EPS,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        msg = lib.fused_sweep_error_string(rc).decode()
-        raise RuntimeError(f"fused_sweep launch failed: {msg} ({rc})")
+        -lr_g, -lr_d, b1, 1 - b1, b2, 1 - b2, EPS, stream)
+    _raise_on(lib, rc, "launch")
     launches += 1
     m = 2 * L_g
     return (g_out[:m], g_out[m:2 * m], g_out[2 * m:], d_out[:6],

@@ -16,7 +16,11 @@ Phases, each printing one JSON line:
             33-27-30, for errors only, so that partial tiles in M, N and K and
             the unaligned paths run on the card); ``fused_sweep`` (16
             workers, E=5, B=100, G 100-256-128-2 and 100-32-2, D 2-128-256-1,
-            diverging per-worker G and D counts); ``fused_adam`` (the
+            diverging per-worker G and D counts; the kernels one call puts
+            on the card, which must be 1; its cluster size and
+            ``cudaOccupancyMaxActiveClusters``; then W=3, E=1, B=37 / W=20,
+            E=3, B=19 / W=2, E=32, B=16 with both G shapes, for errors
+            only); ``fused_adam`` (the
             16-client discriminator stack as one list call, float32 /
             bfloat16 / stochastic bfloat16 moments; a list longer than one
             launch takes, with an empty leaf and sizes no multiple of 4, held
@@ -31,9 +35,10 @@ Phases, each printing one JSON line:
   fedavg    16-worker FL-GAN and FeGAN (frac_workers=0.5) on 2DMG at
             epoch=5 through ``load_partition``, ``build_runner`` and
             ``train``, 20 rounds each with ``pallas_sweep=True`` (the sweep
-            kernel's launch count must rise by exactly 20) and with the
-            default (autograd; the count must stay 0); KL and Distribution
-            Score of 10 000 samples are printed, not gated.
+            kernel's launch count must rise by exactly 20, and the profile
+            must show it once a round) and with the default (autograd; the
+            count must stay 0); KL and Distribution Score of 10 000 samples
+            are printed, not gated.
 The round phases also profile a few further rounds (device time by kernel,
 busy share; ``cglgan_tpu_torch/utils/profiling.py``).
 Then the card line, the ``kernels`` line and, last, the ok line.  Any
@@ -346,69 +351,113 @@ def sweep_work(W, E, B, gdims, ddims):
     return flops, bytes_
 
 
+# small ragged shapes for fused_sweep, errors only: no size a multiple of a
+# tile; W=20 is more workers than the card may hold clusters at once; E=32
+# is MAX_EPOCH
+SWEEP_RAGGED = (dict(W=3, E=1, B=37), dict(W=20, E=3, B=19),
+                dict(W=2, E=32, B=16))
+
+
+def sweep_inputs(gen, g_model, d_model, W, E, B, gdims):
+    """Seeded inputs of one fused_sweep_steps call on the card: both nets'
+    init weights, nonzero moments, per-worker Adam counts that differ
+    between workers and between G and D, 2DMG reals, latents.  Returns
+    (g_net, d_net, args)."""
+    import torch
+    from cglgan_tpu_torch.algos import common
+    from cglgan_tpu_torch.data.gmm import gmm_modes
+    from cglgan_tpu_torch.ops import fused_dstep
+    dev = torch.device("cuda")
+
+    def net(model, count):
+        params, bn = model.init(gen, W)
+        to = lambda fn: [None if p is None else
+                         {k: fn(x).to(dev) for k, x in p.items()}
+                         for p in params]
+        return common.NetState(
+            to(lambda x: x), bn, common.AdamState(
+                count.to(dev),
+                to(lambda x: torch.randn(x.shape, generator=gen) * 1e-3),
+                to(lambda x: torch.randn(x.shape, generator=gen).abs()
+                   * 1e-6)))
+
+    g_net = net(g_model, torch.arange(W, dtype=torch.int64) * 3)
+    d_net = net(d_model, torch.arange(W, dtype=torch.int64) * 2 + 1)
+    modes = torch.from_numpy(gmm_modes(8)).float()
+    lab = torch.randint(0, 8, (W, E, B), generator=gen)
+    reals = (modes[lab] + 0.01 * torch.randn((W, E, B, 2), generator=gen)
+             ).to(dev)
+    z1 = torch.randn((W, E, B, gdims[0]), generator=gen).to(dev)
+    z2 = torch.randn((W, E, B, gdims[0]), generator=gen).to(dev)
+    gp, gmu, gnu, gc = fused_dstep.unpack_net_generic(g_net)
+    dp, dmu, dnu, dc = fused_dstep.unpack_net_generic(d_net)
+    return g_net, d_net, (gp, gmu, gnu, gc, dp, dmu, dnu, dc, reals, z1, z2)
+
+
+def sweep_check(args, kw):
+    """One kernel call against the plain version on the same inputs, which
+    the call must leave as they were; errors per state group and loss."""
+    import torch
+    from cglgan_tpu_torch.ops import fused_sweep
+    state = [t for i in (0, 1, 2, 4, 5, 6) for t in args[i]]
+    before = [t.clone() for t in state]
+    got = fused_sweep.fused_sweep_steps(*args, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(before, state)):
+        raise AssertionError("fused_sweep modified its inputs")
+    ref = fused_sweep.fused_sweep_steps_plain(*args, **kw)
+    names = ("g.params", "g.mu", "g.nu", "d.params", "d.mu", "d.nu")
+    errs = {n: scaled_errs(got[i], ref[i], TOL_SCALED)
+            for i, n in enumerate(names)}
+    errs["d_loss"] = scaled_errs([got[6]], [ref[6]], TOL_LOSS)
+    errs["g_loss"] = scaled_errs([got[7]], [ref[7]], TOL_LOSS)
+    return errs
+
+
+def device_kernels(fn):
+    """Device kernels (and copies) one call of ``fn`` puts on the card, by
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def phase_kernel_sweep(card_name):
     import torch
     from cglgan_tpu_torch.algos import common, fedavg_family
     from cglgan_tpu_torch.core.config import FedGANConfig
-    from cglgan_tpu_torch.data.gmm import gmm_modes
     from cglgan_tpu_torch.models.zoo import (build_discriminator,
                                              build_generator)
-    from cglgan_tpu_torch.ops import fused_dstep, fused_sweep
+    from cglgan_tpu_torch.ops import fused_sweep
 
-    dev = torch.device("cuda")
     results = []
+    occupancy = fused_sweep.cluster_occupancy()
     d_model = build_discriminator("2dmg")
+    kw = dict(lr_g=2e-4, lr_d=2e-4, b1=0.5, b2=0.999)
     for algo, family in (("flgan", "2dmg-mlp"), ("fegan", "2dmg-small")):
         gdims = G_DIMS[algo]
         gen = torch.Generator().manual_seed(4321 + len(gdims))
         g_model = build_generator(family)
-
-        def net(model, count):
-            params, bn = model.init(gen, W)
-            to = lambda fn: [None if p is None else
-                             {k: fn(x).to(dev) for k, x in p.items()}
-                             for p in params]
-            return common.NetState(
-                to(lambda x: x), bn, common.AdamState(
-                    count.to(dev),
-                    to(lambda x: torch.randn(x.shape, generator=gen) * 1e-3),
-                    to(lambda x: torch.randn(x.shape, generator=gen).abs()
-                       * 1e-6)))
-
-        # per-worker counts that differ between workers and between G and D
-        g_net = net(g_model, torch.arange(W, dtype=torch.int64) * 3)
-        d_net = net(d_model, torch.arange(W, dtype=torch.int64) * 2 + 1)
-        modes = torch.from_numpy(gmm_modes(8)).float()
-        lab = torch.randint(0, 8, (W, E, B), generator=gen)
-        reals = (modes[lab] + 0.01 * torch.randn((W, E, B, 2), generator=gen)
-                 ).to(dev)
-        z1 = torch.randn((W, E, B, gdims[0]), generator=gen).to(dev)
-        z2 = torch.randn((W, E, B, gdims[0]), generator=gen).to(dev)
-        gp, gmu, gnu, gc = fused_dstep.unpack_net_generic(g_net)
-        dp, dmu, dnu, dc = fused_dstep.unpack_net_generic(d_net)
-        args = (gp, gmu, gnu, gc, dp, dmu, dnu, dc, reals, z1, z2)
-        kw = dict(lr_g=2e-4, lr_d=2e-4, b1=0.5, b2=0.999)
-
-        before = [t.clone() for t in gp + gmu + gnu + dp + dmu + dnu]
-        got = fused_sweep.fused_sweep_steps(*args, **kw)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in
-                   zip(before, gp + gmu + gnu + dp + dmu + dnu)):
-            raise AssertionError("fused_sweep modified its inputs")
-        ref = fused_sweep.fused_sweep_steps_plain(*args, **kw)
-        names = ("g.params", "g.mu", "g.nu", "d.params", "d.mu", "d.nu")
-        errs = {n: scaled_errs(got[i], ref[i], TOL_SCALED)
-                for i, n in enumerate(names)}
-        errs["d_loss"] = scaled_errs([got[6]], [ref[6]], TOL_LOSS)
-        errs["g_loss"] = scaled_errs([got[7]], [ref[7]], TOL_LOSS)
-
-        kernel_ms = cuda_ms(lambda: fused_sweep.fused_sweep_steps(
-            *args, **kw), 20)
+        g_net, d_net, args = sweep_inputs(gen, g_model, d_model, W, E, B,
+                                          gdims)
+        errs = sweep_check(args, kw)
+        call = lambda: fused_sweep.fused_sweep_steps(*args, **kw)
+        in_call = device_kernels(call)
+        kernel_ms = cuda_ms(call, 20)
+        enq_ms = enqueue_ms(call, 10)
+        dev_ms = device_ms(call, 10)
         plain_ms = cuda_ms(lambda: fused_sweep.fused_sweep_steps_plain(
             *args, **kw), 5)
         cfg = FedGANConfig(algo=algo, **FEDAVG)
         sweep = fedavg_family._local_sweep(
             cfg, g_model, d_model, common.make_adv_loss("sigmoid"))
+        reals, z1, z2 = args[8:]
         shards = reals.reshape(W, E * B, 2)
         starts = [e * B for e in range(E)]
         autograd_ms = cuda_ms(lambda: sweep(g_net, d_net, shards, starts,
@@ -420,17 +469,71 @@ def phase_kernel_sweep(card_name):
         res = {"phase": "kernel", "kernel": "fused_sweep", "algo": algo,
                "shape": {"W": W, "E": E, "B": B, "g": list(gdims),
                          "d": list(D_DIMS)},
-               "errors": errs, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-               "autograd_ms": autograd_ms, "gflop": flops / 1e9,
-               "mbytes": nbytes / 1e6, "bound_ms": max(t_ops, t_bytes),
+               "errors": errs, "kernel_ms": kernel_ms,
+               "enqueue_ms": enq_ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "autograd_ms": autograd_ms,
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+               "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "launches_inside_call": E * (25 + 7 * (len(gdims) - 1))}
+               "gflop_per_s": flops / kernel_ms / 1e6,
+               "launches_inside_call": in_call, **occupancy}
         emit(res)
         results.append(res)
         if not all(v["ok"] for v in errs.values()):
             raise AssertionError(f"fused_sweep ({algo}) disagrees with its "
                                  f"plain version: {errs}")
+        if in_call != 1:
+            raise AssertionError(f"fused_sweep put {in_call} kernels on the "
+                                 f"card in one call, expected 1")
+
+    # small ragged shapes, both G shapes each; errors only
+    for shape in SWEEP_RAGGED:
+        for algo, family in (("flgan", "2dmg-mlp"), ("fegan", "2dmg-small")):
+            gdims = G_DIMS[algo]
+            g_model = build_generator(family)
+            # inputs on which float32 itself is stable: the plain version in
+            # float32 within TOL_SCALED / 10 of the plain version in float64
+            # (at B=16 and E=32 one LeakyReLU slope that float32 rounding
+            # flips moves a moment by up to ~0.2 of its scale, in the plain
+            # version as in the kernel); the first such of a fixed list of
+            # seeds, chosen before the kernel runs
+            rejected = []
+            for seed in range(777, 777 + 8):
+                gen = torch.Generator().manual_seed(seed + shape["W"])
+                _, _, args = sweep_inputs(gen, g_model, d_model,
+                                          gdims=gdims, **shape)
+                f32_f64 = plain_precision_err(args, kw)
+                if f32_f64 <= TOL_SCALED / 10:
+                    break
+                rejected.append([seed, f32_f64])
+            else:
+                raise AssertionError(f"fused_sweep ragged {shape}: no stable "
+                                     f"inputs among {rejected}")
+            errs = sweep_check(args, kw)
+            res = {"phase": "kernel", "kernel": "fused_sweep", "algo": algo,
+                   "shape": {**shape, "g": list(gdims), "d": list(D_DIMS)},
+                   "ragged": True, "seed": seed,
+                   "plain_f32_vs_f64": f32_f64, "seeds_rejected": rejected,
+                   "errors": errs}
+            emit(res)
+            if not all(v["ok"] for v in errs.values()):
+                raise AssertionError(f"fused_sweep (ragged {shape}, {algo}) "
+                                     f"disagrees with its plain version: "
+                                     f"{errs}")
     return results
+
+
+def plain_precision_err(args, kw):
+    """max over the state tensors of max|plain32 - plain64| / max|plain64|:
+    how far float32 rounding alone moves the plain version on these
+    inputs."""
+    from cglgan_tpu_torch.ops import fused_sweep
+    wide = lambda a: ([t.double() for t in a] if isinstance(a, list)
+                      else a.double() if a.is_floating_point() else a)
+    r32 = fused_sweep.fused_sweep_steps_plain(*args, **kw)
+    r64 = fused_sweep.fused_sweep_steps_plain(*map(wide, args), **kw)
+    return max(float((x.double() - y).abs().max() / y.abs().max())
+               for i in range(6) for x, y in zip(r32[i], r64[i]))
 
 
 ADAM_SHAPES = ((W, DIN, H1), (W, H1), (W, H1, H2), (W, H2), (W, H2, 2),
@@ -803,6 +906,12 @@ def phase_fedavg(algo, use_kernel):
         raise AssertionError(f"bad samples {tuple(pts.shape)}")
     real = torch.from_numpy(part.eval_pool).to(pts.device)
     kl, ds = hist2d.kl_and_distribution_score(pts, real, 16)
+    prof = profile_rounds(runner, out["state"], PROFILE_ROUNDS)
+    sweep_calls = sum(k["calls_per_round"] for k in prof["top"]
+                      if "sweep_kernel" in k["kernel"])
+    if sweep_calls != (1.0 if use_kernel else 0.0):
+        raise AssertionError(f"{algo}: {sweep_calls} sweep kernels a round "
+                             f"in the profile")
     res = {"phase": "fedavg", "path": "kernel" if use_kernel else "autograd",
            "config": {"algo": algo, **FEDAVG, **extra,
                       "pallas_sweep": cfg.pallas_sweep},
@@ -814,7 +923,7 @@ def phase_fedavg(algo, use_kernel):
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "kl_score": float(kl), "distribution_score": float(ds),
            "mode_coverage": float(hist2d.mode_coverage(pts, real, 16)),
-           "profile": profile_rounds(runner, out["state"], PROFILE_ROUNDS)}
+           "sweep_kernels_per_round": sweep_calls, "profile": prof}
     emit(res)
     return res, launches
 

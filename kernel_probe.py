@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where ``fused_dstep``'s tensor-core GEMM (``csrc/mma_tf32.cuh``) spends its
-time on the card: a probe for whoever tunes it next, not part of any path.
+"""Where ``fused_dstep``'s tensor-core GEMM (``csrc/mma_tf32.cuh``) and the
+``fused_sweep`` cluster kernel spend their time on the card: a probe for
+whoever tunes them next, not part of any path.
 
-    python3 kernel_probe.py [--only micro|variants]
+    python3 kernel_probe.py [--only micro|variants|sweep]
 
 micro     builds ``csrc/probe_mma_tf32.cu`` and prints what the GEMM's inner
           loop reaches with no memory traffic, ingredient by ingredient
@@ -14,6 +15,14 @@ variants  rebuilds ``fused_dstep.cu`` with ``mma_tf32.cuh`` edited in a copy
           (``torch.profiler``).  Variants that still compute the product are
           held to the plain version; ablations compute something else and
           are timed only.
+sweep     rebuilds ``fused_sweep.cu`` with ``-DSWEEP_PHASE_CLOCK`` (worker
+          0's blocks read ``%globaltimer`` at the end of each phase's work
+          and when its cluster barrier lets go) and prints, at the main-path
+          shapes of both G widths, the time of a call and, phase by phase
+          (mean over the E iterations), the span, the slowest and the mean
+          block's work and the rest (barrier and skew); then the call time
+          of variants of the source (cluster size, blocks an SM), each held
+          to the plain version.
 Prints JSON lines; needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
 import json
@@ -147,10 +156,197 @@ def variants(build_dir):
                                                .LAUNCHES_PER_STEP:]]})
 
 
+# name -> substitutions (file under csrc/, old, new)
+SWEEP_VARIANTS = {
+    "as committed": [],
+    "clusters of 4": [("fused_sweep.cu", "constexpr int CLUSTER = 8;",
+                       "constexpr int CLUSTER = 4;")],
+    "1 block an SM": [("fused_sweep.cu",
+                       "__launch_bounds__(TPB, 2) sweep_kernel",
+                       "__launch_bounds__(TPB, 1) sweep_kernel")],
+    "32-deep slabs": [("mlp_kernels.cuh", "BK = 16, TPB = 256;",
+                       "BK = 32, TPB = 256;")],
+    "slab loop unrolled by 4, not 16": [
+        ("mlp_kernels.cuh", "#pragma unroll\n    for (int kk = 0; kk < BK;",
+         "#pragma unroll 4\n    for (int kk = 0; kk < BK;")],
+    "ablation: 1 of 16 slab steps summed (wrong product, timed only)": [
+        ("mlp_kernels.cuh", "for (int kk = 0; kk < BK; ++kk) {",
+         "for (int kk = 0; kk < 1; ++kk) {")],
+    "ablation: no slab loads after the first (wrong product, timed only)": [
+        ("mlp_kernels.cuh", "    if (t + 1 < nk) load((t + 1) * BK);\n",
+         "")],
+}
+
+
+def sweep_phase_names(L_g):
+    names = [f"G layer {i} on [z1; z2] (tiles)" for i in range(L_g - 1)]
+    names += ["G tanh layer, D layer 0 (rows)", "D layer 1 (tiles)",
+              "D head (rows)", "D layer-1 input grad (tiles); head grads, "
+              "loss (extras)", "D layer-1 weight grad + Adam (tiles); "
+              "layer 0 (extras)", "new D layer 0 on fake2 (rows)",
+              "new D layer 1 (tiles)", "new D head (rows)",
+              "new D layer-1 input grad (tiles); G loss",
+              "dfake, G's last hidden dz (rows)"]
+    for i in range(L_g - 2, -1, -1):
+        up = f"G layer {i + 1} weight grad + Adam" + (
+            " (extras)" if i + 1 == L_g - 1 else " (tiles)")
+        names.append(up + (f"; G layer {i} input grad (tiles)" if i else
+                           "; G layer 0 weight grad + Adam (tiles)"))
+    return names
+
+
+def sweep_build(build_dir, name, subs, flags=()):
+    from cglgan_tpu_torch.ops import _build
+    src = os.path.join(build_dir, "sweep_src")
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(_build.CSRC, src)
+    for fname, old, new in subs:
+        with open(os.path.join(src, fname)) as f:
+            text = f.read()
+        if old not in text:
+            raise AssertionError(f"{name}: {fname} no longer has {old!r}")
+        with open(os.path.join(src, fname), "w") as f:
+            f.write(text.replace(old, new))
+    so = os.path.join(build_dir, f"sweep_{abs(hash((name,) + flags))}.so")
+    log = subprocess.run([_build.nvcc(), *_build.FLAGS, *flags, "-o", so,
+                          os.path.join(src, "fused_sweep.cu")],
+                         capture_output=True, text=True)
+    if log.returncode:
+        raise RuntimeError(f"{name}: nvcc failed\n{log.stdout}{log.stderr}")
+    regs = [l.split("Used ")[1] for l in (log.stdout + log.stderr)
+            .splitlines() if "Used " in l]
+    return so, regs + [f"{sass_instructions(so)} SASS instructions"]
+
+
+def sass_instructions(so):
+    """Instructions in the library's machine code (``cuobjdump -sass``), or
+    None where the toolkit has no cuobjdump."""
+    from cglgan_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", so], capture_output=True,
+                         text=True).stdout
+    return sum(1 for l in out.splitlines() if l.strip().startswith("/*")
+               and "*/" in l and ";" in l)
+
+
+def sweep_with(so, fn):
+    """fn() with the fused_sweep wrapper bound to the library at so."""
+    from cglgan_tpu_torch.ops import _build, fused_sweep
+    committed = _build.target
+    fused_sweep._LIB = None
+    _build._LIBS.pop("fused_sweep", None)
+    _build.target = lambda n: so if n == "fused_sweep" else committed(n)
+    try:
+        return fn()
+    finally:
+        _build.target = committed
+        fused_sweep._LIB = None
+        _build._LIBS.pop("fused_sweep", None)
+
+
+def sweep(build_dir):
+    import ctypes
+    import torch
+    import chip_smoke as cs
+    from cglgan_tpu_torch.models.zoo import (build_discriminator,
+                                             build_generator)
+    from cglgan_tpu_torch.ops import fused_sweep
+
+    d_model = build_discriminator("2dmg")
+    kw = dict(lr_g=2e-4, lr_d=2e-4, b1=0.5, b2=0.999)
+    inputs = {}
+    for algo, family in (("flgan", "2dmg-mlp"), ("fegan", "2dmg-small")):
+        gen = torch.Generator().manual_seed(4321 + len(cs.G_DIMS[algo]))
+        inputs[algo] = cs.sweep_inputs(gen, build_generator(family), d_model,
+                                       cs.W, cs.E, cs.B,
+                                       cs.G_DIMS[algo])[2]
+    # phase by phase, with the clock on
+    so, regs = sweep_build(build_dir, "clock", [], ("-DSWEEP_PHASE_CLOCK",))
+
+    def clocked():
+        lib = fused_sweep._library()
+        lib.fused_sweep_phase_clock.argtypes = [ctypes.c_void_p]
+        lib.fused_sweep_block_sm.argtypes = [ctypes.c_void_p]
+        out = []
+        for algo, args in inputs.items():
+            call = lambda: fused_sweep.fused_sweep_steps(*args, **kw)
+            ms = cs.cuda_ms(call, 20)
+            call()
+            torch.cuda.synchronize()
+            n_ph = 2 * 3 + 8
+            buf = (ctypes.c_ulonglong * (8 + 32 * n_ph * 16))()
+            rc = lib.fused_sweep_phase_clock(buf)
+            if rc:
+                raise RuntimeError(f"phase clock read failed ({rc})")
+            C = fused_sweep.cluster_occupancy()["cluster"]
+            L_g = len(cs.G_DIMS[algo]) - 1
+            names = sweep_phase_names(L_g)
+            at = lambda e, p, r, k: buf[8 + ((e * n_ph + p) * 8 + r) * 2 + k]
+            prev = [max(buf[r] for r in range(C))] * 1
+            rows = [[0.0, 0.0, 0.0] for _ in names]
+            for e in range(cs.E):
+                for p in range(len(names)):
+                    exit_ = max(at(e, p, r, 1) for r in range(C))
+                    work = [at(e, p, r, 0) - prev[0] for r in range(C)]
+                    rows[p][0] += (exit_ - prev[0]) / 1e3 / cs.E
+                    rows[p][1] += max(work) / 1e3 / cs.E
+                    rows[p][2] += sum(work) / C / 1e3 / cs.E
+                    prev[0] = exit_
+            first = min(buf[r] for r in range(C))
+            sm = (ctypes.c_int * 4096)()
+            if lib.fused_sweep_block_sm(sm):
+                raise RuntimeError("block SM read failed")
+            used = [sm[b] for b in range(cs.W * C)]
+            per_sm = {x: used.count(x) for x in set(used)}
+            out.append({"probe": "sweep phases", "algo": algo,
+                        "call_ms_clocked": ms, "registers": regs,
+                        "blocks": len(used), "sms_used": len(per_sm),
+                        "most_blocks_on_one_sm": max(per_sm.values()),
+                        "worker0_sms": used[:C],
+                        "worker0_us": (prev[0] - first) / 1e3,
+                        "phases_us": [
+                            {"phase": n, "span": round(a, 2),
+                             "slowest_block": round(b, 2),
+                             "mean_block": round(c, 2),
+                             "barrier_and_skew": round(a - b, 2)}
+                            for n, (a, b, c) in zip(names, rows)]})
+        return out
+    for line in sweep_with(so, clocked):
+        emit(line)
+    # the committed source at fewer workers: does a worker slow down when
+    # all 16 clusters share the card?
+    gen = torch.Generator().manual_seed(99)
+    by_w = {}
+    for w in (1, 8, 16):
+        args = cs.sweep_inputs(gen, build_generator("2dmg-mlp"), d_model, w,
+                               cs.E, cs.B, cs.G_DIMS["flgan"])[2]
+        by_w[w] = cs.cuda_ms(lambda: fused_sweep.fused_sweep_steps(
+            *args, **kw), 20)
+    emit({"probe": "sweep workers", "algo": "flgan", "ms_by_workers": by_w})
+    # variants, without the clock
+    for name, subs in SWEEP_VARIANTS.items():
+        so, regs = sweep_build(build_dir, name, subs)
+
+        def run():
+            occ = fused_sweep.cluster_occupancy()
+            res = {"probe": "sweep variant", "name": name,
+                   "registers": regs, **occ}
+            for algo, args in inputs.items():
+                errs = cs.sweep_check(args, kw)
+                res[algo] = {
+                    "ok": all(v["ok"] for v in errs.values()),
+                    "ms": cs.cuda_ms(lambda: fused_sweep.fused_sweep_steps(
+                        *args, **kw), 20)}
+            return res
+        emit(sweep_with(so, run))
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("micro", "variants"))
+    ap.add_argument("--only", choices=("micro", "variants", "sweep"))
     only = ap.parse_args(argv).only
     import torch
     if not torch.cuda.is_available():
@@ -165,6 +361,8 @@ def main(argv=None):
         micro(build_dir)
     if only in (None, "variants"):
         variants(build_dir)
+    if only in (None, "sweep"):
+        sweep(build_dir)
     return 0
 
 

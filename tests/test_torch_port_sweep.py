@@ -4,9 +4,10 @@
 its plain PyTorch version; it must match the reference kernel
 ``cglgan_tpu.ops.pallas.fused_sweep.fused_sweep_steps(interpret=True)`` on
 the same inputs: both generator shapes (3 and 2 linear layers), E in {1, 3},
-per-worker Adam counts that differ between workers and between G and D.
+per-worker Adam counts that differ between workers and between G and D, and
+one ragged shape (W=3, B=37: no size a multiple of the kernel's tiles).
 The CUDA kernel itself is held to the plain version on the card by the
-``cuda`` case, which skips without a card."""
+``cuda`` cases, at the same shapes, which skip without a card."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,11 +37,16 @@ TOL_NU = (1e-4, 1e-10)
 TOL_LOSS = (1e-5, 1e-7)
 
 
-def _inputs(family, E, seed=0):
+# (E, W, B) by case id; "ragged" is a shape the card's kernel tiles raggedly
+CASES = {"1": (1, W, B), "3": (3, W, B), "ragged": (1, 3, 37)}
+
+
+def _inputs(family, E, seed=0, W=W, B=B):
     """Stacked per-worker G and D state from the JAX inits (distinct per
     worker), non-zero moments where the count is non-zero, reals and
     latents, as numpy."""
     rng = np.random.default_rng(seed)
+    counts = lambda cs: [cs[i % len(cs)] for i in range(W)]
 
     def net(model, key, counts):
         p, _ = jax.vmap(lambda k: model.init(k))(
@@ -55,8 +61,8 @@ def _inputs(family, E, seed=0):
               .astype(np.float32) for x in flat]
         return flat, mu, nu, np.asarray(counts, np.int32)
 
-    g = net(jzoo.build_generator(family), 1, G_COUNTS)
-    d = net(jzoo.build_discriminator("2dmg"), 2, D_COUNTS)
+    g = net(jzoo.build_generator(family), 1, counts(G_COUNTS))
+    d = net(jzoo.build_discriminator("2dmg"), 2, counts(D_COUNTS))
     reals = rng.uniform(-1, 1, size=(W, E, B, 2)).astype(np.float32)
     z1 = rng.normal(size=(W, E, B, 100)).astype(np.float32)
     z2 = rng.normal(size=(W, E, B, 100)).astype(np.float32)
@@ -98,11 +104,12 @@ def _assert_close(got, ref):
                                    atol=TOL_LOSS[1], err_msg=name)
 
 
-@pytest.mark.parametrize("E", [1, 3])
+@pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("family", ["2dmg-mlp", "2dmg-small"],
                          ids=["Lg3", "Lg2"])
-def test_plain_matches_jax_kernel(family, E):
-    args = _inputs(family, E)
+def test_plain_matches_jax_kernel(family, case):
+    E, w, b = CASES[case]
+    args = _inputs(family, E, W=w, B=b)
     _assert_close(_port_run(*args, "cpu"), _jax_run(*args))
 
 
@@ -176,17 +183,34 @@ def test_force_flag_rejected_by_build_runner():
         build_runner(cfg, device="cpu")
 
 
+def test_counts_shared_or_per_worker():
+    """The wrapper hands the kernel int64 counts, one per worker or one
+    shared, and rejects any other number."""
+    per, flag = fused_sweep._counts(torch.arange(4, dtype=torch.int32), 4,
+                                    torch.device("cpu"), "g_count")
+    assert per.dtype == torch.int64 and per.tolist() == [0, 1, 2, 3]
+    assert flag == 1
+    shared, flag = fused_sweep._counts(torch.tensor(7), 4,
+                                       torch.device("cpu"), "g_count")
+    assert shared.tolist() == [7] and flag == 0
+    with pytest.raises(ValueError, match="3 counts for 4 workers"):
+        fused_sweep._counts(torch.zeros(3, dtype=torch.int64), 4,
+                            torch.device("cpu"), "d_count")
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["3", "ragged"])
 @pytest.mark.parametrize("family", ["2dmg-mlp", "2dmg-small"],
                          ids=["Lg3", "Lg2"])
-def test_cuda_kernel_matches_plain(family):
+def test_cuda_kernel_matches_plain(family, case):
     """The CUDA kernel against the plain version on the card, same inputs
     (TF32 off: both sides are full float32)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     launched = fused_sweep.launches
-    args = _inputs(family, 3)
+    E, w, b = CASES[case]
+    args = _inputs(family, E, W=w, B=b)
     got = _port_run(*args, "cuda")
     assert fused_sweep.launches == launched + 1
     ref = _port_run(*args, "cuda", fn=fused_sweep.fused_sweep_steps_plain)
