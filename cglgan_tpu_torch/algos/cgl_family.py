@@ -1,16 +1,30 @@
-"""CAP-GAN: the 3-tier cloud/edge/client hierarchy with the Lambda game.
+"""CGL-GAN, CAP-GAN and Mix-G: the 3-tier cloud/edge/client hierarchy with
+the Lambda game.
 
-Port of the capgan branch of ``cglgan_tpu/algos/cgl_family.py``
-(capgan.py:86-349).  Every round each edge server makes a detached fake
-batch Xd; every client runs ``epoch`` local D steps on (real window, Xd);
-the server's G takes one step on F = sum(w * l) with ``cap_exp`` weights
-w from the clients' losses l through the UPDATED Ds; on the data-size-scaled
-cadence the cloud averages the servers' G params and sigma-mixes them back.
+Port of ``cglgan_tpu/algos/cgl_family.py`` (MLP models, float32, one
+device).  Every round each edge server makes a detached fake batch Xd; every
+client runs ``epoch`` local D steps on (real window, Xd); the server's G
+takes one step on the per-client losses l through the UPDATED Ds; on each
+server's cadence the cloud averages the servers' G (or their trunks) and
+sigma-mixes the average back in.
 
-Layout: G state stacked (S, ...), D state flat (W, ...) with clients
-``[s*k, (s+1)*k)`` on server s.  The local-D phase runs the fused CUDA
-kernel (``ops/fused_dstep.py``) when ``fused_dstep.eligible`` says so —
-the reference's rule: auto at epoch > 1 in float32 — and autograd otherwise.
+| algo   | generator            | D head (MNIST) | D x0.5 | cloud sync          | cadence          |
+|--------|----------------------|----------------|--------|---------------------|------------------|
+| cglgan | multipath (iid != 0) | sigmoid        | no     | trunk (whole G) + BN | cloud_epoch      |
+| capgan | single path          | 2 logits       | yes    | whole G, params only | data_len*H/B     |
+| mixgan | multipath + DCGAN    | 2 logits       | yes    | trunk + BN          | cloud_epoch      |
+
+A multipath G sends head i's batch to client i of the server
+(mixed-gan.py:247-252); a single-path G sends its whole batch to every
+client of the server (capgan.py:224-225).  Multipath G step: head gradients
+from cotangent ones, trunk gradients from the game weights w, both from ONE
+forward (CGLGAN/MNIST/main.py:272-289).
+
+Layout: G state stacked (S, ...) (a multipath G: trunk (S, ...), heads
+(S, k, ...)), D state flat (W, ...) with clients ``[s*k, (s+1)*k)`` on
+server s.  The local-D phase runs the fused CUDA kernel
+(``ops/fused_dstep.py``) when ``fused_dstep.eligible`` says so — the
+reference's rule: auto at epoch > 1 in float32 — and autograd otherwise.
 """
 from __future__ import annotations
 
@@ -25,22 +39,27 @@ from cglgan_tpu_torch.core import device as device_mod
 from cglgan_tpu_torch.core import prng
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.fed import collectives, topology
+from cglgan_tpu_torch.models import nn
 from cglgan_tpu_torch.models.zoo import models_for_config
 from cglgan_tpu_torch.ops import fused_dstep
-from cglgan_tpu_torch.utils.tree import tree_map, tree_unflatten
+from cglgan_tpu_torch.utils.tree import (tree_leaves, tree_map,
+                                          tree_unflatten)
 
 
 def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
     dev = device_mod.resolve(device)
     common.check_supported(cfg)
     S, k, W = cfg.num_servers, cfg.clients_per_server, cfg.num_workers
+    algo = cfg.algo
     g_model, d_model = models_for_config(cfg)
+    multipath = g_model.multipath
     adv = common.make_adv_loss(cfg.resolved_d_head)
     weighting = cfg.resolved_weighting
     B, zdim = cfg.batch_size, cfg.latent_dim
     max_len = part.data.shape[1]
 
-    # flat (W, max_len, din) uint8 shards, resident on the device
+    # flat (W, max_len, din) shards, resident on the device: uint8 images,
+    # or float32 2DMG points
     shards = torch.from_numpy(
         np.ascontiguousarray(part.data.reshape(W, max_len, -1))).to(dev)
     din = shards.shape[2]
@@ -48,19 +67,30 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
     data_len = topology.server_data_len(part.lengths, S)
     a_weights = torch.from_numpy(
         (data_len / data_len.sum()).astype(np.float32)).to(dev)
-    # capgan.py:169 — the sync period scales with server data size
-    periods = np.maximum(
-        1, (data_len * cfg.cloud_epoch / cfg.batch_size).astype(np.int64))
+    if algo == "capgan":
+        # capgan.py:169 — the sync period scales with server data size
+        periods = np.maximum(
+            1, (data_len * cfg.cloud_epoch / cfg.batch_size).astype(np.int64))
+    else:
+        periods = np.full(S, max(cfg.cloud_epoch, 1), dtype=np.int64)
     cloud_enabled = cfg.cloud_epoch > 0
 
     d_step = common.d_epoch_steps(
         common.d_step_fn(d_model, adv, cfg.lr_d, cfg.b1, cfg.b2, B,
-                         cfg.is_image, d_loss_half=True), cfg.epoch)
+                         cfg.is_image,
+                         d_loss_half=algo in ("capgan", "mixgan")),
+        cfg.epoch)
     use_kernel = fused_dstep.eligible(cfg)
 
     def init_state() -> FedState:
         gp, gbn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), S)
         dp, dbn = d_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_D), W)
+        if algo == "mixgan":
+            # net_g / net_d .apply(weights_init) (mixed-gan.py:181,348)
+            gp = nn.dcgan_reinit(
+                prng.generator(cfg.seed, prng.ROLE_INIT_G, 99), gp)
+            dp = nn.dcgan_reinit(
+                prng.generator(cfg.seed, prng.ROLE_INIT_D, 98), dp)
         to = lambda tree: tree_map(lambda x: x.to(dev), tree)
         gp, gbn, dp, dbn = to(gp), to(gbn), to(dp), to(dbn)
         return FedState(NetState(gp, gbn, common.adam_init(gp, S)),
@@ -68,15 +98,20 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
                         torch.zeros((S,), dtype=torch.float32, device=dev), 0)
 
     def route(fake):
-        """(S, B, ...) server batches -> (W, B, din): the full batch to
-        every client of the server (capgan.py:224-225)."""
+        """G output -> (W, B, din) per-client fakes: a multipath G's
+        (S, k, B, ...) head i to client i; a single-path G's (S, B, ...)
+        full batch to every client of the server."""
+        if multipath:
+            return fake.reshape(W, B, din)
         return fake.reshape(S, 1, B, din).expand(S, k, B, din) \
             .reshape(W, B, din)
 
     def g_update(g: NetState, gbn1, z_g, d_new: NetState, lam):
-        """One G forward from gbn1; per-client losses through the updated
-        Ds are both the game's inputs and the primal of ONE backward with
-        cotangent w (capgan.py:247-259)."""
+        """One G forward from gbn1; the per-client losses through the
+        updated Ds are both the game's inputs and the primal of the
+        backward: cotangent w for a single-path G; for a multipath G,
+        cotangent ones for the heads and w for the trunk
+        (cglgan_tpu/algos/cgl_family.py:169-181)."""
         gp, leaves = common.with_grad(g.params)
         with torch.enable_grad():
             fake, gbn2 = g_model.apply(gp, gbn1, z_g, train=True)
@@ -85,12 +120,23 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
             losses = adv(out, 1.0).reshape(S, k)
             game = game_step(weighting, losses.detach(), beta, lam,
                              cfg.lr_lambda)
-            grads = torch.autograd.grad(losses, leaves,
-                                        grad_outputs=game.w.to(losses.dtype))
+            w = game.w.to(losses.dtype)
+            if multipath:
+                # leaves run heads then trunk (sorted keys)
+                n_heads = len(tree_leaves(gp["heads"]))
+                heads = torch.autograd.grad(
+                    losses, leaves[:n_heads], grad_outputs=torch.ones_like(
+                        losses), retain_graph=True)
+                trunk = torch.autograd.grad(losses, leaves[n_heads:],
+                                            grad_outputs=w)
+                grads = list(heads) + list(trunk)
+            else:
+                grads = list(torch.autograd.grad(losses, leaves,
+                                                 grad_outputs=w))
         l0 = losses.detach()
         f_max = torch.sum(game.w * l0, dim=-1) - game.lam_coeff * lam
         new_p, new_opt = common.adam_update(
-            g.params, tree_unflatten(g.params, list(grads)), g.opt,
+            g.params, tree_unflatten(g.params, grads), g.opt,
             cfg.lr_g, cfg.b1, cfg.b2)
         metrics = {"g_loss": l0.mean(), "f_max": f_max.mean(),
                    "f_beta": game.f_beta.mean(),
@@ -99,7 +145,16 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
         return NetState(new_p, gbn2, new_opt), game.lam_new, metrics
 
     # capgan syncs model.parameters() ONLY (fedlab serialize_model,
-    # capgan.py:170-175): each server's G BN running stats stay local
+    # capgan.py:170-175): each server's G BN running stats stay local.
+    # cglgan / mixgan sync a state_dict walk (copy_parameters,
+    # CGLGAN/MNIST/main.py:140-145), which moves the BN buffers too; a
+    # multipath G syncs its trunk only.
+    sync_bn = algo != "capgan"
+    scope = (lambda tree: tree["trunk"]) if multipath else (lambda tree: tree)
+
+    def put(tree, sub):
+        return {**tree, "trunk": sub} if multipath else sub
+
     def cloud_sync(g: NetState, t: int) -> NetState:
         # the reference counts t DOWN from num_communication and syncs when
         # the countdown is divisible by the period (capgan.py:155,169)
@@ -107,12 +162,15 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
         if not mask_np.any():
             return g     # the masked select would keep every member exactly
         mask = torch.from_numpy(mask_np.astype(np.float32)).to(dev)
-        avg = collectives.masked_weighted_avg_tree(g.params, a_weights, mask)
+        payload = (scope(g.params), scope(g.bn)) if sync_bn \
+            else (scope(g.params),)
+        avg = collectives.masked_weighted_avg_tree(payload, a_weights, mask)
         avg_b = tree_map(lambda x: x.unsqueeze(0).expand((S,) + x.shape),
                          avg)
-        mixed = collectives.sigma_mix(g.params, avg_b, cfg.segema)
-        mixed = collectives.select_update_tree(g.params, mixed, mask)
-        return NetState(mixed, g.bn, g.opt)
+        mixed = collectives.sigma_mix(payload, avg_b, cfg.segema)
+        mixed = collectives.select_update_tree(payload, mixed, mask)
+        return NetState(put(g.params, mixed[0]),
+                        put(g.bn, mixed[1]) if sync_bn else g.bn, g.opt)
 
     def round_fn(state: FedState, streams=None):
         """One federated round.  ``streams``: optional injected
@@ -133,7 +191,8 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
         else:
             with torch.no_grad():
                 xd, gbn1 = g_model.apply(g.params, g.bn, z_d, train=True)
-            fake = xd.reshape(B, din) if S == 1 else route(xd)
+            shared = S == 1 and not multipath
+            fake = xd.reshape(B, din) if shared else route(xd)
             new_d, d_loss = d_step(state.d, shards, starts, fake)
 
         new_g, lam_new, gm = g_update(g, gbn1, z_g, new_d, state.lam)
@@ -156,23 +215,29 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
     @torch.no_grad()
     def gen(state: FedState, z):
         """Eval-mode samples from caller latents z (n, zdim), n divisible
-        by S; server i generates from the block z[i*per:(i+1)*per]."""
+        by S; server i generates from the block z[i*per:(i+1)*per].  A
+        multipath G's output is the concat of its heads, strided back down
+        to the per-server quota (painter routing, capgan.py:79-83)."""
         per = z.shape[0] // S
         out, _ = g_model.apply(state.g.params, state.g.bn,
                                z.reshape(S, per, zdim), train=False)
+        if multipath:
+            out = out.reshape((S, k * per) + tuple(out.shape[3:]))[:, ::k]
         return out.reshape((S * per,) + tuple(out.shape[2:]))
 
     @torch.no_grad()
     def gen_client(state: FedState, z, client: int):
-        """Client ``client``'s generator: its server's G (single path)."""
+        """Client ``client``'s generator: head ``client % k`` of server
+        ``client // k``'s G (mixed-gan.py:242-252), or that server's G when
+        it is single path."""
         if not 0 <= client < cfg.num_workers:
             raise ValueError(f"client {client} out of range "
                              f"[0, {cfg.num_workers})")
-        s = client // k
+        s, head = client // k, client % k
         take = lambda tree: tree_map(lambda x: x[s:s + 1], tree)
         out, _ = g_model.apply(take(state.g.params), take(state.g.bn),
                                z.unsqueeze(0), train=False)
-        return out[0]
+        return out[0, head] if multipath else out[0]
 
     def sample(state: FedState, n: int):
         """Painter semantics: per server, G(fixed_z) in eval mode."""

@@ -23,7 +23,8 @@ from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 # what the port covers
 # ---------------------------------------------------------------------------
 
-PORTED_ALGOS = ("capgan", "flgan", "fegan")
+PORTED_ALGOS = ("cglgan", "capgan", "mixgan", "flgan", "fegan")
+CGL_FAMILY = ("cglgan", "capgan", "mixgan")
 
 
 def check_supported(cfg, mesh=None) -> None:
@@ -31,8 +32,8 @@ def check_supported(cfg, mesh=None) -> None:
     ported slices do not cover."""
     if cfg.algo not in PORTED_ALGOS:
         raise NotImplementedError(
-            f"algo {cfg.algo!r} is not ported yet (ROADMAP queue 1: item 8 "
-            "cglgan/mixgan, item 9 mdgan/acgan)")
+            f"algo {cfg.algo!r} is not ported yet (ROADMAP queue 1 item 9 "
+            "mdgan/acgan)")
     if cfg.conv:
         raise NotImplementedError("conv=True is not ported yet (ROADMAP "
                                   "queue 1 item 12)")
@@ -43,11 +44,7 @@ def check_supported(cfg, mesh=None) -> None:
     if mesh is not None or cfg.model_shards > 1:
         raise NotImplementedError("meshes and model_shards > 1 are not "
                                   "ported yet (ROADMAP queue 1 item 17)")
-    if cfg.algo == "capgan":
-        if not cfg.is_image:
-            raise NotImplementedError(
-                "the CGL family on the 2DMG workload is not ported yet "
-                "(ROADMAP queue 1 item 8)")
+    if cfg.algo in CGL_FAMILY:      # MLP models, both datasets
         return
     # the FedAvg family: the 2DMG "batches" sweep only
     if cfg.is_image or cfg.resolved_local_sweep == "epochs":

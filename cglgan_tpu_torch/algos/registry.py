@@ -1,8 +1,9 @@
 """Algorithm registry: config -> Runner, loading data and partitioning.
 
-Port of ``cglgan_tpu/algos/registry.py`` for CAP-GAN on the image datasets
-and FL-GAN / FeGAN on 2DMG; everything else raises ``NotImplementedError``
-naming its ROADMAP item.
+Port of ``cglgan_tpu/algos/registry.py`` for the CGL family (CGL-GAN,
+CAP-GAN, Mix-G) on the image datasets and on 2DMG, and FL-GAN / FeGAN on
+2DMG; everything else raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 from __future__ import annotations
 

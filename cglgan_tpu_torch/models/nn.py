@@ -12,6 +12,8 @@ Weights stay ``(din, dout)`` as in the reference.
   batch variance.
 * ``leaky_relu``: ``where(x >= 0, x, 0.2x)`` — gradient 1 at 0, as in JAX
   (``F.leaky_relu`` gives 0.2 there).
+* ``dcgan_reinit``: the reference ``weights_init`` DCGAN re-draw (Mix-G's G
+  and D, mixed-gan.py:181,348).
 """
 from __future__ import annotations
 
@@ -40,6 +42,39 @@ def bn_init(n: int, dim: int, dtype=torch.float32
     state = {"mean": torch.zeros((n, dim), dtype=dtype),
              "var": torch.ones((n, dim), dtype=dtype)}
     return params, state
+
+
+def dcgan_reinit(gen: torch.Generator, params):
+    """Re-draw a stacked param tree DCGAN-style (capgan.py:63-72): weights
+    ``w`` ~ N(0, 0.02); BatchNorm ``scale`` ~ N(1, 0.02); linear biases and
+    BatchNorm biases 0; conv biases left as they are.  A bias is a conv bias
+    when its sibling ``w`` has rank 4 per member (OIHW); the bias's own rank
+    minus 1 gives the number of leading member axes, so the rule holds for
+    ``(N, ...)`` and multipath ``(S, k, ...)`` leaves alike.  Leaves are
+    drawn in ``tree_leaves`` order; the draws cannot equal JAX's (threefry is
+    ROADMAP queue 1 item 2)."""
+    def walk(tree):
+        if isinstance(tree, dict):
+            w = tree.get("w")
+            out = {}
+            for key in sorted(tree):
+                x = tree[key]
+                if not isinstance(x, torch.Tensor):
+                    out[key] = walk(x)
+                elif key in ("w", "scale"):
+                    draw = torch.randn(x.shape, generator=gen,
+                                       dtype=x.dtype).to(x.device)
+                    out[key] = 0.02 * draw + (1.0 if key == "scale" else 0.0)
+                elif key == "b" and w is not None \
+                        and w.ndim - (x.ndim - 1) == 4:
+                    out[key] = x                     # conv bias: untouched
+                else:                                # linear / BN bias
+                    out[key] = torch.zeros_like(x)
+            return out
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(x) for x in tree)
+        return tree
+    return walk(params)
 
 
 def linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

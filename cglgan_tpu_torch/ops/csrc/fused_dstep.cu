@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel `_dstep_kernel`
 // (cglgan_tpu/ops/pallas/fused_dstep.py:44-157, launched by
 // `fused_d_epoch_steps` :315-402).  Per client and local step e:
-//   X = concat((u8 window at starts[e]) / 255 -> [-1, 1], fake)   (2B, din)
+//   X = concat(real window at starts[e], fake)                     (2B, din)
+//   real: u8 images scaled /255 -> [-1, 1], or float32 rows (2DMG) as they
+//   are (the reference's is_image switch, fused_dstep.py:86-91)
 //   z1 = X W1 + b1, h1 = lrelu(z1); z2 = h1 W2 + b2, h2 = lrelu(z2);
 //   z3 = h2 W3 + b3; head (sigmoid + clipped BCE | 2 logits + CE, x0.5 when
 //   d_loss_half); hand-derived backward; six Adam updates in optax order
@@ -27,7 +29,7 @@
 // version back was, in order: no tensor cores; every weight gradient written
 // out and read back by a separate Adam pass; 19 launches a step.  Now a
 // step is 8 launches:
-//   prep        u8 window + fake -> X
+//   prep        real window (u8 or f32) + fake -> X
 //   z1, z2      X W1, h1 W2 on the tensor cores (mma_tf32.cuh, 3xTF32),
 //               bias + LeakyReLU in the epilogue; only h is stored (its sign
 //               is the pre-activation's, which is all the backward needs)
@@ -53,17 +55,24 @@ constexpr int HEAD_SIGMOID = 0, HEAD_LOGITS2 = 1;
 constexpr int MAX_OUT = 2;          // the heads have 1 or 2 outputs
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
-// X[w] = concat(normalised u8 window, fake): grid (2B, W).
-__global__ void prep_kernel(const uint8_t* __restrict__ shards,
-                            long long max_len, int start,
-                            const float* __restrict__ fake, long long fake_sw,
-                            float* __restrict__ X, int B, int din) {
+// a real row's element: u8 images scaled to [-1, 1], float rows as they are
+__device__ __forceinline__ float real_value(uint8_t x) {
+  return ((float)x / 255.0f - 0.5f) / 0.5f;
+}
+__device__ __forceinline__ float real_value(float x) { return x; }
+
+// X[w] = concat(real window, fake): grid (2B, W).
+template <typename T>
+__global__ void prep_kernel(const T* __restrict__ shards, long long max_len,
+                            int start, const float* __restrict__ fake,
+                            long long fake_sw, float* __restrict__ X, int B,
+                            int din) {
   const int w = blockIdx.y, r = blockIdx.x;
   float* xr = X + ((long long)w * 2 * B + r) * din;
   if (r < B) {
-    const uint8_t* src = shards + ((long long)w * max_len + start + r) * din;
+    const T* src = shards + ((long long)w * max_len + start + r) * din;
     for (int c = threadIdx.x; c < din; c += blockDim.x)
-      xr[c] = ((float)src[c] / 255.0f - 0.5f) / 0.5f;
+      xr[c] = real_value(src[c]);
   } else {
     const float* src = fake + w * fake_sw + (long long)(r - B) * din;
     for (int c = threadIdx.x; c < din; c += blockDim.x) xr[c] = src[c];
@@ -208,10 +217,11 @@ const char* fused_dstep_error_string(int code) {
 //   w1 b1 w2 b2 w3 b3 | mu of the same | nu of the same.
 // scratch: 7 device pointers: X (W,2B,din) H1 (W,2B,h1) H2 (W,2B,h2)
 //   G3 (W,2B,dout) PER (W,2B) DZ2 (W,2B,h2) DZ1 (W,2B,h1).
+// shards: (W, max_len, din), uint8 images (real_u8 = 1) or float32 rows.
 // starts: E host ints.  cc: (W, E, 2) device.  loss: (W,).  dout <= 2.
 // Returns 0 or the first cudaGetLastError() code.
 int fused_dstep_f32(void* const* state_in, void* const* state_out,
-                    void* const* scratch, const uint8_t* shards,
+                    void* const* scratch, const void* shards, int real_u8,
                     long long max_len, const int* starts, const float* fake,
                     int fake_per_client, const float* cc, float* loss, int W,
                     int E, int B, int din, int h1, int h2, int dout, int head,
@@ -233,8 +243,13 @@ int fused_dstep_f32(void* const* state_in, void* const* state_out,
   for (int e = 0; e < E; ++e) {
     float* const* cur = e == 0 ? in : out;
 
-    prep_kernel<<<dim3((unsigned)R, W), 256, 0, st>>>(
-        shards, max_len, starts[e], fake, fake_sw, X, B, din);
+    if (real_u8)
+      prep_kernel<<<dim3((unsigned)R, W), 256, 0, st>>>(
+          (const uint8_t*)shards, max_len, starts[e], fake, fake_sw, X, B,
+          din);
+    else
+      prep_kernel<<<dim3((unsigned)R, W), 256, 0, st>>>(
+          (const float*)shards, max_len, starts[e], fake, fake_sw, X, B, din);
     CHECK_LAUNCH();
 
     // ---- forward: h_l = lrelu(h_{l-1} W_l + b_l) ----

@@ -75,7 +75,8 @@ def fused_d_epoch_steps(params: Sequence[torch.Tensor],
 
     params/mu/nu: 6-tuples (w1 (W,din,h1), b1 (W,h1), w2, b2, w3, b3).
     count: (W,) or () Adam step counts before the call.
-    shards: (W, max_len, din) uint8; step e reads rows
+    shards: (W, max_len, din), uint8 images (``is_image``: scaled to
+    [-1, 1]) or float32 rows used as they are (2DMG); step e reads rows
     ``[starts[e], starts[e] + B)`` of every client's shard.
     fake: (B, din) shared or (W, B, din) per-client fakes.
 
@@ -84,11 +85,10 @@ def fused_d_epoch_steps(params: Sequence[torch.Tensor],
     version."""
     if head not in HEADS:
         raise ValueError(f"unsupported head {head!r}")
-    if not is_image or shards.dtype != torch.uint8:
-        raise NotImplementedError(
-            "fused_d_epoch_steps takes uint8 image shards; float 2DMG rows "
-            "(the CGL and MD-GAN families on 2DMG) are not ported yet "
-            "(ROADMAP queue 1 items 8 and 9)")
+    want = torch.uint8 if is_image else torch.float32
+    if shards.dtype != want:
+        raise ValueError(f"is_image={is_image} takes {want} shards, got "
+                         f"{shards.dtype}")
     if shards.device.type == "cuda":
         return _launch(params, mu, nu, count, shards, starts, fake, head,
                        d_loss_half, lr, b1, b2)
@@ -104,7 +104,9 @@ def fused_d_epoch_steps_plain(params, mu, nu, count, shards, starts, fake,
                               lr: float = 2e-4, b1: float = 0.5,
                               b2: float = 0.999):
     """The kernel's arithmetic in torch ops (no autograd): the hand-derived
-    forward/backward and Adam of ``_dstep_kernel``, on any device."""
+    forward/backward and Adam of ``_dstep_kernel``, on any device.  uint8
+    shards are images, scaled to [-1, 1]; float shards are used as they
+    are."""
     W, E = shards.shape[0], len(starts)
     B = fake.shape[-2]
     w1, bb1, w2, bb2, w3, bb3 = params
@@ -120,8 +122,10 @@ def fused_d_epoch_steps_plain(params, mu, nu, count, shards, starts, fake,
     for e in range(E):
         w1, bb1, w2, bb2, w3, bb3 = state[0]
         s = int(starts[e])
-        x = torch.cat([normalize_images(shards[:, s:s + B]).to(dt),
-                       fk.to(dt)], 1)
+        real = shards[:, s:s + B]
+        if real.dtype == torch.uint8:
+            real = normalize_images(real)
+        x = torch.cat([real.to(dt), fk.to(dt)], 1)
         z1 = torch.bmm(x, w1) + bb1.unsqueeze(1)
         h1 = torch.where(z1 >= 0, z1, 0.2 * z1)
         z2 = torch.bmm(h1, w2) + bb2.unsqueeze(1)
@@ -229,7 +233,7 @@ def _library() -> ctypes.CDLL:
         vp, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
         lib.fused_dstep_f32.argtypes = [
             ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp), vp,
-            ctypes.c_longlong, ctypes.POINTER(i), vp, i, vp, vp,
+            i, ctypes.c_longlong, ctypes.POINTER(i), vp, i, vp, vp,
             i, i, i, i, i, i, i, i, f, f, f, f, f, f, f, f, vp]
         lib.fused_dstep_f32.restype = i
         lib.fused_dstep_error_string.argtypes = [i]
@@ -246,7 +250,8 @@ def _launch(params, mu, nu, count, shards, starts, fake, head, d_loss_half,
     h1, h2, dout = params[0].shape[2], params[2].shape[2], params[4].shape[2]
     B = fake.shape[-2]
     dev = shards.device
-    _check(shards, "shards", (W, max_len, din), torch.uint8)
+    # uint8 images or float32 rows: the caller checked which
+    _check(shards, "shards", (W, max_len, din), shards.dtype)
     shapes = [(W, din, h1), (W, h1), (W, h1, h2), (W, h2), (W, h2, dout),
               (W, dout)]
     state_in: List[torch.Tensor] = list(params) + list(mu) + list(nu)
@@ -272,7 +277,8 @@ def _launch(params, mu, nu, count, shards, starts, fake, head, d_loss_half,
     lib = _library()
     rc = lib.fused_dstep_f32(
         ptrs(state_in), ptrs(state_out), ptrs(scratch), shards.data_ptr(),
-        max_len, (ctypes.c_int * E)(*[int(s) for s in starts]),
+        int(shards.dtype == torch.uint8), max_len,
+        (ctypes.c_int * E)(*[int(s) for s in starts]),
         fake.data_ptr(), int(per_client), cc.data_ptr(), loss.data_ptr(),
         W, E, B, din, h1, h2, dout, HEADS[head], mult * 0.5, mult * 0.5 / B,
         -lr, b1, 1 - b1, b2, 1 - b2, EPS, stream)
@@ -340,16 +346,20 @@ def kernel_local_phase(cfg, g_model, g_net: NetState, d_net: NetState,
                        shards, starts, z_d):
     """Round prelude shared with the autograd path: the per-server Xd
     forward (train mode, no grad: advances the G BN buffers -> gbn1), the
-    full fake batch routed to every client of its server, then the fused
-    D phase.  Returns (new_d, d_loss (W,), gbn1)."""
+    fakes routed to the clients (a multipath G's (S, k, B, ...): head i to
+    client i of its server; a single-path G's (S, B, ...): the full batch to
+    every client of its server), then the fused D phase.  Returns
+    (new_d, d_loss (W,), gbn1)."""
     S, B = z_d.shape[0], cfg.batch_size
     W = shards.shape[0]
     with torch.no_grad():
         xd, gbn1 = g_model.apply(g_net.params, g_net.bn, z_d, train=True)
-    xd = xd.reshape(S, B, -1)
-    if S == 1:
-        fake = xd[0].contiguous()                          # shared (B, din)
+    if g_model.multipath:
+        fake = xd.reshape(W, B, -1).contiguous()           # (W, B, din)
+    elif S == 1:
+        fake = xd.reshape(B, -1).contiguous()              # shared (B, din)
     else:
+        xd = xd.reshape(S, B, -1)
         fake = xd.unsqueeze(1).expand(S, W // S, B, xd.shape[-1]) \
             .reshape(W, B, -1).contiguous()
     new_d, d_loss = kernel_d_phase(d_net, shards, starts, fake, cfg)

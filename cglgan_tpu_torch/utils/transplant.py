@@ -7,8 +7,10 @@ so this module imports neither jax nor optax.  CAP-GAN: the reference stacks
 D state ``(S, k, ...)``; the port keeps it flat ``(W, ...)``.  FedAvg family
 (flgan, fegan): both packages keep G and D params unstacked and the Adam
 state (fegan: the BN state too) stacked ``(W, ...)``, and ``lam`` is None,
-so every array carries over as it is.  ``to_numpy`` is the inverse view used
-by the tests: plain dicts of numpy arrays in the port's layout.
+so every array carries over as it is.  A multipath G's trees are dicts
+``{"trunk": [...], "heads": [...]}`` in both packages (heads ``(S, k, ...)``)
+and carry over as dicts.  ``to_numpy`` is the inverse view used by the
+tests: plain dicts of numpy arrays in the port's layout.
 """
 from __future__ import annotations
 
@@ -31,12 +33,14 @@ def from_jax_numpy(tree, cfg, device) -> FedState:
             if flatten_clients:
                 x = x.reshape((W,) + x.shape[2:])
             return torch.from_numpy(np.array(x)).to(dev)
+        # a list (an MLP's layers) or a dict (a multipath G's trunk and
+        # heads); tuples become lists, as the port builds them
+        walk = lambda tree: tree_map(conv, tree if isinstance(tree, dict)
+                                     else list(tree))
         adam = ns.opt[0]
         count = conv(adam.count).to(torch.int64)
-        return NetState(tree_map(conv, list(ns.params)),
-                        tree_map(conv, list(ns.bn)),
-                        AdamState(count, tree_map(conv, list(adam.mu)),
-                                  tree_map(conv, list(adam.nu))))
+        return NetState(walk(ns.params), walk(ns.bn),
+                        AdamState(count, walk(adam.mu), walk(adam.nu)))
 
     if cfg.algo in ("flgan", "fegan"):
         return FedState(net(tree.g, False), net(tree.d, False), None,

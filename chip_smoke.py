@@ -11,10 +11,15 @@ Phases, each printing one JSON line:
             plain version, the autograd path or library call, and the bound:
             ``fused_dstep`` (16 clients, E=5, B=100, 784-512-256-{2,1}, both
             heads, diverging per-client Adam counts, with the host's time to
-            enqueue a call beside the device's time to run it; then two small
-            ragged shapes, W=3, E=3, B=37, 50-24-40 and W=2, E=2, B=19,
-            33-27-30, for errors only, so that partial tiles in M, N and K and
-            the unaligned paths run on the card); ``fused_sweep`` (16
+            enqueue a call beside the device's time to run it; the CGL
+            path's shapes with distinct fakes a client: CGL-GAN (W=20,
+            784-512-256-1, sigmoid, x1), Mix-G (W=20, ...-2, x0.5) and 2DMG
+            CGL-GAN (W=10, float rows, 2-128-256-1); then small ragged
+            shapes, W=3, E=3, B=37, 50-24-40 and W=2, E=2, B=19, 33-27-30
+            (u8, shared fakes) and W=3, E=3, B=37, 2-24-40 and the second
+            again (float rows, per-client fakes), for errors only, so that
+            partial tiles in M, N and K and the unaligned paths run on the
+            card); ``fused_sweep`` (16
             workers, E=5, B=100, G 100-256-128-2 and 100-32-2, D 2-128-256-1,
             diverging per-worker G and D counts; the kernels one call puts
             on the card, which must be 1; its cluster size and
@@ -25,9 +30,10 @@ Phases, each printing one JSON line:
             bfloat16 / stochastic bfloat16 moments; a list longer than one
             launch takes, with an empty leaf and sizes no multiple of 4, held
             bit-equal; then three steps through ``init``/``step``);
-  reference a shrunk CAP-GAN, FL-GAN and FeGAN on the card (kernel path)
-            against the same rounds on the CPU (plain path) from one init
-            and one stream;
+  reference a shrunk CAP-GAN, CGL-GAN (multipath and iid=0), Mix-G, 2DMG
+            CGL-GAN, FL-GAN and FeGAN on the card (kernel path) against the
+            same rounds on the CPU (plain path) from one init and one
+            stream;
   main      16-client CAP-GAN on MNIST shapes at epoch=5 (the kernel path),
             20 rounds through ``build_runner`` and ``train``; the kernel's
             launch count must rise by exactly 20 and every metric be finite;
@@ -38,13 +44,18 @@ Phases, each printing one JSON line:
             kernel's launch count must rise by exactly 20, and the profile
             must show it once a round) and with the default (autograd; the
             count must stay 0); KL and Distribution Score of 10 000 samples
-            are printed, not gated.
+            are printed, not gated;
+  cgl       CGL-GAN and Mix-G at 20 workers / 5 servers on MNIST shapes
+            (iid=1, B=100, cloud sync every round, segema 0) and CGL-GAN at
+            10 workers / 5 servers on 2DMG (iid=2): 20 rounds each at
+            epoch=5 (``fused_dstep``'s count must rise by exactly 20), and
+            CGL-GAN on MNIST shapes at epoch=1 too (the count must stay 0).
 The round phases also profile a few further rounds (device time by kernel,
 busy share; ``cglgan_tpu_torch/utils/profiling.py``).
 Then the card line, the ``kernels`` line and, last, the ok line.  Any
 failure raises and exits non-zero; without a card it exits 2 and prints
 no result.  ``--phases a,b`` runs only the named phases (of ``dstep sweep
-adam reference main fedavg``) for a short first look at a new kernel; the
+adam reference main fedavg cgl``) for a short first look at a new kernel; the
 ``kernels`` and ok lines are printed only by a full run.  Imports nothing
 of JAX.
 """
@@ -169,18 +180,20 @@ def device_ms(fn, reps):
     return us / reps / 1e3
 
 
-def dstep_work(W, E, B, din, h1, h2, dout):
+def dstep_work(W, E, B, din, h1, h2, dout, row_bytes=1, fake_sets=1):
     """(FLOP, bytes) one fused_d_epoch_steps call must do: forward, weight
     and input grads (the first layer's input grad is not needed) for every
-    client-step; each input read once and each output written once."""
+    client-step; each input read once and each output written once.
+    ``row_bytes``: 1 for u8 images, 4 for float rows; ``fake_sets``: 1 for
+    a shared fake batch, W for per-client fakes."""
     R = 2 * B
     fwd = 2 * R * (din * h1 + h1 * h2 + h2 * dout)
     bwd = fwd + 2 * R * (h2 * dout + h1 * h2)
     flops = W * E * (fwd + bwd)
     n_state = din * h1 + h1 + h1 * h2 + h2 + h2 * dout + dout
     state = 3 * W * n_state * 4
-    bytes_ = 2 * state + E * W * B * din + B * din * 4 + W * E * 2 * 4 \
-        + W * 4 + W * 8
+    bytes_ = 2 * state + E * W * B * din * row_bytes \
+        + fake_sets * B * din * 4 + W * E * 2 * 4 + W * 4 + W * 8
     return flops, bytes_
 
 
@@ -208,10 +221,13 @@ def compare(got, ref):
     return out
 
 
-def dstep_inputs(gen, W, E, B, din, h1, h2, dout, six=None, max_len=1000):
+def dstep_inputs(gen, W, E, B, din, h1, h2, dout, six=None, max_len=1000,
+                 float_rows=False, per_client=False):
     """Seeded inputs of one fused_d_epoch_steps call on the card: state
     (``six`` or random weights at 1/sqrt(fan-in)), nonzero moments, Adam
-    counts that differ between clients, u8 shards, window starts, fakes."""
+    counts that differ between clients, shards (u8 images, or float32 2DMG
+    points: ring modes plus noise), window starts, fakes (shared (B, din),
+    or per client (W, B, din))."""
     import torch
     dev = torch.device("cuda")
     if six is None:
@@ -224,11 +240,30 @@ def dstep_inputs(gen, W, E, B, din, h1, h2, dout, six=None, max_len=1000):
     nu6 = [(torch.randn(x.shape, generator=gen).abs() * 1e-6).to(dev)
            for x in six]
     count = (torch.arange(W, dtype=torch.int64) * 3).to(dev)     # diverge
-    shards = torch.randint(0, 256, (W, max_len, din), generator=gen,
-                           dtype=torch.uint8).to(dev)
+    if float_rows and din == 2:
+        from cglgan_tpu_torch.data.gmm import gmm_modes
+        modes = torch.from_numpy(gmm_modes(10)).float()
+        lab = torch.randint(0, 10, (W, max_len), generator=gen)
+        shards = (modes[lab] + 0.01 * torch.randn((W, max_len, 2),
+                                                  generator=gen)).to(dev)
+    elif float_rows:
+        shards = (torch.rand((W, max_len, din), generator=gen) * 2 - 1
+                  ).to(dev)
+    else:
+        shards = torch.randint(0, 256, (W, max_len, din), generator=gen,
+                               dtype=torch.uint8).to(dev)
     starts = torch.randint(0, max_len - B + 1, (E,), generator=gen).tolist()
-    fake = torch.tanh(torch.randn((B, din), generator=gen)).to(dev)
+    fake_shape = (W, B, din) if per_client else (B, din)
+    fake = torch.tanh(torch.randn(fake_shape, generator=gen)).to(dev)
     return six, mu6, nu6, count, shards, starts, fake
+
+
+def dstep_call(args, kw):
+    """The wrapper on ``args``: uint8 shards are images, float32 rows are
+    used as they are."""
+    from cglgan_tpu_torch.ops import fused_dstep
+    return fused_dstep.fused_d_epoch_steps(
+        *args, is_image=not args[4].is_floating_point(), **kw)
 
 
 def dstep_check(args, kw):
@@ -238,7 +273,7 @@ def dstep_check(args, kw):
     from cglgan_tpu_torch.ops import fused_dstep
     state = [t for ts in args[:3] for t in ts]
     before = [t.clone() for t in state]
-    got = fused_dstep.fused_d_epoch_steps(*args, **kw)
+    got = dstep_call(args, kw)
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(before, state)):
         raise AssertionError("fused_dstep modified its inputs")
@@ -251,76 +286,116 @@ def dstep_check(args, kw):
 # no multiple of 4 (h2) or of 2 (h1): the kernel's scalar paths
 RAGGED = (dict(W=3, E=3, B=37, din=50, h1=24, h2=40),
           dict(W=2, E=2, B=19, din=33, h1=27, h2=30))
+# the same with float rows and per-client fakes; the first at 2DMG's din=2
+RAGGED_ROWS = (dict(W=3, E=3, B=37, din=2, h1=24, h2=40),
+               dict(W=2, E=2, B=19, din=33, h1=27, h2=30))
+# the CGL path's kernel shapes: (label, W, din, h1, h2, out, head, x0.5,
+# float rows): CGL-GAN and Mix-G at 20 workers on MNIST shapes, CGL-GAN at
+# 10 workers on 2DMG; every one with distinct fakes a client (a multipath
+# G's head i feeds client i)
+CGL_SHAPES = (("cglgan", 20, DIN, H1, H2, 1, "sigmoid", False, False),
+              ("mixgan", 20, DIN, H1, H2, 2, "logits2", True, False),
+              ("cglgan-2dmg", 10, 2, 128, 256, 1, "sigmoid", False, True))
+
+
+def dstep_shape(card_name, label, gen, d_model, W, din, h1, h2, dout, head,
+                half, float_rows=False, per_client=False):
+    """fused_dstep at one full shape: errors against the plain version,
+    the kernel's time (call, host enqueue, device), the plain version's and
+    the autograd D phase's, and the bound; raises if they disagree."""
+    from cglgan_tpu_torch.algos import common
+    from cglgan_tpu_torch.ops import fused_dstep
+
+    params, bn = d_model.init(gen, W)
+    args = dstep_inputs(gen, W, E, B, din, h1, h2, dout,
+                        six=[x for p in params if p is not None
+                             for x in (p["w"], p["b"])],
+                        float_rows=float_rows, per_client=per_client)
+    six, mu6, nu6, count, shards, starts, fake = args
+    kw = dict(head=head, d_loss_half=half, lr=2e-4, b1=0.5, b2=0.999)
+    errs = dstep_check(args, kw)
+
+    # timings on the same inputs
+    call = lambda: dstep_call(args, kw)
+    kernel_ms = cuda_ms(call, 20)
+    enq_ms = enqueue_ms(call, 10)
+    dev_ms = device_ms(call, 10)
+    plain_ms = cuda_ms(lambda: fused_dstep.fused_d_epoch_steps_plain(
+        *args, **kw), 5)
+    net = fused_dstep.repack_net(
+        common.NetState(params, bn, common.AdamState(count, params, params)),
+        six, mu6, nu6, count)
+    step = common.d_epoch_steps(common.d_step_fn(
+        d_model, common.make_adv_loss(head), 2e-4, 0.5, 0.999, B,
+        not float_rows, half), E)
+    autograd_ms = cuda_ms(lambda: step(net, shards, starts, fake), 5)
+
+    # The least time at float32 accuracy: the non-tensor f32 rate, or
+    # three TF32 tensor-core passes (3xTF32), whichever is faster; against
+    # the bytes.
+    flops, nbytes = dstep_work(W, E, B, din, h1, h2, dout,
+                               row_bytes=4 if float_rows else 1,
+                               fake_sets=W if per_client else 1)
+    f32_peak, hbm, tf32_peak = peaks(card_name)
+    t_simt = flops / f32_peak * 1e3
+    t_ops = min(t_simt, 3 * flops / tf32_peak * 1e3)
+    t_bytes = nbytes / hbm * 1e3
+    res = {"phase": "kernel", "kernel": "fused_dstep", "shape_of": label,
+           "head": head, "d_loss_half": half,
+           "rows": "float32" if float_rows else "uint8",
+           "fakes": "per client" if per_client else "shared",
+           "shape": {"W": W, "E": E, "B": B, "din": din, "h1": h1,
+                     "h2": h2, "out": dout},
+           "errors": errs,
+           "kernel_ms": kernel_ms, "enqueue_ms": enq_ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms,
+           "autograd_ms": autograd_ms, "gflop": flops / 1e9,
+           "mbytes": nbytes / 1e6, "bound_ms": max(t_ops, t_bytes),
+           "bound_f32_simt_ms": max(t_simt, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "launches_inside_call": E * fused_dstep.LAUNCHES_PER_STEP}
+    emit(res)
+    if not all(v["ok"] for v in errs.values()):
+        raise AssertionError(f"fused_dstep ({label}, {head}) disagrees with "
+                             f"its plain version: {errs}")
+    return res
 
 
 def phase_kernel(card_name):
     import torch
-    from cglgan_tpu_torch.algos import common
     from cglgan_tpu_torch.models.zoo import build_discriminator
-    from cglgan_tpu_torch.ops import fused_dstep
 
     results = []
+    # the CAP-GAN main path's shape, both heads, one shared fake batch
     for head, dout, half in (("logits2", 2, True), ("sigmoid", 1, False)):
         gen = torch.Generator().manual_seed(1234 + dout)
-        d_model = build_discriminator("mnist", dout, in_dim=DIN)
-        params, bn = d_model.init(gen, W)
-        args = dstep_inputs(gen, W, E, B, DIN, H1, H2, dout,
-                            six=[x for p in params if p is not None
-                                 for x in (p["w"], p["b"])])
-        six, mu6, nu6, count, shards, starts, fake = args
-        kw = dict(head=head, d_loss_half=half, lr=2e-4, b1=0.5, b2=0.999)
-        errs = dstep_check(args, kw)
-
-        # timings on the same inputs
-        call = lambda: fused_dstep.fused_d_epoch_steps(*args, **kw)
-        kernel_ms = cuda_ms(call, 20)
-        enq_ms = enqueue_ms(call, 10)
-        dev_ms = device_ms(call, 10)
-        plain_ms = cuda_ms(lambda: fused_dstep.fused_d_epoch_steps_plain(
-            *args, **kw), 5)
-        net = fused_dstep.repack_net(
-            common.NetState(params, bn, common.AdamState(count, params,
-                                                         params)),
-            six, mu6, nu6, count)
-        step = common.d_epoch_steps(common.d_step_fn(
-            d_model, common.make_adv_loss(head), 2e-4, 0.5, 0.999, B, True,
-            half), E)
-        autograd_ms = cuda_ms(lambda: step(net, shards, starts, fake), 5)
-
-        # The least time at float32 accuracy: the non-tensor f32 rate, or
-        # three TF32 tensor-core passes (3xTF32), whichever is faster;
-        # against the bytes.
-        flops, nbytes = dstep_work(W, E, B, DIN, H1, H2, dout)
-        f32_peak, hbm, tf32_peak = peaks(card_name)
-        t_simt = flops / f32_peak * 1e3
-        t_ops = min(t_simt, 3 * flops / tf32_peak * 1e3)
-        t_bytes = nbytes / hbm * 1e3
-        res = {"phase": "kernel", "kernel": "fused_dstep", "head": head,
-               "shape": {"W": W, "E": E, "B": B, "din": DIN, "h1": H1,
-                         "h2": H2, "out": dout},
-               "errors": errs,
-               "kernel_ms": kernel_ms, "enqueue_ms": enq_ms,
-               "device_ms": dev_ms, "plain_ms": plain_ms,
-               "autograd_ms": autograd_ms, "gflop": flops / 1e9,
-               "mbytes": nbytes / 1e6, "bound_ms": max(t_ops, t_bytes),
-               "bound_f32_simt_ms": max(t_simt, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "launches_inside_call": E * fused_dstep.LAUNCHES_PER_STEP}
-        emit(res)
-        results.append(res)
-        if not all(v["ok"] for v in errs.values()):
-            raise AssertionError(f"fused_dstep ({head}) disagrees with its "
-                                 f"plain version: {errs}")
+        results.append(dstep_shape(
+            card_name, "capgan", gen, build_discriminator("mnist", dout,
+                                                          in_dim=DIN),
+            W, DIN, H1, H2, dout, head, half))
+    # the CGL path's shapes, per-client fakes (2DMG: float rows)
+    for label, w, din, h1, h2, dout, head, half, rows in CGL_SHAPES:
+        gen = torch.Generator().manual_seed(2468 + w + dout)
+        d_model = build_discriminator("2dmg") if rows else \
+            build_discriminator("mnist", dout, in_dim=din)
+        results.append(dstep_shape(card_name, label, gen, d_model, w, din,
+                                   h1, h2, dout, head, half, rows, True))
 
     # small ragged shapes; errors only
-    for shape in RAGGED:
+    cases = [(shape, False, False) for shape in RAGGED] + \
+        [(shape, True, True) for shape in RAGGED_ROWS]
+    for shape, rows, per_client in cases:
         for head, dout, half in (("logits2", 2, True), ("sigmoid", 1, False)):
             gen = torch.Generator().manual_seed(4242 + dout)
-            args = dstep_inputs(gen, dout=dout, max_len=90, **shape)
+            args = dstep_inputs(gen, dout=dout, max_len=90,
+                                float_rows=rows, per_client=per_client,
+                                **shape)
             errs = dstep_check(args, dict(head=head, d_loss_half=half,
                                           lr=2e-4, b1=0.5, b2=0.999))
             res = {"phase": "kernel", "kernel": "fused_dstep", "head": head,
                    "shape": {**shape, "out": dout}, "ragged": True,
+                   "rows": "float32" if rows else "uint8",
+                   "fakes": "per client" if per_client else "shared",
                    "errors": errs}
             emit(res)
             if not all(v["ok"] for v in errs.values()):
@@ -749,12 +824,43 @@ def state_errs(card_state, cpu_state):
     return errs
 
 
-def phase_reference():
-    """Shrunk CAP-GAN: card (kernel path) vs CPU (plain path)."""
-    import numpy as np
-    import torch
+def reference_rounds(label, cfg, part, rounds):
+    """Card (kernel path) against CPU (plain path) from one init and one
+    stream: ``rounds`` rounds of the CGL family; the card must launch
+    ``fused_dstep`` once a round."""
     from cglgan_tpu_torch.algos.registry import build_runner
     from cglgan_tpu_torch.core import prng
+    from cglgan_tpu_torch.ops import fused_dstep
+
+    L = part.data.shape[1]
+    gpu = build_runner(cfg, part)
+    cpu = build_runner(cfg, part, device="cpu")
+    sg, sc = gpu.init_state(), cpu.init_state()
+    launched = fused_dstep.launches
+    for t in range(rounds):
+        starts, z_d, z_g = prng.round_streams(cfg, t, L, "cpu")
+        sg, mg = gpu.round_fn(sg, (starts, z_d, z_g))
+        sc, mc = cpu.round_fn(sc, (starts, z_d, z_g))
+    launches = fused_dstep.launches - launched
+    errs = state_errs(sg, sc)
+    merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
+    # same float32 math on two devices, sums in another order: as in the
+    # kernel phase, scaled by each tensor's max; metrics 1e-4 absolute
+    res = {"phase": "reference", "algo": label, "rounds": rounds,
+           "fused_dstep_launches": launches, "max_scaled_err": errs,
+           "tol_scaled": TOL_SCALED, "metrics_max_abs_err": merr,
+           "tol_metrics": 1e-4}
+    emit(res)
+    if max(errs.values()) > TOL_SCALED or merr > 1e-4 or launches != rounds:
+        raise AssertionError(f"card and CPU rounds disagree: {res}")
+    return res
+
+
+def phase_reference():
+    """Shrunk CAP-GAN, CGL-GAN (multipath and single path), Mix-G and 2DMG
+    CGL-GAN: card (kernel path) vs CPU (plain path)."""
+    import numpy as np
+    from cglgan_tpu_torch.algos.registry import load_partition
     from cglgan_tpu_torch.core.config import FedGANConfig
     from cglgan_tpu_torch.data.partition import Partition
 
@@ -765,69 +871,92 @@ def phase_reference():
                      np.asarray([30, 48, 41, 36], np.int32),
                      np.zeros((nw, 10), np.int64),
                      np.zeros((10, d), np.uint8))
-    cfg = FedGANConfig(algo="capgan", dataset="synthetic-mnist",
-                       num_workers=nw, num_servers=2, img_size=8,
-                       batch_size=8, epoch=2, num_communication=12)
-    gpu = build_runner(cfg, part)
-    cpu = build_runner(cfg, part, device="cpu")
-    sg, sc = gpu.init_state(), cpu.init_state()
-    for t in range(5):
-        starts, z_d, z_g = prng.round_streams(cfg, t, L, "cpu")
-        sg, mg = gpu.round_fn(sg, (starts, z_d, z_g))
-        sc, mc = cpu.round_fn(sc, (starts, z_d, z_g))
-    errs = state_errs(sg, sc)
-    merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
-    # same float32 math on two devices, sums in another order: as in the
-    # kernel phase, scaled by each tensor's max; metrics 1e-4 absolute
-    res = {"phase": "reference", "rounds": 5, "max_scaled_err": errs,
-           "tol_scaled": TOL_SCALED, "metrics_max_abs_err": merr,
-           "tol_metrics": 1e-4}
-    emit(res)
-    if max(errs.values()) > TOL_SCALED or merr > 1e-4:
-        raise AssertionError(f"card and CPU rounds disagree: {res}")
-    return res
+    image = dict(dataset="synthetic-mnist", num_workers=nw, num_servers=2,
+                 img_size=8, batch_size=8, epoch=2)
+    out = [reference_rounds("capgan", FedGANConfig(
+        algo="capgan", num_communication=12, **image), part, 5)]
+    for label, kw in (("cglgan", dict(algo="cglgan", iid=1)),
+                      ("cglgan iid=0", dict(algo="cglgan", iid=0)),
+                      ("mixgan", dict(algo="mixgan", iid=1))):
+        out.append(reference_rounds(label, FedGANConfig(**kw, **image),
+                                    part, 5))
+    cfg = FedGANConfig(algo="cglgan", dataset="2dmg", num_workers=4,
+                       num_servers=2, num_class=4, num_sample=64,
+                       batch_size=16, iid=1, epoch=2)
+    out.append(reference_rounds("cglgan 2dmg", cfg, load_partition(cfg), 5))
+    return out
 
 
-def phase_rounds(epoch, part, expect_launches):
+# the CGL path: the reference-exact runs RESULTS.md archives
+# (results/runs/{mnist-ref-iid1-cglgan,mnist-ref-iid1-mixgan,2dmg-ref-cglgan}
+# /config.json), on synthetic-mnist for MNIST, at epoch=5 (the kernel path)
+# and, for CGL-GAN on MNIST shapes, at the scripts' own epoch=1
+CGL_MNIST = dict(dataset="synthetic-mnist", num_workers=20, num_servers=5,
+                 iid=1, batch_size=100, cloud_epoch=1, segema=0.0)
+CGL_2DMG = dict(dataset="2dmg", num_workers=10, num_servers=5, num_class=10,
+                num_sample=10000, iid=2, batch_size=100, cloud_epoch=1,
+                segema=0.0, num_communication=10000)
+CGL_RUNS = (("cglgan", "cglgan", CGL_MNIST, 5),
+            ("cglgan", "cglgan", CGL_MNIST, 1),
+            ("mixgan", "mixgan", CGL_MNIST, 5),
+            ("cglgan-2dmg", "cglgan", CGL_2DMG, 5))
+# the CAP-GAN main path (bench.py:111-113)
+MAIN = dict(dataset="synthetic-mnist", num_workers=16, num_servers=1, iid=1,
+            batch_size=100)
+
+
+def phase_rounds(phase, label, algo, base, epoch, part):
+    """One CGL-family configuration at full width through ``build_runner``
+    and ``train``: 2 warm-up and ROUNDS timed rounds; ``fused_dstep``'s
+    count, set to 0 just before, must rise by ROUNDS at epoch > 1 and stay 0
+    at epoch=1; finite metrics and samples in [-1, 1]."""
     import torch
     from cglgan_tpu_torch.algos.registry import build_runner
     from cglgan_tpu_torch.algos.runner import train
     from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.evalx import hist2d
     from cglgan_tpu_torch.ops import fused_dstep
     from cglgan_tpu_torch.utils.profiling import profile_rounds
 
-    cfg = FedGANConfig(algo="capgan", dataset="synthetic-mnist",
-                       num_workers=16, num_servers=1, iid=1, batch_size=100,
-                       epoch=epoch)
+    cfg = FedGANConfig(algo=algo, epoch=epoch, **base)
     runner = build_runner(cfg, part)
     state = train(runner, 2, eval_every=2)["state"]      # warm-up rounds
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     fused_dstep.launches = 0
     t0 = time.perf_counter()
     out = train(runner, ROUNDS, eval_every=10, state=state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_dstep.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
     finite_metrics(out["history"])
-    if launches != expect_launches:
-        raise AssertionError(f"fused_dstep launches {launches}, expected "
-                             f"{expect_launches}")
-    imgs = runner.sample(out["state"], 16)
-    if tuple(imgs.shape) != (16, 1, 28, 28) or \
-            not bool(torch.isfinite(imgs).all()) or \
-            float(imgs.abs().max()) > 1.0:
-        raise AssertionError(f"bad samples {tuple(imgs.shape)}")
-    res = {"phase": "main" if expect_launches else "autograd",
-           "config": {"algo": "capgan", "dataset": "synthetic-mnist",
-                      "num_workers": 16, "num_servers": 1, "iid": 1,
-                      "batch_size": 100, "epoch": epoch},
-           "rounds": ROUNDS, "wall_s": wall, "rounds_per_s": ROUNDS / wall,
+    expect = ROUNDS if epoch > 1 else 0
+    if launches != expect:
+        raise AssertionError(f"{label} epoch={epoch}: fused_dstep launches "
+                             f"{launches}, expected {expect}")
+    # painter semantics: n // S samples a server
+    n = (16 if cfg.is_image else 10000) // cfg.num_servers * cfg.num_servers
+    samples = runner.sample(out["state"], n)
+    shape = (n, 1, 28, 28) if cfg.is_image else (n, 2)
+    if tuple(samples.shape) != shape or \
+            not bool(torch.isfinite(samples).all()) or \
+            float(samples.abs().max()) > 1.0:
+        raise AssertionError(f"{label}: bad samples {tuple(samples.shape)}")
+    res = {"phase": phase, "path": "kernel" if epoch > 1 else "autograd",
+           "config": {"algo": algo, **base, "epoch": epoch},
+           "multipath": cfg.algo == "mixgan" or cfg.iid != 0,
+           "shards": list(part.data.shape), "rounds": ROUNDS,
+           "wall_s": wall, "rounds_per_s": ROUNDS / wall,
            "fused_dstep_launches": launches,
            "uses_kernel": fused_dstep.eligible(cfg),
-           "last_tick": out["history"][-1],
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           # after the counted run: where a round's time goes
-           "profile": profile_rounds(runner, out["state"], PROFILE_ROUNDS)}
+           "last_tick": out["history"][-1], "peak_mem_gb": peak}
+    if not cfg.is_image:
+        real = torch.from_numpy(part.eval_pool).to(samples.device)
+        kl, ds = hist2d.kl_and_distribution_score(samples, real, 16)
+        res.update(kl_score=float(kl), distribution_score=float(ds))
+    # after the counted run: where a round's time goes
+    res["profile"] = profile_rounds(runner, out["state"], PROFILE_ROUNDS)
     emit(res)
     return res, launches
 
@@ -931,7 +1060,8 @@ def phase_fedavg(algo, use_kernel):
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    all_phases = ("dstep", "sweep", "adam", "reference", "main", "fedavg")
+    all_phases = ("dstep", "sweep", "adam", "reference", "main", "fedavg",
+                  "cgl")
     ap.add_argument("--phases", default=",".join(all_phases),
                     help="comma-separated subset of: " + " ".join(all_phases))
     phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
@@ -976,20 +1106,32 @@ def main(argv=None):
         phase_reference_fedavg()
     if "main" in phases:
         t0 = time.perf_counter()
-        cfg = FedGANConfig(algo="capgan", dataset="synthetic-mnist",
-                           num_workers=16, num_servers=1, iid=1,
-                           batch_size=100)
-        part = load_partition(cfg)
+        part = load_partition(FedGANConfig(algo="capgan", **MAIN))
         emit({"phase": "data", "seconds": time.perf_counter() - t0,
               "glyph_backend": "native" if native.available() else "numpy",
               "shards": list(part.data.shape)})
-        _, done["dstep_launches"] = phase_rounds(5, part, ROUNDS)
-        phase_rounds(1, part, 0)
+        _, done["dstep_launches"] = phase_rounds("main", "capgan", "capgan",
+                                                 MAIN, 5, part)
+        phase_rounds("autograd", "capgan", "capgan", MAIN, 1, part)
     if "fedavg" in phases:
         _, done["sweep_launches"] = phase_fedavg("flgan", True)
         phase_fedavg("flgan", False)
         phase_fedavg("fegan", True)
         phase_fedavg("fegan", False)
+    if "cgl" in phases:
+        parts = {}
+        for label, algo, base, epoch in CGL_RUNS:
+            key = base["dataset"]
+            if key not in parts:
+                t0 = time.perf_counter()
+                parts[key] = load_partition(FedGANConfig(algo=algo, **base))
+                emit({"phase": "data", "dataset": key,
+                      "seconds": time.perf_counter() - t0,
+                      "shards": list(parts[key].data.shape)})
+            _, n = phase_rounds("cgl", label, algo, base, epoch,
+                                parts[key])
+            if epoch > 1:
+                done[f"dstep_launches {label}"] = n
     if len(phases) != len(all_phases):
         print(card, flush=True)
         emit({"partial": phases})
@@ -1004,9 +1146,16 @@ def main(argv=None):
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": lib}
     adam_f32 = done["adam"][0]
+    dstep = entry(fused_dstep, done["dstep_launches"], done["dstep"],
+                  done["dstep"][0], None)
+    # each path's own count, set to 0 just before it ran: the CAP-GAN main
+    # path (``launches``) and the CGL path's three kernel-path runs
+    dstep["launches_by_path"] = {
+        "capgan": done["dstep_launches"],
+        **{k.split(" ", 1)[1]: v for k, v in done.items()
+           if k.startswith("dstep_launches ")}}
     kernels = [
-        entry(fused_dstep, done["dstep_launches"], done["dstep"],
-              done["dstep"][0], None),
+        dstep,
         # the FL-GAN pair's shape; launches from its 20 kernel-path rounds
         entry(fused_sweep, done["sweep_launches"], done["sweep"],
               done["sweep"][0], None),
@@ -1014,7 +1163,8 @@ def main(argv=None):
         # the three init/step steps over a two-leaf tree (one launch a step)
         entry(fused_adam, done["adam_launches"], done["adam"], adam_f32,
               adam_f32["library_ms"])]
-    if any(k["launches"] < 1 for k in kernels):
+    if any(k["launches"] < 1 for k in kernels) or \
+            min(dstep["launches_by_path"].values()) < 1:
         raise AssertionError(f"a kernel was never launched: {kernels}")
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -184,8 +184,7 @@ def test_train_and_entry_point_contract():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_runner(cfg, part)
-    for kw in (dict(algo="cglgan"), dict(algo="mixgan"), dict(conv=True),
-               dict(dtype="bfloat16"), dict(model_shards=2),
-               dict(dataset="2dmg")):
+    for kw in (dict(algo="mdgan"), dict(algo="acgan"), dict(conv=True),
+               dict(dtype="bfloat16"), dict(model_shards=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_runner(cfg.replace(**kw), part, device="cpu")

@@ -30,12 +30,22 @@ TOL_P = (1e-4, 1e-6)
 TOL_MU = (1e-4, 1e-6)
 TOL_NU = (1e-4, 1e-9)
 TOL_LOSS = (1e-5, 1e-7)
+# Params in the per-client-fake and float-row cases: where a weight's
+# gradient nearly cancels between the two steps, Adam's m/sqrt(v) amplifies
+# float32 sum noise.  On the per-client inputs (seed 1) one weight of 393 216
+# lands 2.4e-6 apart; the JAX kernel is itself 1.5e-6 and the plain version
+# 3.3e-6 from a float64 run there (1.6% of one lr step).  So params are held
+# to a fortieth of one Adam step; mu and nu keep the tolerances above, and a
+# wrong route moves a param by up to a whole step (lr) a step.
+TOL_P_STEP = (1e-4, LR / 40)
 
 
-def _inputs(out_dim, counts, seed=0):
+def _inputs(out_dim, counts, seed=0, *, family="mnist", din=DIN,
+            float_rows=False, per_client=False):
     """Stacked D state from the JAX init (+ nonzero moments when counts
-    are nonzero), a u8 shard, fakes and counts, as numpy."""
-    d = build_discriminator("mnist", out_dim, in_dim=DIN)
+    are nonzero), a shard (u8 images, or float32 rows as 2DMG's), fakes
+    (shared (B, din) or per client (W, B, din)) and counts, as numpy."""
+    d = build_discriminator(family, out_dim, in_dim=din)
     net = jcommon.init_net_stacked(d, jax.random.key(seed),
                                    optax.adam(LR, b1=B1, b2=B2), W)
     lin = [p for p in net.params if isinstance(p, dict)]
@@ -47,8 +57,12 @@ def _inputs(out_dim, counts, seed=0):
            for x in six]
     nu6 = [(np.abs(rng.normal(size=x.shape)) * 1e-6 * mask(x))
            .astype(np.float32) for x in six]
-    shard = rng.integers(0, 256, size=(W, L, DIN)).astype(np.uint8)
-    fake = rng.normal(size=(B, DIN)).astype(np.float32)
+    if float_rows:
+        shard = rng.uniform(-1, 1, size=(W, L, din)).astype(np.float32)
+    else:
+        shard = rng.integers(0, 256, size=(W, L, din)).astype(np.uint8)
+    fake_shape = (W, B, din) if per_client else (B, din)
+    fake = rng.normal(size=fake_shape).astype(np.float32)
     return six, mu6, nu6, np.asarray(counts, np.int32), shard, fake
 
 
@@ -58,8 +72,9 @@ def _jax_run(six, mu6, nu6, count, shard, fake, head, half):
     out = jfused.fused_d_epoch_steps(
         tuple(map(jnp.asarray, six)), tuple(map(jnp.asarray, mu6)),
         tuple(map(jnp.asarray, nu6)), jnp.asarray(count), reals,
-        jnp.asarray(fake), head=head, d_loss_half=half, is_image=True,
-        lr=LR, b1=B1, b2=B2, interpret=True)
+        jnp.asarray(fake), head=head, d_loss_half=half,
+        is_image=shard.dtype == np.uint8, lr=LR, b1=B1, b2=B2,
+        fake_per_client=fake.ndim == 3, interpret=True)
     p, m, n, c, loss = out
     return ([np.asarray(x) for x in p], [np.asarray(x) for x in m],
             [np.asarray(x) for x in n], np.asarray(c), np.asarray(loss))
@@ -70,14 +85,15 @@ def _port_run(six, mu6, nu6, count, shard, fake, head, half, device):
     p, m, n, c, loss = fused_dstep.fused_d_epoch_steps(
         [t(x) for x in six], [t(x) for x in mu6], [t(x) for x in nu6],
         t(count.astype(np.int64)), t(shard), STARTS, t(fake), head=head,
-        d_loss_half=half, is_image=True, lr=LR, b1=B1, b2=B2)
+        d_loss_half=half, is_image=shard.dtype == np.uint8, lr=LR, b1=B1,
+        b2=B2)
     npy = lambda x: x.cpu().numpy()
     return ([npy(x) for x in p], [npy(x) for x in m], [npy(x) for x in n],
             npy(c), npy(loss))
 
 
-def _assert_close(got, ref):
-    for name, a, b, (rtol, atol) in (("params", got[0], ref[0], TOL_P),
+def _assert_close(got, ref, tol_p=TOL_P):
+    for name, a, b, (rtol, atol) in (("params", got[0], ref[0], tol_p),
                                      ("mu", got[1], ref[1], TOL_MU),
                                      ("nu", got[2], ref[2], TOL_NU)):
         for j, (x, y) in enumerate(zip(a, b)):
@@ -99,6 +115,46 @@ def test_plain_matches_jax_kernel(head, out_dim, half, counts):
     ref = _jax_run(*args, head, half)
     got = _port_run(*args, head, half, "cpu")
     _assert_close(got, ref)
+
+
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("head,out_dim", [("sigmoid", 1), ("logits2", 2)])
+def test_plain_matches_jax_kernel_per_client_fakes(head, out_dim, half):
+    """Distinct fakes a client (the CGL family's routing: a multipath G's
+    head i to client i), both heads, both D-loss scales, diverging
+    counts."""
+    args = _inputs(out_dim, [0, 7, 3], seed=1, per_client=True)
+    _assert_close(_port_run(*args, head, half, "cpu"),
+                  _jax_run(*args, head, half), TOL_P_STEP)
+
+
+@pytest.mark.parametrize("family,din,half,per_client", [
+    ("2dmg", 2, False, True),     # CGL-GAN on 2DMG: 2-128-256-1, x1
+    ("2dmg", 2, True, False),     # Mix-G on 2DMG: sigmoid head, x0.5
+    ("mnist", 5, False, True),    # a ragged din: 5-512-256-1
+], ids=["2dmg", "2dmg_half_shared", "din5"])
+def test_plain_matches_jax_kernel_float_rows(family, din, half, per_client):
+    """float32 real rows used as they are (``is_image=False``), the
+    reference's 2DMG input, with diverging per-client counts."""
+    args = _inputs(1, [0, 7, 3], seed=2, family=family, din=din,
+                   float_rows=True, per_client=per_client)
+    _assert_close(_port_run(*args, "sigmoid", half, "cpu"),
+                  _jax_run(*args, "sigmoid", half), TOL_P_STEP)
+
+
+def test_rows_must_match_is_image():
+    """uint8 shards are images and float32 shards are rows; anything else
+    is refused before a kernel or plain step runs."""
+    six, mu6, nu6, count, shard, fake = _inputs(1, [0, 0, 0])
+    t = lambda x: torch.from_numpy(np.array(x))
+    state = ([t(x) for x in six], [t(x) for x in mu6], [t(x) for x in nu6],
+             t(count.astype(np.int64)))
+    for rows, is_image in ((shard, False),
+                           (shard.astype(np.float32), True),
+                           (shard.astype(np.float64), False)):
+        with pytest.raises(ValueError, match="shards"):
+            fused_dstep.fused_d_epoch_steps(*state, t(rows), STARTS, t(fake),
+                                            is_image=is_image)
 
 
 def test_inputs_not_modified():
@@ -195,7 +251,8 @@ def _on_card(args, starts, head, half):
                        [x.cpu().numpy() for x in out[1]],
                        [x.cpu().numpy() for x in out[2]],
                        out[3].cpu().numpy(), out[4].cpu().numpy())
-    got = npy(fused_dstep.fused_d_epoch_steps(*targs, **kw))
+    got = npy(fused_dstep.fused_d_epoch_steps(
+        *targs, is_image=shard.dtype == np.uint8, **kw))
     return got, npy(fused_dstep.fused_d_epoch_steps_plain(*targs, **kw))
 
 
@@ -218,6 +275,29 @@ def test_cuda_kernel_matches_plain(head, out_dim, half, shape):
     got, ref = _on_card(args, starts, head, half)
     assert fused_dstep.launches == launched + 1
     _assert_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,din,head,out_dim,half,float_rows", [
+    ("2dmg", 2, "sigmoid", 1, False, True),    # CGL-GAN on 2DMG
+    ("2dmg", 2, "sigmoid", 1, True, True),     # Mix-G on 2DMG
+    ("mnist", DIN, "logits2", 2, True, False),  # Mix-G on images
+    ("mnist", DIN, "sigmoid", 1, False, False),  # CGL-GAN on images
+], ids=["2dmg_cgl", "2dmg_mix", "img_mix", "img_cgl"])
+def test_cuda_kernel_per_client_fakes(family, din, head, out_dim, half,
+                                      float_rows):
+    """The CUDA kernel against the plain version on the card with distinct
+    fakes a client, on image shards and on float rows at din=2 (the first
+    layer's unaligned path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _inputs(out_dim, [0, 7, 3], seed=1, family=family, din=din,
+                   float_rows=float_rows, per_client=True)
+    launched = fused_dstep.launches
+    got, ref = _on_card(args, STARTS, head, half)
+    assert fused_dstep.launches == launched + 1
+    _assert_close(got, ref, TOL_P_STEP)
 
 
 @pytest.mark.cuda

@@ -150,10 +150,12 @@ def test_gmm_dataset_statistics():
 
 
 @pytest.mark.parametrize("algo,iid", [("flgan", 1), ("fegan", 1),
-                                      ("flgan", 0), ("fegan", 2)])
+                                      ("flgan", 0), ("fegan", 2),
+                                      ("cglgan", 2), ("mixgan", 1)])
 def test_load_partition_2dmg_byte_equal(algo, iid, monkeypatch):
     """The 2DMG branch (eval pool of num_sample * num_class, composition
-    scale 2 * num_workers for flgan, whole label runs at iid=2) on the
+    scale 2 * num_workers for flgan, num_workers**2 for the others, whole
+    label runs at iid=2) on the
     reference's own ``(data, labels)``: byte-equal float32 rows of width 2."""
     kw = dict(algo=algo, dataset="2dmg", num_workers=6, num_class=6,
               num_sample=200, iid=iid, seed=11)
@@ -427,7 +429,7 @@ def test_entry_point_contract():
     for kw in (image, dict(local_sweep="epochs"), dict(dropout_rate=0.2),
                dict(dtype="bfloat16", force_dtype=True), dict(conv=True),
                dict(algo="fegan", **image), dict(algo="mdgan"),
-               dict(algo="acgan"), dict(algo="cglgan"),
-               dict(algo="capgan")):
+               dict(algo="acgan"), dict(algo="cglgan", conv=True),
+               dict(algo="capgan", model_shards=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             registry.build_runner(cfg.replace(**kw), device="cpu")

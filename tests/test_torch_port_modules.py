@@ -231,16 +231,18 @@ def test_models_for_config_and_unported():
     g, d = zoo.models_for_config(cfg)
     assert d.out_dim == 2 and d.spec[0] == ("linear", 64, 512)
     assert g.spec[-2] == ("linear", 1024, 64)
-    # the 2DMG single-path pairs are ported; multipath and conv are not
+    # the 2DMG single-path pairs and the multipath Gs are ported; conv is not
     g2, d2 = zoo.models_for_config(cfg.replace(dataset="2dmg"))
     assert g2.spec[0] == ("linear", 100, 32) and d2.spec[0] == (
         "linear", 2, 128)
-    for kw in (dict(conv=True), dict(algo="mixgan"),
-               dict(algo="mixgan", dataset="2dmg"),
-               dict(algo="cglgan", dataset="2dmg", iid=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            zoo.models_for_config(cfg.replace(**kw))
-    for family in ("2dmg-multipath", "mnist-multipath", "conv"):
+    for kw, multi in ((dict(algo="mixgan"), True),
+                      (dict(algo="mixgan", dataset="2dmg"), True),
+                      (dict(algo="cglgan", dataset="2dmg", iid=1), True),
+                      (dict(algo="cglgan", iid=0), False)):
+        assert zoo.models_for_config(cfg.replace(**kw))[0].multipath == multi
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        zoo.models_for_config(cfg.replace(conv=True))
+    for family in ("conv", "conv-multipath"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             zoo.build_generator(family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
