@@ -1,12 +1,12 @@
 """CGL-GAN, CAP-GAN and Mix-G: the 3-tier cloud/edge/client hierarchy with
 the Lambda game.
 
-Port of ``cglgan_tpu/algos/cgl_family.py`` (MLP models, float32, one
-device).  Every round each edge server makes a detached fake batch Xd; every
-client runs ``epoch`` local D steps on (real window, Xd); the server's G
-takes one step on the per-client losses l through the UPDATED Ds; on each
-server's cadence the cloud averages the servers' G (or their trunks) and
-sigma-mixes the average back in.
+Port of ``cglgan_tpu/algos/cgl_family.py`` (MLP models, float32 or
+bfloat16, one device).  Every round each edge server makes a detached fake
+batch Xd; every client runs ``epoch`` local D steps on (real window, Xd);
+the server's G takes one step on the per-client losses l through the
+UPDATED Ds; on each server's cadence the cloud averages the servers' G (or
+their trunks) and sigma-mixes the average back in.
 
 | algo   | generator            | D head (MNIST) | D x0.5 | cloud sync          | cadence          |
 |--------|----------------------|----------------|--------|---------------------|------------------|
@@ -24,7 +24,12 @@ Layout: G state stacked (S, ...) (a multipath G: trunk (S, ...), heads
 (S, k, ...)), D state flat (W, ...) with clients ``[s*k, (s+1)*k)`` on
 server s.  The local-D phase runs the fused CUDA kernel
 (``ops/fused_dstep.py``) when ``fused_dstep.eligible`` says so — the
-reference's rule: auto at epoch > 1 in float32 — and autograd otherwise.
+reference's rule: auto at epoch > 1 in float32, forced only in bfloat16 —
+and autograd otherwise.
+
+bfloat16 (``dtype="bfloat16"``): G and D params, BN state, latents, fakes
+and Adam moments are bfloat16; the per-client losses, the game (w, Lambda)
+and the metrics are float32, as in the reference.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from cglgan_tpu_torch.algos.game import game_step
 from cglgan_tpu_torch.algos.runner import Runner
 from cglgan_tpu_torch.core import device as device_mod
 from cglgan_tpu_torch.core import prng
+from cglgan_tpu_torch.core.dtypes import torch_dtype
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.fed import collectives, topology
 from cglgan_tpu_torch.models import nn
@@ -56,6 +62,7 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
     adv = common.make_adv_loss(cfg.resolved_d_head)
     weighting = cfg.resolved_weighting
     B, zdim = cfg.batch_size, cfg.latent_dim
+    dtype = torch_dtype(cfg)
     max_len = part.data.shape[1]
 
     # flat (W, max_len, din) shards, resident on the device: uint8 images,
@@ -78,13 +85,16 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
     d_step = common.d_epoch_steps(
         common.d_step_fn(d_model, adv, cfg.lr_d, cfg.b1, cfg.b2, B,
                          cfg.is_image,
-                         d_loss_half=algo in ("capgan", "mixgan")),
+                         d_loss_half=algo in ("capgan", "mixgan"),
+                         dtype=dtype),
         cfg.epoch)
     use_kernel = fused_dstep.eligible(cfg)
 
     def init_state() -> FedState:
-        gp, gbn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), S)
-        dp, dbn = d_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_D), W)
+        gp, gbn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), S,
+                               dtype)
+        dp, dbn = d_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_D), W,
+                               dtype)
         if algo == "mixgan":
             # net_g / net_d .apply(weights_init) (mixed-gan.py:181,348)
             gp = nn.dcgan_reinit(
@@ -181,8 +191,9 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
         if streams is None:
             streams = prng.round_streams(cfg, t, max_len, dev)
         starts, z_d, z_g = streams
-        z_d = torch.as_tensor(z_d, dtype=torch.float32, device=dev)
-        z_g = torch.as_tensor(z_g, dtype=torch.float32, device=dev)
+        # the latents in the run's dtype (the reference draws them so)
+        z_d = torch.as_tensor(z_d, device=dev).to(dtype)
+        z_g = torch.as_tensor(z_g, device=dev).to(dtype)
         starts = [int(s) for s in starts]
 
         if use_kernel:

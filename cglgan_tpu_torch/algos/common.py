@@ -9,6 +9,9 @@ GAN losses reproduce the reference's exact choices:
 * ``bce`` — clipped to [1e-12, 1-1e-7] (not ``nn.BCELoss``'s log clamp);
 * ``ce2`` — 2-class cross-entropy on raw logits (capgan.py:311);
 * ``bce_logits`` — stable BCE on raw logits.
+Loss math is float32 whatever the model's dtype.  Under ``--dtype
+bfloat16`` the params, activations and Adam moments are bfloat16 and Adam
+follows optax's bfloat16 arithmetic op by op (``adam_leaf``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Any, Callable, List, NamedTuple
 
 import torch
 
+from cglgan_tpu_torch.core.dtypes import weak
 from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -37,10 +41,8 @@ def check_supported(cfg, mesh=None) -> None:
     if cfg.conv:
         raise NotImplementedError("conv=True is not ported yet (ROADMAP "
                                   "queue 1 item 12)")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r} is not ported yet (ROADMAP queue 1 item 5 "
-            "bf16 mode, queue 2 item 1 bf16 fused_dstep state)")
+    if cfg.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unsupported dtype {cfg.dtype!r}")
     if mesh is not None or cfg.model_shards > 1:
         raise NotImplementedError("meshes and model_shards > 1 are not "
                                   "ported yet (ROADMAP queue 1 item 17)")
@@ -106,8 +108,13 @@ def slice_batch(shards: torch.Tensor, start: int, batch_size: int):
     return shards[:, start:start + batch_size]
 
 
-def prepare_real(batch: torch.Tensor, is_image: bool) -> torch.Tensor:
-    return normalize_images(batch) if is_image else batch.float()
+def prepare_real(batch: torch.Tensor, is_image: bool,
+                 dtype=torch.float32) -> torch.Tensor:
+    """uint8 images scaled to [-1, 1] in float32, float rows as they are;
+    then cast to the model's ``dtype`` (as the reference does,
+    ``cglgan_tpu/algos/common.py:100-106``)."""
+    out = normalize_images(batch) if is_image else batch.float()
+    return out.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -166,11 +173,21 @@ def bias_correction(count: torch.Tensor, decay: float) -> torch.Tensor:
 
 def adam_leaf(p, g, mu, nu, c1, c2, lr: float, b1: float, b2: float,
               eps: float = 1e-8):
-    """One Adam update in optax's op order.  ``c1``/``c2`` broadcast
-    against ``p`` (per-member bias corrections)."""
-    mu2 = b1 * mu + (1 - b1) * g
-    nu2 = b2 * nu + (1 - b2) * (g * g)
-    p2 = p + (-lr) * ((mu2 / c1) / (torch.sqrt(nu2 / c2) + eps))
+    """One Adam update in optax's op order (``scale_by_adam`` then
+    ``scale(-lr)`` and ``apply_updates``).  ``c1``/``c2``: float32 bias
+    corrections that broadcast against ``p`` (per-member).
+
+    Every op rounds to the leaf's dtype, as optax's does: for bfloat16
+    leaves the moments are bfloat16, the constants are weak scalars rounded
+    to bfloat16 (b2 = 0.999 becomes 1.0, so nu does not decay, and eps
+    becomes 1.00117e-8), and the bias corrections are cast to the moments'
+    dtype before the divisions, as optax's ``bias_correction`` does.  In
+    float32 this is the float32 update, bit for bit."""
+    w = lambda c: weak(c, p)
+    mu2 = w(b1) * mu + w(1 - b1) * g
+    nu2 = w(b2) * nu + w(1 - b2) * (g * g)
+    c1, c2 = c1.to(mu2.dtype), c2.to(nu2.dtype)
+    p2 = p + w(-lr) * ((mu2 / c1) / (torch.sqrt(nu2 / c2) + w(eps)))
     return p2, mu2, nu2
 
 
@@ -182,11 +199,14 @@ def adam_update(params, grads, opt: AdamState, lr: float, b1: float,
     c1, c2 = bias_correction(count, b1), bias_correction(count, b2)
     p_l, g_l = tree_leaves(params), tree_leaves(grads)
     m_l, n_l = tree_leaves(opt.mu), tree_leaves(opt.nu)
+    # the corrections in the moments' dtype, cast once for all leaves
+    cast = {m.dtype: (c1.to(m.dtype), c2.to(m.dtype)) for m in m_l}
     outs = []
     for p, g, m, v in zip(p_l, g_l, m_l, n_l):
         lead = (-1,) + (1,) * (p.ndim - 1)
-        outs.append(adam_leaf(p, g, m, v, c1.reshape(lead),
-                              c2.reshape(lead), lr, b1, b2, eps))
+        k1, k2 = cast[m.dtype]
+        outs.append(adam_leaf(p, g, m, v, k1.reshape(lead), k2.reshape(lead),
+                              lr, b1, b2, eps))
     return (tree_unflatten(params, [o[0] for o in outs]),
             AdamState(count, tree_unflatten(params, [o[1] for o in outs]),
                       tree_unflatten(params, [o[2] for o in outs])))
@@ -203,16 +223,18 @@ def with_grad(tree):
 # ---------------------------------------------------------------------------
 
 def d_step_fn(d_model, adv_loss, lr: float, b1: float, b2: float,
-              batch_size: int, is_image: bool, d_loss_half: bool):
+              batch_size: int, is_image: bool, d_loss_half: bool,
+              dtype=torch.float32):
     """``step(d_net, shards, start, fake) -> (d_net, d_loss (W,))``: one
     local D update of every client on (real window, fakes), real and fake
     through ONE forward on the (2B, ...) concatenation (exact for the
-    BN-free MLP D).  D loss = real + fake, halved for CAP/Mix."""
+    BN-free MLP D).  D loss = real + fake, halved for CAP/Mix, in float32;
+    the forward, the gradients and Adam in ``dtype``."""
     B = batch_size
 
     def step(d_net: NetState, shards, start: int, fake):
         """``fake``: flat (W, B, din) per-client or (B, din) shared."""
-        real = prepare_real(slice_batch(shards, start, B), is_image)
+        real = prepare_real(slice_batch(shards, start, B), is_image, dtype)
         fake = fake.detach()
         if fake.ndim == 2:
             fake = fake.unsqueeze(0).expand(real.shape[0], -1, -1)

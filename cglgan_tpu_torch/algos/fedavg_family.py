@@ -22,6 +22,11 @@ The local phase runs the fused CUDA kernel (``ops/fused_sweep.py``) when
 "epochs" sweep of the image datasets (``_plan_buckets``, ``_sweep_buckets``)
 and dropout participation are not ported yet: ``common.check_supported``
 raises for them.
+
+bfloat16 (``dtype="bfloat16"``, on 2DMG only with ``force_dtype``, as the
+reference's config demands): params, latents, fakes, real rows and Adam
+moments are bfloat16, the losses float32; the kernel stays float32-only
+(``fused_sweep.eligible`` raises for ``pallas_sweep=True`` in bfloat16).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from cglgan_tpu_torch.algos.common import FedState, NetState
 from cglgan_tpu_torch.algos.runner import Runner
 from cglgan_tpu_torch.core import device as device_mod
 from cglgan_tpu_torch.core import prng
+from cglgan_tpu_torch.core.dtypes import torch_dtype
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.fed import collectives
 from cglgan_tpu_torch.fed.sampling import fegan_scores, init_groups
@@ -55,6 +61,7 @@ def _local_sweep(cfg, g_model, d_model, adv):
     D) — the reference worker train loop (FLGAN/2DMG/flgan.py:229-256,
     fegan.py:282-303).  Returns the mean loss over the steps."""
     B = cfg.batch_size
+    dtype = torch_dtype(cfg)
 
     def g_step(g: NetState, gbn, d_params, dbn, z):
         """One batched G Adam step on adv(D(G(z)), 1) through ``d_params``."""
@@ -87,7 +94,8 @@ def _local_sweep(cfg, g_model, d_model, adv):
         d_sum = g_sum = 0.0
         for i in range(steps):
             real = common.prepare_real(
-                common.slice_batch(shards, int(starts[i]), B), cfg.is_image)
+                common.slice_batch(shards, int(starts[i]), B), cfg.is_image,
+                dtype)
             # D step: fake regenerated by the local G, gradient discarded
             with torch.no_grad():
                 fake, gbn_d = g_model.apply(g.params, g.bn, z1[:, i],
@@ -120,6 +128,7 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str):
     g_model, d_model = models_for_config(cfg)
     adv = common.make_adv_loss(adv_head)
     W, B, zdim = cfg.num_workers, cfg.batch_size, cfg.latent_dim
+    dtype = torch_dtype(cfg)
     shards = torch.from_numpy(np.ascontiguousarray(part.data)).to(dev)
     steps_np = _local_steps(cfg, part.lengths)
     max_steps = int(steps_np.max())
@@ -129,8 +138,10 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str):
 
     def init_nets():
         """Unstacked (gp, gbn, dp, dbn) and per-worker Adam states."""
-        gp, gbn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), 1)
-        dp, dbn = d_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_D), 1)
+        gp, gbn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), 1,
+                               dtype)
+        dp, dbn = d_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_D), 1,
+                               dtype)
         one = lambda tree: tree_map(lambda x: x[0].to(dev), tree)
         gp, gbn, dp, dbn = one(gp), one(gbn), one(dp), one(dbn)
         stacked = lambda tree: tree_map(
@@ -144,8 +155,9 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str):
         if streams is None:
             streams = prng.sweep_streams(cfg, t, max_len, max_steps, dev)
         starts, z1, z2 = streams
-        z1 = torch.as_tensor(z1, dtype=torch.float32, device=dev)
-        z2 = torch.as_tensor(z2, dtype=torch.float32, device=dev)
+        # the latents in the run's dtype (the reference draws them so)
+        z1 = torch.as_tensor(z1, device=dev).to(dtype)
+        z2 = torch.as_tensor(z2, device=dev).to(dtype)
         return [int(s) for s in starts], z1, z2
 
     def local_phase(g: NetState, d: NetState, lane_shards, starts, z1, z2):
@@ -339,7 +351,8 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
     # the server evaluates with a net whose BN buffers were never trained
     # (deserialize moves params only, fegan.py:169): the fixed init BN
     g_model, _ = models_for_config(cfg)
-    _, eval_bn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), 1)
+    _, eval_bn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), 1,
+                              torch_dtype(cfg))
     eval_bn = tree_map(lambda x: x[0].to(dev), eval_bn)
     gen, sample = make_gen(lambda state: eval_bn)
     return Runner(cfg, part, init_state, round_fn, sample, gen=gen,

@@ -14,6 +14,13 @@ Weights stay ``(din, dout)`` as in the reference.
   (``F.leaky_relu`` gives 0.2 there).
 * ``dcgan_reinit``: the reference ``weights_init`` DCGAN re-draw (Mix-G's G
   and D, mixed-gan.py:181,348).
+
+bfloat16 (``--dtype bfloat16``): every layer runs in its params' dtype and
+rounds as ``cglgan_tpu/models/nn.py`` does under JAX (``core/dtypes.py``):
+the slope, momentum, eps and count constants are weak scalars rounded to
+bfloat16, matmuls accumulate in float32 and round their output once, and
+BatchNorm's batch mean and variance accumulate in float32 and round once
+(``jnp.mean`` / ``jnp.var``).  In float32 nothing changes.
 """
 from __future__ import annotations
 
@@ -22,16 +29,21 @@ from typing import Dict, Tuple
 
 import torch
 
+from cglgan_tpu_torch.core import dtypes
+from cglgan_tpu_torch.core.dtypes import weak
+
 BN_MOMENTUM = 0.1
 
 
 def linear_init(gen: torch.Generator, n: int, din: int, dout: int,
                 dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """U(-1/sqrt(din), 1/sqrt(din)) drawn in float32 and rounded to
+    ``dtype`` (the draws cannot equal JAX's bits in any dtype)."""
     bound = 1.0 / math.sqrt(din)
 
     def u(shape):
-        return (torch.rand(shape, generator=gen, dtype=dtype) * 2.0 - 1.0) \
-            * bound
+        return ((torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound) \
+            .to(dtype)
     return {"w": u((n, din, dout)), "b": u((n, dout))}
 
 
@@ -51,7 +63,9 @@ def dcgan_reinit(gen: torch.Generator, params):
     when its sibling ``w`` has rank 4 per member (OIHW); the bias's own rank
     minus 1 gives the number of leading member axes, so the rule holds for
     ``(N, ...)`` and multipath ``(S, k, ...)`` leaves alike.  Leaves are
-    drawn in ``tree_leaves`` order; the draws cannot equal JAX's (threefry is
+    drawn in ``tree_leaves`` order, in the leaf's dtype (as the reference
+    draws them, ``cglgan_tpu/models/nn.py:83-86``), with the scale and
+    shift as weak scalars; the draws cannot equal JAX's (threefry is
     ROADMAP queue 1 item 2)."""
     def walk(tree):
         if isinstance(tree, dict):
@@ -64,7 +78,8 @@ def dcgan_reinit(gen: torch.Generator, params):
                 elif key in ("w", "scale"):
                     draw = torch.randn(x.shape, generator=gen,
                                        dtype=x.dtype).to(x.device)
-                    out[key] = 0.02 * draw + (1.0 if key == "scale" else 0.0)
+                    shift = 1.0 if key == "scale" else 0.0
+                    out[key] = weak(0.02, draw) * draw + weak(shift, draw)
                 elif key == "b" and w is not None \
                         and w.ndim - (x.ndim - 1) == 4:
                     out[key] = x                     # conv bias: untouched
@@ -78,28 +93,46 @@ def dcgan_reinit(gen: torch.Generator, params):
 
 
 def linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """x (N, B, din) @ w (N, din, dout) + b (N, dout)."""
-    return torch.matmul(x, p["w"]) + p["b"].unsqueeze(-2)
+    """x (N, B, din) @ w (N, din, dout) + b (N, dout).  Mixed dtypes promote
+    as in JAX (float32 latents through bfloat16 params compute in
+    float32)."""
+    dt = torch.promote_types(x.dtype, p["w"].dtype)
+    return torch.matmul(x.to(dt), p["w"].to(dt)) + p["b"].unsqueeze(-2)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: JAX lowers it as 1 / (1 + exp(-x)) op by op in
+    ``x``'s dtype, so in bfloat16 each of the four steps rounds (a share of
+    a third of the outputs differs by one step from a sigmoid rounded
+    once); float32 keeps torch's sigmoid."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
-    return torch.where(x >= 0, x, slope * x)
+    return torch.where(x >= 0, x, weak(slope, x) * x)
 
 
 def batchnorm(p, s, x: torch.Tensor, train: bool, eps: float = 0.8,
               momentum: float = BN_MOMENTUM):
-    """BatchNorm1d over the batch axis of stacked ``x`` (N, B, C)."""
+    """BatchNorm1d over the batch axis of stacked ``x`` (N, B, C).  The batch
+    mean and the biased variance of bfloat16 ``x`` accumulate in float32
+    and round once, as ``jnp.mean`` / ``jnp.var`` do; the rest runs in
+    ``x``'s dtype with weak constants."""
     if train:
-        mean = x.mean(dim=1)
-        var = ((x - mean.unsqueeze(1)) ** 2).mean(dim=1)
+        mean = dtypes.mean(x, 1)
+        var = dtypes.var(x, 1, mean)
         count = x.shape[1]
-        unbiased = var.detach() * count / max(count - 1, 1)
+        unbiased = var.detach() * weak(count, var) \
+            / weak(max(count - 1, 1), var)
         # running stats are buffers: no gradient flows through them
-        new_s = {"mean": (1 - momentum) * s["mean"] + momentum * mean.detach(),
-                 "var": (1 - momentum) * s["var"] + momentum * unbiased}
+        keep, take = weak(1 - momentum, s["mean"]), weak(momentum, mean)
+        new_s = {"mean": keep * s["mean"] + take * mean.detach(),
+                 "var": keep * s["var"] + take * unbiased}
     else:
         mean, var = s["mean"], s["var"]
         new_s = s
-    inv = torch.rsqrt(var + eps)
+    inv = torch.rsqrt(var + weak(eps, var))
     y = (x - mean.unsqueeze(1)) * inv.unsqueeze(1)
     return y * p["scale"].unsqueeze(1) + p["bias"].unsqueeze(1), new_s

@@ -64,7 +64,7 @@ def mlp_apply(spec, params, state, x: torch.Tensor, train: bool):
         elif op == "tanh":
             x = torch.tanh(x)
         elif op == "sigmoid":
-            x = torch.sigmoid(x)
+            x = nn.sigmoid(x)
     return x, new_state
 
 

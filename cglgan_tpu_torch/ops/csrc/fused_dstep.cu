@@ -1,4 +1,5 @@
-// fused_dstep.cu — E local discriminator steps for W clients (Hopper, f32).
+// fused_dstep.cu — E local discriminator steps for W clients (Hopper;
+// float32 state, or bfloat16 state with bfloat16-input products).
 //
 // Replaces the Pallas TPU kernel `_dstep_kernel`
 // (cglgan_tpu/ops/pallas/fused_dstep.py:44-157, launched by
@@ -46,6 +47,24 @@
 // Order: every product with W_l^T is enqueued before the kernel that
 // updates W_l (head before small, dz1 before dW2).  wgmma + TMA, and keeping
 // a client's layer on chip across steps, are later work.
+//
+// bfloat16 state (the reference's --dtype bfloat16 with pallas_dstep=True:
+// _dstep_kernel with mxu_bf16, fused_dstep.py:44-87,161-164).  The TPU
+// kernel loads bf16 state, keeps it in float32 across the E steps, feeds
+// every product bf16 operands with float32 sums, and rounds the state to
+// bf16 once, at the store.  Here: one launch upcasts the 18 bf16 state
+// tensors into float32 work buffers; the E-step chain above runs on them in
+// place, its GEMMs with bfloat16 operands (mma_tf32.cuh, BF) and the SIMT
+// products of the head and small kernels on operands rounded to bf16 in
+// registers; its Adam epilogues write float32, so nothing rounds between
+// steps; one launch rounds the work buffers to the bf16 outputs (nearest
+// even).  Two launches more a call; fakes may be bf16 (the bf16 G's) or
+// float32.  Bound at the main-path shapes: the same 38.3 GFLOP at the dense
+// bf16 rate (989 TFLOP/s) is 0.039 ms; the bf16 state read and written once
+// is ~102 MB, 0.031 ms at 3.35 TB/s: bound by operations, ~6x below the
+// float32 (3xTF32) bound.
+
+#include <cuda_bf16.h>
 
 #include "mma_tf32.cuh"
 
@@ -60,11 +79,22 @@ __device__ __forceinline__ float real_value(uint8_t x) {
   return ((float)x / 255.0f - 0.5f) / 0.5f;
 }
 __device__ __forceinline__ float real_value(float x) { return x; }
+__device__ __forceinline__ float as_float(float x) { return x; }
+__device__ __forceinline__ float as_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
-// X[w] = concat(real window, fake): grid (2B, W).
-template <typename T>
+// x rounded to bfloat16 (nearest even) and back when `bf`: the operand of a
+// bf16-input product, whose float32 sum is then exact term by term
+__device__ __forceinline__ float operand(float x, bool bf) {
+  return bf ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+// X[w] = concat(real window, fake): grid (2B, W).  T: the real rows' type;
+// F: the fakes' (float32, or bf16 from a bf16 G).
+template <typename T, typename F>
 __global__ void prep_kernel(const T* __restrict__ shards, long long max_len,
-                            int start, const float* __restrict__ fake,
+                            int start, const F* __restrict__ fake,
                             long long fake_sw, float* __restrict__ X, int B,
                             int din) {
   const int w = blockIdx.y, r = blockIdx.x;
@@ -74,8 +104,9 @@ __global__ void prep_kernel(const T* __restrict__ shards, long long max_len,
     for (int c = threadIdx.x; c < din; c += blockDim.x)
       xr[c] = real_value(src[c]);
   } else {
-    const float* src = fake + w * fake_sw + (long long)(r - B) * din;
-    for (int c = threadIdx.x; c < din; c += blockDim.x) xr[c] = src[c];
+    const F* src = fake + w * fake_sw + (long long)(r - B) * din;
+    for (int c = threadIdx.x; c < din; c += blockDim.x)
+      xr[c] = as_float(src[c]);
   }
 }
 
@@ -92,7 +123,7 @@ __global__ void __launch_bounds__(256) head_kernel(
     const float* __restrict__ H2, const float* __restrict__ W3,
     const float* __restrict__ b3, float* __restrict__ G3,
     float* __restrict__ PER, float* __restrict__ DZ2, int B, int h2, int dout,
-    int head, float grad_scale) {
+    int head, float grad_scale, bool bf) {
   const int w = blockIdx.y, R = 2 * B;
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
@@ -101,8 +132,9 @@ __global__ void __launch_bounds__(256) head_kernel(
   const float* w3 = W3 + (long long)w * h2 * dout;
   float z[MAX_OUT] = {0.f, 0.f};
   for (int k = lane; k < h2; k += 32) {
-    const float hv = h[k];
-    for (int j = 0; j < dout; ++j) z[j] = fmaf(hv, w3[k * dout + j], z[j]);
+    const float hv = operand(h[k], bf);
+    for (int j = 0; j < dout; ++j)
+      z[j] = fmaf(hv, operand(w3[k * dout + j], bf), z[j]);
   }
   for (int j = 0; j < dout; ++j) z[j] = warp_sum(z[j]) + b3[w * dout + j];
 
@@ -131,9 +163,11 @@ __global__ void __launch_bounds__(256) head_kernel(
     for (int j = 0; j < dout; ++j) G3[((long long)w * R + r) * dout + j] = g[j];
   }
   float* dz = DZ2 + ((long long)w * R + r) * h2;
+  float gop[MAX_OUT] = {operand(g[0], bf), operand(g[1], bf)};
   for (int k = lane; k < h2; k += 32) {
     float s = 0.f;
-    for (int j = 0; j < dout; ++j) s = fmaf(g[j], w3[k * dout + j], s);
+    for (int j = 0; j < dout; ++j)
+      s = fmaf(gop[j], operand(w3[k * dout + j], bf), s);
     dz[k] = s * (h[k] >= 0.f ? 1.f : 0.2f);
   }
 }
@@ -149,7 +183,8 @@ __global__ void __launch_bounds__(256) small_grads_kernel(
     const float* v, float* po, float* mo, float* vo, const float* bp,
     const float* bm, const float* bv, float* bpo, float* bmo, float* bvo,
     float* __restrict__ loss, const float* __restrict__ cc, int E, int e,
-    int B, int h2, int dout, int head, float loss_scale, AdamConsts kc) {
+    int B, int h2, int dout, int head, float loss_scale, AdamConsts kc,
+    bool bf) {
   __shared__ float part[8][32][MAX_OUT];
   const int w = blockIdx.y, R = 2 * B;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -161,9 +196,9 @@ __global__ void __launch_bounds__(256) small_grads_kernel(
     const float* h = H2 + (long long)w * R * h2 + k;
 #pragma unroll 4
     for (int r = warp; r < R; r += 8) {
-      const float hv = h[(long long)r * h2];
+      const float hv = operand(h[(long long)r * h2], bf);
       for (int j = 0; j < dout; ++j)
-        acc[j] = fmaf(hv, g3[r * dout + j], acc[j]);
+        acc[j] = fmaf(hv, operand(g3[r * dout + j], bf), acc[j]);
     }
   }
   for (int j = 0; j < MAX_OUT; ++j) part[warp][lane][j] = acc[j];
@@ -205,51 +240,95 @@ __global__ void __launch_bounds__(256) small_grads_kernel(
   }
 }
 
-}  // namespace
+constexpr int N_STATE = 18;
 
-extern "C" {
+// The 18 state tensors' bf16 and float32 copies and their sizes, passed by
+// value.
+struct CastTable {
+  const void* src[N_STATE];
+  void* dst[N_STATE];
+  long long n[N_STATE];
+};
 
-const char* fused_dstep_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+// UP: bf16 -> float32 (exact); else float32 -> bf16, nearest even.  One
+// launch for all 18 tensors: blockIdx.y picks the tensor, the blocks of a
+// row stride over it.
+template <bool UP>
+__global__ void __launch_bounds__(256) cast_kernel(
+    __grid_constant__ const CastTable t) {
+  const int j = blockIdx.y;
+  const long long n = t.n[j];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    if (UP)
+      ((float*)t.dst[j])[i] =
+          __bfloat162float(((const __nv_bfloat16*)t.src[j])[i]);
+    else
+      ((__nv_bfloat16*)t.dst[j])[i] =
+          __float2bfloat16_rn(((const float*)t.src[j])[i]);
+  }
 }
 
-// state_in/state_out: 18 device pointers each, in the order
-//   w1 b1 w2 b2 w3 b3 | mu of the same | nu of the same.
-// scratch: 7 device pointers: X (W,2B,din) H1 (W,2B,h1) H2 (W,2B,h2)
-//   G3 (W,2B,dout) PER (W,2B) DZ2 (W,2B,h2) DZ1 (W,2B,h1).
-// shards: (W, max_len, din), uint8 images (real_u8 = 1) or float32 rows.
-// starts: E host ints.  cc: (W, E, 2) device.  loss: (W,).  dout <= 2.
-// Returns 0 or the first cudaGetLastError() code.
-int fused_dstep_f32(void* const* state_in, void* const* state_out,
-                    void* const* scratch, const void* shards, int real_u8,
-                    long long max_len, const int* starts, const float* fake,
-                    int fake_per_client, const float* cc, float* loss, int W,
-                    int E, int B, int din, int h1, int h2, int dout, int head,
-                    float loss_scale, float grad_scale, float neg_lr,
-                    float b1, float omb1, float b2, float omb2, float eps,
-                    void* stream) {
-  if (dout < 1 || dout > MAX_OUT) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+int launch_cast(bool up, void* const* src, void* const* dst, int W,
+                int din, int h1, int h2, int dout, cudaStream_t st) {
+  const long long sizes[6] = {(long long)W * din * h1, (long long)W * h1,
+                              (long long)W * h1 * h2,  (long long)W * h2,
+                              (long long)W * h2 * dout, (long long)W * dout};
+  CastTable t;
+  long long most = 0;
+  for (int j = 0; j < N_STATE; ++j) {
+    t.src[j] = src[j];
+    t.dst[j] = dst[j];
+    t.n[j] = sizes[j % 6];
+    most = most > t.n[j] ? most : t.n[j];
+  }
+  const long long blocks = (most + 255) / 256;
+  const dim3 grid((unsigned)(blocks < 1024 ? blocks : 1024), N_STATE);
+  if (up)
+    cast_kernel<true><<<grid, 256, 0, st>>>(t);
+  else
+    cast_kernel<false><<<grid, 256, 0, st>>>(t);
+  return (int)cudaGetLastError();
+}
+
+// The E-step chain on float32 state: step 0 reads `in`, every step writes
+// `out` (in may be out).  BF: products with bfloat16 operands.
+template <bool BF>
+int run_steps(float* const* in, float* const* out, void* const* scratch,
+              const void* shards, int real_u8, long long max_len,
+              const int* starts, const void* fake, int fake_bf16,
+              int fake_per_client, const float* cc, float* loss, int W,
+              int E, int B, int din, int h1, int h2, int dout, int head,
+              float loss_scale, float grad_scale, AdamConsts kc,
+              cudaStream_t st) {
   float* const* s = (float* const*)scratch;
   float *X = s[0], *H1 = s[1], *H2 = s[2], *G3 = s[3], *PER = s[4],
         *DZ2 = s[5], *DZ1 = s[6];
   const int R = 2 * B;
-  float* const* out = (float* const*)state_out;
-  float* const* in = (float* const*)state_in;
   const long long fake_sw = fake_per_client ? (long long)B * din : 0;
-  const AdamConsts kc{neg_lr, b1, omb1, b2, omb2, eps};
   int rc;
 
   for (int e = 0; e < E; ++e) {
     float* const* cur = e == 0 ? in : out;
 
-    if (real_u8)
-      prep_kernel<<<dim3((unsigned)R, W), 256, 0, st>>>(
-          (const uint8_t*)shards, max_len, starts[e], fake, fake_sw, X, B,
-          din);
+    const dim3 pgrid((unsigned)R, W);
+    if (real_u8 && fake_bf16)
+      prep_kernel<<<pgrid, 256, 0, st>>>(
+          (const uint8_t*)shards, max_len, starts[e],
+          (const __nv_bfloat16*)fake, fake_sw, X, B, din);
+    else if (real_u8)
+      prep_kernel<<<pgrid, 256, 0, st>>>(
+          (const uint8_t*)shards, max_len, starts[e], (const float*)fake,
+          fake_sw, X, B, din);
+    else if (fake_bf16)
+      prep_kernel<<<pgrid, 256, 0, st>>>(
+          (const float*)shards, max_len, starts[e],
+          (const __nv_bfloat16*)fake, fake_sw, X, B, din);
     else
-      prep_kernel<<<dim3((unsigned)R, W), 256, 0, st>>>(
-          (const float*)shards, max_len, starts[e], fake, fake_sw, X, B, din);
+      prep_kernel<<<pgrid, 256, 0, st>>>(
+          (const float*)shards, max_len, starts[e], (const float*)fake,
+          fake_sw, X, B, din);
     CHECK_LAUNCH();
 
     // ---- forward: h_l = lrelu(h_{l-1} W_l + b_l) ----
@@ -260,18 +339,18 @@ int fused_dstep_f32(void* const* state_in, void* const* state_out,
       a.A = A; a.sA = (long long)R * K; a.ldA = K;
       a.B = Wl; a.sB = (long long)K * N; a.ldB = N;
       a.out = H; a.bias = bl;
-      return tc::launch_gemm3x<true, true, tc::EPI_BIAS_LRELU>(a, W, st);
+      return tc::launch_gemm3x<true, true, tc::EPI_BIAS_LRELU, BF>(a, W, st);
     };
     if ((rc = forward(X, din, cur[0], cur[1], h1, H1)) != 0) return rc;
     if ((rc = forward(H1, h1, cur[2], cur[3], h2, H2)) != 0) return rc;
 
     head_kernel<<<dim3((R + 7) / 8, W), 256, 0, st>>>(
-        H2, cur[4], cur[5], G3, PER, DZ2, B, h2, dout, head, grad_scale);
+        H2, cur[4], cur[5], G3, PER, DZ2, B, h2, dout, head, grad_scale, BF);
     CHECK_LAUNCH();
     small_grads_kernel<<<dim3((h2 + 31) / 32, W), 256, 0, st>>>(
         H2, G3, PER, cur[4], cur[10], cur[16], out[4], out[10], out[16],
         cur[5], cur[11], cur[17], out[5], out[11], out[17], loss, cc, E, e, B,
-        h2, dout, head, loss_scale, kc);
+        h2, dout, head, loss_scale, kc, BF);
     CHECK_LAUNCH();
 
     // ---- dz1 = (dz2 W2^T) * lrelu'(h1), from the W2 of before its update
@@ -281,7 +360,8 @@ int fused_dstep_f32(void* const* state_in, void* const* state_out,
       a.A = DZ2; a.sA = (long long)R * h2; a.ldA = h2;
       a.B = cur[2]; a.sB = (long long)h1 * h2; a.ldB = h2;
       a.out = DZ1; a.aux = H1;
-      rc = tc::launch_gemm3x<true, false, tc::EPI_LRELU_GRAD>(a, W, st);
+      rc = tc::launch_gemm3x<true, false, tc::EPI_LRELU_GRAD, BF>(a, W,
+                                                                 st);
       if (rc != 0) return rc;
     }
 
@@ -297,12 +377,59 @@ int fused_dstep_f32(void* const* state_in, void* const* state_out,
       a.bp = cur[j + 1]; a.bm = cur[7 + j]; a.bv = cur[13 + j];
       a.bpo = out[j + 1]; a.bmo = out[7 + j]; a.bvo = out[13 + j];
       a.cc = cc; a.E = E; a.e = e; a.k = kc;
-      return tc::launch_gemm3x<false, true, tc::EPI_ADAM>(a, W, st);
+      return tc::launch_gemm3x<false, true, tc::EPI_ADAM, BF>(a, W, st);
     };
     if ((rc = weight_grad(H1, h1, DZ2, h2, 2)) != 0) return rc;
     if ((rc = weight_grad(X, din, DZ1, h1, 0)) != 0) return rc;
   }
   return 0;
+}
+
+
+}  // namespace
+
+extern "C" {
+
+const char* fused_dstep_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// state_in/state_out: 18 device pointers each, in the order
+//   w1 b1 w2 b2 w3 b3 | mu of the same | nu of the same;
+//   float32 (state_bf16 = 0) or bf16 (state_bf16 = 1).
+// work: with bf16 state, 18 float32 buffers of the same shapes (the state
+//   during the call); unused otherwise.
+// scratch: 7 device pointers: X (W,2B,din) H1 (W,2B,h1) H2 (W,2B,h2)
+//   G3 (W,2B,dout) PER (W,2B) DZ2 (W,2B,h2) DZ1 (W,2B,h1).
+// shards: (W, max_len, din), uint8 images (real_u8 = 1) or float32 rows.
+// fake: (B, din) or, fake_per_client, (W, B, din); float32 or bf16
+//   (fake_bf16 = 1).
+// starts: E host ints.  cc: (W, E, 2) device.  loss: (W,).  dout <= 2.
+// Returns 0 or the first cudaGetLastError() code.
+int fused_dstep(void* const* state_in, void* const* state_out,
+                void* const* work, int state_bf16, void* const* scratch,
+                const void* shards, int real_u8, long long max_len,
+                const int* starts, const void* fake, int fake_bf16,
+                int fake_per_client, const float* cc, float* loss, int W,
+                int E, int B, int din, int h1, int h2, int dout, int head,
+                float loss_scale, float grad_scale, float neg_lr, float b1,
+                float omb1, float b2, float omb2, float eps, void* stream) {
+  if (dout < 1 || dout > MAX_OUT) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const AdamConsts kc{neg_lr, b1, omb1, b2, omb2, eps};
+  if (!state_bf16)
+    return run_steps<false>(
+        (float* const*)state_in, (float* const*)state_out, scratch, shards,
+        real_u8, max_len, starts, fake, fake_bf16, fake_per_client, cc, loss,
+        W, E, B, din, h1, h2, dout, head, loss_scale, grad_scale, kc, st);
+  int rc = launch_cast(true, state_in, work, W, din, h1, h2, dout, st);
+  if (rc != 0) return rc;
+  rc = run_steps<true>(
+      (float* const*)work, (float* const*)work, scratch, shards, real_u8,
+      max_len, starts, fake, fake_bf16, fake_per_client, cc, loss, W, E, B,
+      din, h1, h2, dout, head, loss_scale, grad_scale, kc, st);
+  if (rc != 0) return rc;
+  return launch_cast(false, work, state_out, W, din, h1, h2, dout, st);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // mma_tf32.cuh — a batched float32-grade GEMM on Hopper's tensor cores for
 // the fused MLP pipelines (fused_dstep.cu), with the epilogues a training
-// step needs: bias + LeakyReLU, x LeakyReLU', and Adam on the tile.
+// step needs: bias + LeakyReLU, x LeakyReLU', and Adam on the tile; and its
+// bfloat16-operand variant (template flag BF), for the bf16-state mode.
 //
 // Arithmetic: 3xTF32.  Each float32 operand is split in registers as
 //   hi = tf32(x) (round to nearest, ties away), lo = the TF32 part of x - hi
@@ -10,6 +11,16 @@
 // 32-deep slab is summed on the tensor cores from zero and then added to
 // the running sum with a rounded float32 add (the tensor cores' own
 // accumulation truncates).
+// bfloat16 operands (BF = true; replaces the Pallas kernel's mxu_bf16 dots,
+// cglgan_tpu/ops/pallas/fused_dstep.py:68-74): the shared-memory tiles stay
+// float32 as they are, each A and B fragment is rounded to bfloat16 in
+// registers (cvt.rn.bf16x2.f32, round to nearest even, two values to a
+// register), and one mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
+// takes a 16-deep step where the float32 path takes two 8-deep steps of
+// three TF32 passes.  A product of two bfloat16 values is exact in float32,
+// so this is a bfloat16-input product with float32 sums, as on the TPU's
+// MXU; the slab-by-slab float32 summation below is the same.
+//
 // Instruction: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.  Its
 // fragments are read from shared memory with plain 32-bit loads, so the same
 // kernel serves all three products of a dense layer without a transposing
@@ -139,6 +150,22 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t* hi,
   *lo = __float_as_uint(__fsub_rn(x, __uint_as_float(*hi)));
 }
 
+// two float32 values rounded to nearest-even bfloat16 and packed, `lo` in
+// the low half (the lower k index of an mma fragment register)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
@@ -185,7 +212,7 @@ __device__ __forceinline__ void load_tile(float* s, const float* g, int ld,
 // a long k that bias is several times float32's own rounding.  So a slab's
 // products are summed on the tensor cores from zero and the slab's sum is
 // added to the running sum by a rounded float32 add.
-template <bool A_KC, bool B_NC, int KS, int NR>
+template <bool A_KC, bool B_NC, int KS, int NR, bool BF>
 __device__ __forceinline__ void slab_mma(const float* As, const float* Bs,
                                          int i0, int wm, int wn, int g, int t,
                                          float (&acc)[MT][NT][4]) {
@@ -197,39 +224,79 @@ __device__ __forceinline__ void slab_mma(const float* As, const float* Bs,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) part[i][j][c] = 0.f;
+  // element (r, k) of A and (k, n) of B in the slab's float32 tiles
+  auto a_at = [&](int r, int k) {
+    return A_KC ? As[r * S::AS + k] : As[k * S::AS + r];
+  };
+  auto b_at = [&](int k, int n) {
+    return B_NC ? Bs[k * S::BS + n] : Bs[n * S::BS + k];
+  };
+  if constexpr (BF) {
+    // 16-deep steps; k beyond the KS 8-deep steps inside K is zero in the
+    // slab (zero-filled loads), so an odd KS ends on a half-empty step.
+    // Registers: A {row g | g+8} x {k 2t, 2t+1 | 2t+8, 2t+9}, B {k 2t,
+    // 2t+1 | 2t+8, 2t+9} x column g, the lower k in the low half.
 #pragma unroll
-  for (int kk = 0; kk < KS * 8; kk += 8) {
-    uint32_t ah[NR][4], al[NR][4], bh[NT][2], bl[NT][2];
+    for (int kk = 0; kk < KS * 8; kk += 16) {
+      uint32_t a[NR][4], b[NT][2];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = wn + j * 8 + g;
+      for (int j = 0; j < NT; ++j) {
+        const int n = wn + j * 8 + g;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int k = kk + t + c * 4;
-        const float x = B_NC ? Bs[k * S::BS + n] : Bs[n * S::BS + k];
-        split_tf32(x, &bh[j][c], &bl[j][c]);
+        for (int c = 0; c < 2; ++c) {
+          const int k = kk + 2 * t + c * 8;
+          b[j][c] = pack_bf16(b_at(k, n), b_at(k + 1, n));
+        }
       }
-    }
 #pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      const int r = wm + (i0 + i) * 16 + g;
+      for (int i = 0; i < NR; ++i) {
+        const int r = wm + (i0 + i) * 16 + g;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int mm = r + (c & 1) * 8, k = kk + t + (c >> 1) * 4;
-        const float x = A_KC ? As[mm * S::AS + k] : As[k * S::AS + mm];
-        split_tf32(x, &ah[i][c], &al[i][c]);
+        for (int c = 0; c < 4; ++c) {
+          const int mm = r + (c & 1) * 8, k = kk + 2 * t + (c >> 1) * 8;
+          a[i][c] = pack_bf16(a_at(mm, k), a_at(mm, k + 1));
+        }
       }
-    }
-    // term by term over the tiles, small terms first: the three mma of one
-    // tile depend on each other, those of a term do not
-#pragma unroll
-    for (int term = 0; term < 3; ++term)
 #pragma unroll
       for (int i = 0; i < NR; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_tf32(part[i][j], term == 0 ? al[i] : ah[i],
-                   term == 1 ? bl[j] : bh[j]);
+        for (int j = 0; j < NT; ++j) mma_bf16(part[i][j], a[i], b[j]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < KS * 8; kk += 8) {
+      uint32_t ah[NR][4], al[NR][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = wn + j * 8 + g;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int k = kk + t + c * 4;
+          const float x = B_NC ? Bs[k * S::BS + n] : Bs[n * S::BS + k];
+          split_tf32(x, &bh[j][c], &bl[j][c]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int r = wm + (i0 + i) * 16 + g;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int mm = r + (c & 1) * 8, k = kk + t + (c >> 1) * 4;
+          const float x = A_KC ? As[mm * S::AS + k] : As[k * S::AS + mm];
+          split_tf32(x, &ah[i][c], &al[i][c]);
+        }
+      }
+      // term by term over the tiles, small terms first: the three mma of one
+      // tile depend on each other, those of a term do not
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int i = 0; i < NR; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            mma_tf32(part[i][j], term == 0 ? al[i] : ah[i],
+                     term == 1 ? bl[j] : bh[j]);
+    }
   }
 #pragma unroll
   for (int i = 0; i < NR; ++i)
@@ -242,31 +309,33 @@ __device__ __forceinline__ void slab_mma(const float* As, const float* Bs,
 // A warp's share of one slab: `rows` of its MT tile rows lie inside C and
 // `ks` of the slab's k-steps inside K (both warp-uniform).  All rows:
 // PASS_MT at a time; fewer (the last tile row of C): one at a time.
-template <bool A_KC, bool B_NC, int KS = BK / 8>
+template <bool A_KC, bool B_NC, bool BF, int KS = BK / 8>
 __device__ __forceinline__ void warp_slab(const float* As, const float* Bs,
                                           int ks, int rows, int wm, int wn,
                                           int g, int t,
                                           float (&acc)[MT][NT][4]) {
   if (ks != KS) {
     if constexpr (KS > 1)
-      warp_slab<A_KC, B_NC, KS - 1>(As, Bs, ks, rows, wm, wn, g, t, acc);
+      warp_slab<A_KC, B_NC, BF, KS - 1>(As, Bs, ks, rows, wm, wn, g, t, acc);
     return;
   }
   if (rows == MT) {
 #pragma unroll
     for (int i0 = 0; i0 < MT; i0 += PASS_MT)
-      slab_mma<A_KC, B_NC, KS, PASS_MT>(As, Bs, i0, wm, wn, g, t, acc);
+      slab_mma<A_KC, B_NC, KS, PASS_MT, BF>(As, Bs, i0, wm, wn, g, t, acc);
   } else {
 #pragma unroll
     for (int i0 = 0; i0 < MT - 1; ++i0)
-      if (i0 < rows) slab_mma<A_KC, B_NC, KS, 1>(As, Bs, i0, wm, wn, g, t, acc);
+      if (i0 < rows)
+        slab_mma<A_KC, B_NC, KS, 1, BF>(As, Bs, i0, wm, wn, g, t, acc);
   }
 }
 
 // C[w] (M x N, row-major) = op(A[w]) op(B[w]) followed by the epilogue.
 //   A_KC: A[w] is M x K, k contiguous;  else K x M, m contiguous (A^T G).
 //   B_NC: B[w] is K x N, n contiguous;  else N x K, k contiguous (G W^T).
-template <bool A_KC, bool B_NC, int EPI>
+//   BF: bfloat16 operands (rounded in registers), else 3xTF32.
+template <bool A_KC, bool B_NC, int EPI, bool BF>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     gemm3x_kernel(__grid_constant__ const GemmArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -322,8 +391,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     const float* Bs = As + S::AT;
     const int kleft = a.K - kt * BK;
     if (rows > 0)
-      warp_slab<A_KC, B_NC>(As, Bs, min(BK, kleft + 7) / 8, rows, wm, wn, g, t,
-                            acc);
+      warp_slab<A_KC, B_NC, BF>(As, Bs, min(BK, kleft + 7) / 8, rows, wm, wn,
+                                g, t, acc);
     if (EPI == EPI_ADAM && B_NC && blockIdx.y == 0 && tid < BN) {
 #pragma unroll
       for (int kk = 0; kk < BK; ++kk) bsum += Bs[kk * S::BS + tid];
@@ -470,8 +539,9 @@ inline bool rows_aligned(const float* p, long long batch_stride, int ld) {
   return (uintptr_t)p % 16 == 0 && batch_stride % 4 == 0 && ld % 4 == 0;
 }
 
-// Enqueue one batched product over W clients.  Returns a cudaError_t code.
-template <bool A_KC, bool B_NC, int EPI>
+// Enqueue one batched product over W clients (bfloat16 operands with BF).
+// Returns a cudaError_t code.
+template <bool A_KC, bool B_NC, int EPI, bool BF = false>
 int launch_gemm3x(GemmArgs a, int W, cudaStream_t st) {
   using S = Smem<A_KC, B_NC>;
   static bool configured[64] = {};      // per device: > 48 KB of dynamic smem
@@ -480,7 +550,7 @@ int launch_gemm3x(GemmArgs a, int W, cudaStream_t st) {
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(gemm3x_kernel<A_KC, B_NC, EPI>,
+    err = cudaFuncSetAttribute(gemm3x_kernel<A_KC, B_NC, EPI, BF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                S::BYTES);
     if (err != cudaSuccess) return (int)err;
@@ -489,7 +559,7 @@ int launch_gemm3x(GemmArgs a, int W, cudaStream_t st) {
   a.vecA = rows_aligned(a.A, a.sA, a.ldA);
   a.vecB = rows_aligned(a.B, a.sB, a.ldB);
   const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, W);
-  gemm3x_kernel<A_KC, B_NC, EPI><<<grid, THREADS, S::BYTES, st>>>(a);
+  gemm3x_kernel<A_KC, B_NC, EPI, BF><<<grid, THREADS, S::BYTES, st>>>(a);
   return (int)cudaGetLastError();
 }
 

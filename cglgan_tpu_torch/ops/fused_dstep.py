@@ -14,6 +14,15 @@ forward, backward and Adam loop in torch ops) for CPU tensors; nothing
 else.  ``launches`` counts the kernel's launches (one per call).
 ``matmul_3xtf32_plain`` emulates the kernel's product arithmetic in torch
 ops, so the choice of 3xTF32 over one TF32 pass is checked where no card is.
+
+bfloat16 state (all 18 tensors bf16: ``--dtype bfloat16`` with
+``pallas_dstep=True``) is the reference's ``mxu_bf16`` variant: the state
+is upcast to float32 and stays float32 across the E steps, every product
+takes operands rounded to bf16 with float32 sums, every elementwise step
+and Adam run in float32 with float32 constants, and the state is rounded to
+bf16 once, after step E.  The kernel does it in ``BF16_EXTRA_LAUNCHES``
+more launches (upcast, downcast) around the same chain, with bf16-operand
+tensor-core products; fakes may be bf16 or float32.
 """
 from __future__ import annotations
 
@@ -28,10 +37,14 @@ from cglgan_tpu_torch.algos.common import (AdamState, NetState, adam_leaf,
 
 SOURCE = "cglgan_tpu_torch/ops/csrc/fused_dstep.cu"
 REPLACES = "cglgan_tpu/ops/pallas/fused_dstep.py:44"
+# the bf16-state variant: the mxu_bf16 dots of the same kernel
+REPLACES_BF16 = "cglgan_tpu/ops/pallas/fused_dstep.py:68"
 HEADS = {"sigmoid": 0, "logits2": 1}
 EPS = 1e-8
 
 LAUNCHES_PER_STEP = 8  # CUDA launches per local step inside one call
+BF16_EXTRA_LAUNCHES = 2  # with bf16 state: the upcast and the downcast
+STATE_DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0          # kernel launches (wrapper calls that ran the kernel)
 
@@ -73,12 +86,14 @@ def fused_d_epoch_steps(params: Sequence[torch.Tensor],
                         lr: float = 2e-4, b1: float = 0.5, b2: float = 0.999):
     """Run ``len(starts)`` local D steps for W clients.
 
-    params/mu/nu: 6-tuples (w1 (W,din,h1), b1 (W,h1), w2, b2, w3, b3).
+    params/mu/nu: 6-tuples (w1 (W,din,h1), b1 (W,h1), w2, b2, w3, b3), all
+    float32 or all bfloat16 (then returned in bfloat16, rounded once).
     count: (W,) or () Adam step counts before the call.
     shards: (W, max_len, din), uint8 images (``is_image``: scaled to
     [-1, 1]) or float32 rows used as they are (2DMG); step e reads rows
     ``[starts[e], starts[e] + B)`` of every client's shard.
-    fake: (B, din) shared or (W, B, din) per-client fakes.
+    fake: (B, din) shared or (W, B, din) per-client fakes, float32 or
+    bfloat16.
 
     Returns (new_params, new_mu, new_nu, new_count, losses (W,)); inputs
     are not modified.  CUDA tensors run the kernel, CPU tensors the plain
@@ -99,22 +114,48 @@ def fused_d_epoch_steps(params: Sequence[torch.Tensor],
     raise ValueError(f"unsupported device {shards.device}")
 
 
+def state_dtype(params, mu, nu) -> torch.dtype:
+    """The one dtype of the 18 state tensors; a mix raises."""
+    dtypes = {t.dtype for ts in (params, mu, nu) for t in ts}
+    if len(dtypes) != 1:
+        raise ValueError(f"fused_dstep state tensors of mixed dtypes "
+                         f"{sorted(map(str, dtypes))}")
+    return dtypes.pop()
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (nearest even) and back: an operand of the
+    kernel's bfloat16-input products."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
 def fused_d_epoch_steps_plain(params, mu, nu, count, shards, starts, fake,
                               *, head: str, d_loss_half: bool,
                               lr: float = 2e-4, b1: float = 0.5,
-                              b2: float = 0.999):
+                              b2: float = 0.999,
+                              work_dtype: torch.dtype = torch.float32):
     """The kernel's arithmetic in torch ops (no autograd): the hand-derived
     forward/backward and Adam of ``_dstep_kernel``, on any device.  uint8
     shards are images, scaled to [-1, 1]; float shards are used as they
-    are."""
+    are.  bfloat16 state: upcast to ``work_dtype`` (float32, as the kernel;
+    float64 measures what float32's own rounding moves), every product on
+    operands rounded to bfloat16 (their products are exact in float32, so
+    the sums are float32 sums), everything else in the work dtype, the
+    state rounded to bfloat16 once at the end."""
     W, E = shards.shape[0], len(starts)
     B = fake.shape[-2]
-    w1, bb1, w2, bb2, w3, bb3 = params
-    state = [list(params), list(mu), list(nu)]
+    out_dtype = state_dtype(params, mu, nu)
+    low = out_dtype == torch.bfloat16
+    work = lambda ts: [t.to(work_dtype) for t in ts] if low else list(ts)
+    state = [work(params), work(mu), work(nu)]
+    if low:
+        bmm = lambda a, b: torch.bmm(round_bf16(a), round_bf16(b))
+    else:
+        bmm = torch.bmm
     cc = bias_corrections(count, W, E, b1, b2)
     fk = fake if fake.ndim == 3 else fake.unsqueeze(0).expand(W, -1, -1)
     mult = 1.0 if d_loss_half else 2.0
-    dt = w1.dtype
+    dt = state[0][0].dtype
     is_real = (torch.arange(2 * B, device=shards.device) < B).to(dt)
     is_real = is_real.reshape(1, 2 * B, 1)
     lrelu_grad = lambda z: torch.where(z >= 0, 1.0, 0.2)
@@ -126,11 +167,11 @@ def fused_d_epoch_steps_plain(params, mu, nu, count, shards, starts, fake,
         if real.dtype == torch.uint8:
             real = normalize_images(real)
         x = torch.cat([real.to(dt), fk.to(dt)], 1)
-        z1 = torch.bmm(x, w1) + bb1.unsqueeze(1)
+        z1 = bmm(x, w1) + bb1.unsqueeze(1)
         h1 = torch.where(z1 >= 0, z1, 0.2 * z1)
-        z2 = torch.bmm(h1, w2) + bb2.unsqueeze(1)
+        z2 = bmm(h1, w2) + bb2.unsqueeze(1)
         h2 = torch.where(z2 >= 0, z2, 0.2 * z2)
-        z3 = torch.bmm(h2, w3) + bb3.unsqueeze(1)
+        z3 = bmm(h2, w3) + bb3.unsqueeze(1)
         if head == "sigmoid":
             p = torch.sigmoid(z3)
             pc = torch.clamp(p, 1e-12, 1.0 - 1e-7)
@@ -147,11 +188,11 @@ def fused_d_epoch_steps_plain(params, mu, nu, count, shards, starts, fake,
             tgt = torch.cat([1.0 - is_real, is_real], dim=2)
             loss = (mult * 0.5) * (-(tgt * logp).sum(dim=(1, 2)) / B)
             g3 = (mult * 0.5 / B) * (torch.exp(logp) - tgt)
-        dw3 = torch.bmm(h2.transpose(1, 2), g3)
-        dz2 = torch.bmm(g3, w3.transpose(1, 2)) * lrelu_grad(z2)
-        dw2 = torch.bmm(h1.transpose(1, 2), dz2)
-        dz1 = torch.bmm(dz2, w2.transpose(1, 2)) * lrelu_grad(z1)
-        dw1 = torch.bmm(x.transpose(1, 2), dz1)
+        dw3 = bmm(h2.transpose(1, 2), g3)
+        dz2 = bmm(g3, w3.transpose(1, 2)) * lrelu_grad(z2)
+        dw2 = bmm(h1.transpose(1, 2), dz2)
+        dz1 = bmm(dz2, w2.transpose(1, 2)) * lrelu_grad(z1)
+        dw1 = bmm(x.transpose(1, 2), dz1)
         grads = [dw1, dz1.sum(1), dw2, dz2.sum(1), dw3, g3.sum(1)]
         c1, c2 = cc[:, e, 0], cc[:, e, 1]
         for j, g in enumerate(grads):
@@ -159,7 +200,8 @@ def fused_d_epoch_steps_plain(params, mu, nu, count, shards, starts, fake,
             state[0][j], state[1][j], state[2][j] = adam_leaf(
                 state[0][j], g, state[1][j], state[2][j],
                 c1.reshape(lead), c2.reshape(lead), lr, b1, b2, EPS)
-    return (tuple(state[0]), tuple(state[1]), tuple(state[2]), count + E,
+    store = lambda ts: tuple(t.to(out_dtype) for t in ts)
+    return (store(state[0]), store(state[1]), store(state[2]), count + E,
             loss)
 
 
@@ -188,15 +230,12 @@ def matmul_3xtf32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
 
 
-def _check(t: torch.Tensor, name: str, shape, dtype=torch.float32):
+def _check(t: torch.Tensor, name: str, shape, dtypes):
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        if dtype == torch.float32 and t.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "fused_dstep takes float32 state; bf16 state is ROADMAP "
-                "queue 2 item 1 (bf16)")
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected one of "
+                         f"{[str(d) for d in dtypes]}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
@@ -208,6 +247,7 @@ def _check(t: torch.Tensor, name: str, shape, dtype=torch.float32):
 
 _LIB = None
 _SCRATCH: Dict[tuple, List[torch.Tensor]] = {}
+_WORK: Dict[tuple, List[torch.Tensor]] = {}
 
 
 def _scratch(dev, stream: int, W, B, din, h1, h2, dout) -> List[torch.Tensor]:
@@ -223,6 +263,16 @@ def _scratch(dev, stream: int, W, B, din, h1, h2, dout) -> List[torch.Tensor]:
     return _SCRATCH[key]
 
 
+def _work(dev, stream: int, shapes) -> List[torch.Tensor]:
+    """With bfloat16 state, the 18 float32 buffers that hold the state during
+    a call (upcast in, downcast out), kept like ``_scratch``."""
+    key = (dev.index, stream, tuple(shapes))
+    if key not in _WORK:
+        _WORK[key] = [torch.empty(shapes[j % 6], dtype=torch.float32,
+                                  device=dev) for j in range(18)]
+    return _WORK[key]
+
+
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared (built on
     first use, never at import)."""
@@ -231,11 +281,12 @@ def _library() -> ctypes.CDLL:
         from cglgan_tpu_torch.ops import _build
         lib = _build.load("fused_dstep")
         vp, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-        lib.fused_dstep_f32.argtypes = [
-            ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp), vp,
-            i, ctypes.c_longlong, ctypes.POINTER(i), vp, i, vp, vp,
-            i, i, i, i, i, i, i, i, f, f, f, f, f, f, f, f, vp]
-        lib.fused_dstep_f32.restype = i
+        pp = ctypes.POINTER(vp)
+        lib.fused_dstep.argtypes = [
+            pp, pp, pp, i, pp, vp, i, ctypes.c_longlong, ctypes.POINTER(i),
+            vp, i, i, vp, vp, i, i, i, i, i, i, i, i, f, f, f, f, f, f, f, f,
+            vp]
+        lib.fused_dstep.restype = i
         lib.fused_dstep_error_string.argtypes = [i]
         lib.fused_dstep_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -251,16 +302,18 @@ def _launch(params, mu, nu, count, shards, starts, fake, head, d_loss_half,
     B = fake.shape[-2]
     dev = shards.device
     # uint8 images or float32 rows: the caller checked which
-    _check(shards, "shards", (W, max_len, din), shards.dtype)
+    _check(shards, "shards", (W, max_len, din), (shards.dtype,))
     shapes = [(W, din, h1), (W, h1), (W, h1, h2), (W, h2), (W, h2, dout),
               (W, dout)]
     state_in: List[torch.Tensor] = list(params) + list(mu) + list(nu)
+    dtype = state_dtype(params, mu, nu)       # one dtype for all 18
     for j, t in enumerate(state_in):
-        _check(t, f"state[{j}]", shapes[j % 6])
+        _check(t, f"state[{j}]", shapes[j % 6], STATE_DTYPES)
         if t.device != dev:
             raise ValueError("state and shards on different devices")
     per_client = fake.ndim == 3
-    _check(fake, "fake", (W, B, din) if per_client else (B, din))
+    _check(fake, "fake", (W, B, din) if per_client else (B, din),
+           STATE_DTYPES)
     if head == "logits2" and dout != 2 or head == "sigmoid" and dout != 1:
         raise ValueError(f"head {head!r} with {dout} outputs")
     if any(not 0 <= int(s) <= max_len - B for s in starts):
@@ -269,17 +322,21 @@ def _launch(params, mu, nu, count, shards, starts, fake, head, d_loss_half,
     state_out = [torch.empty_like(t) for t in state_in]
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = _scratch(dev, stream, W, B, din, h1, h2, dout)
+    bf16 = dtype == torch.bfloat16
+    work = _work(dev, stream, shapes) if bf16 else state_out
     cc = bias_corrections(count.to(dev), W, E, b1, b2)
     loss = torch.empty((W,), dtype=torch.float32, device=dev)
     mult = 1.0 if d_loss_half else 2.0
 
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
     lib = _library()
-    rc = lib.fused_dstep_f32(
-        ptrs(state_in), ptrs(state_out), ptrs(scratch), shards.data_ptr(),
+    rc = lib.fused_dstep(
+        ptrs(state_in), ptrs(state_out), ptrs(work), int(bf16),
+        ptrs(scratch), shards.data_ptr(),
         int(shards.dtype == torch.uint8), max_len,
         (ctypes.c_int * E)(*[int(s) for s in starts]),
-        fake.data_ptr(), int(per_client), cc.data_ptr(), loss.data_ptr(),
+        fake.data_ptr(), int(fake.dtype == torch.bfloat16), int(per_client),
+        cc.data_ptr(), loss.data_ptr(),
         W, E, B, din, h1, h2, dout, HEADS[head], mult * 0.5, mult * 0.5 / B,
         -lr, b1, 1 - b1, b2, 1 - b2, EPS, stream)
     if rc != 0:

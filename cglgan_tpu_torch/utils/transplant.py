@@ -11,6 +11,14 @@ so every array carries over as it is.  A multipath G's trees are dicts
 ``{"trunk": [...], "heads": [...]}`` in both packages (heads ``(S, k, ...)``)
 and carry over as dicts.  ``to_numpy`` is the inverse view used by the
 tests: plain dicts of numpy arrays in the port's layout.
+
+Every leaf keeps its dtype both ways.  A bfloat16 leaf (``--dtype
+bfloat16``) crosses bit for bit through a 16-bit integer view: numpy has no
+bfloat16 of its own (JAX's is ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` refuses), so ``from_jax_numpy`` reads it as
+``np.uint16`` and reinterprets it as ``torch.bfloat16``, and ``to_numpy``
+returns a bfloat16 leaf as float32 (exact) unless ``bf16_bits=True`` asks
+for its ``np.uint16`` bits.
 """
 from __future__ import annotations
 
@@ -23,6 +31,31 @@ from cglgan_tpu_torch.algos.common import AdamState, FedState, NetState
 from cglgan_tpu_torch.utils.tree import tree_map
 
 
+def tensor_from_numpy(x, device) -> torch.Tensor:
+    """A numpy array (float32, integer, or ``ml_dtypes.bfloat16``) as a
+    tensor of the same dtype on ``device``, bit for bit."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(x).view(np.uint16).astype(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def tensor_to_numpy(x: torch.Tensor, bf16: str = "keep") -> np.ndarray:
+    """A tensor as numpy in its own dtype; a bfloat16 one as
+    ``ml_dtypes.bfloat16`` (``bf16="keep"``) or upcast to float32
+    (``bf16="float32"``), both exact."""
+    x = x.detach().cpu()
+    if x.dtype != torch.bfloat16:
+        return x.numpy()
+    if bf16 == "float32":
+        return x.float().numpy()
+    if bf16 != "keep":
+        raise ValueError(f"bf16={bf16!r}: expected 'keep' or 'float32'")
+    import ml_dtypes
+    return x.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
 def from_jax_numpy(tree, cfg, device) -> FedState:
     dev = torch.device(device)
     W = cfg.num_workers
@@ -32,7 +65,7 @@ def from_jax_numpy(tree, cfg, device) -> FedState:
             x = np.asarray(x)
             if flatten_clients:
                 x = x.reshape((W,) + x.shape[2:])
-            return torch.from_numpy(np.array(x)).to(dev)
+            return tensor_from_numpy(x, dev)
         # a list (an MLP's layers) or a dict (a multipath G's trunk and
         # heads); tuples become lists, as the port builds them
         walk = lambda tree: tree_map(conv, tree if isinstance(tree, dict)
@@ -50,8 +83,8 @@ def from_jax_numpy(tree, cfg, device) -> FedState:
                     int(tree.t))
 
 
-def to_numpy(state: FedState) -> Dict[str, Any]:
-    npy = lambda x: x.detach().cpu().numpy()
+def to_numpy(state: FedState, bf16: str = "keep") -> Dict[str, Any]:
+    npy = lambda x: tensor_to_numpy(x, bf16)
 
     def net(n: NetState):
         return {"params": tree_map(npy, n.params), "bn": tree_map(npy, n.bn),

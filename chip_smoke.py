@@ -30,6 +30,11 @@ Phases, each printing one JSON line:
             bfloat16 / stochastic bfloat16 moments; a list longer than one
             launch takes, with an empty leaf and sizes no multiple of 4, held
             bit-equal; then three steps through ``init``/``step``);
+            ``fused_dstep`` with bf16 state (phase ``dstep_bf16``): the
+            main shape (shared bf16 fakes), the CGL-GAN shape (W=20,
+            784-512-256-1, a bf16 fake batch a client) and W=3, E=3, B=37,
+            2-24-40 (float rows), held to the plain version with the state
+            returned in bf16, timed beside the bf16 autograd D phase;
   reference a shrunk CAP-GAN, CGL-GAN (multipath and iid=0), Mix-G, 2DMG
             CGL-GAN, FL-GAN and FeGAN on the card (kernel path) against the
             same rounds on the CPU (plain path) from one init and one
@@ -49,13 +54,21 @@ Phases, each printing one JSON line:
             (iid=1, B=100, cloud sync every round, segema 0) and CGL-GAN at
             10 workers / 5 servers on 2DMG (iid=2): 20 rounds each at
             epoch=5 (``fused_dstep``'s count must rise by exactly 20), and
-            CGL-GAN on MNIST shapes at epoch=1 too (the count must stay 0).
+            CGL-GAN on MNIST shapes at epoch=1 too (the count must stay 0);
+  bf16      ``dtype="bfloat16"``: shrunk CAP-GAN (forced kernel and
+            autograd), CGL-GAN (forced kernel) and FL-GAN on 2DMG, card
+            against CPU at a bf16 tolerance; then the CAP-GAN main path at
+            epoch=5 with ``pallas_dstep=True`` (the count must rise by
+            20), epoch=5 auto and epoch=1 (autograd: it must stay 0),
+            CGL-GAN (20 workers / 5 servers) at epoch=5 forced and FL-GAN
+            on 2DMG (``force_dtype``, default path), 20 rounds each.
 The round phases also profile a few further rounds (device time by kernel,
 busy share; ``cglgan_tpu_torch/utils/profiling.py``).
 Then the card line, the ``kernels`` line and, last, the ok line.  Any
 failure raises and exits non-zero; without a card it exits 2 and prints
-no result.  ``--phases a,b`` runs only the named phases (of ``dstep sweep
-adam reference main fedavg cgl``) for a short first look at a new kernel; the
+no result.  ``--phases a,b`` runs only the named phases (of ``dstep
+dstep_bf16 sweep adam reference main fedavg cgl bf16``) for a short first
+look at a new kernel; the
 ``kernels`` and ok lines are printed only by a full run.  Imports nothing
 of JAX.
 """
@@ -106,6 +119,33 @@ TOL_LOSS = 1e-5
 # across a rounding boundary, on at most 1e-4 of the elements.
 TOL_ADAM = 1e-6
 TOL_BF16_SHARE = 1e-4
+# bf16 rounds on the card against the same rounds on the CPU (--dtype
+# bfloat16): every op rounds to bf16 on both sides, but the card's cuBLAS
+# and kernels and the CPU's matmuls sum in other orders, and where a float32
+# sum moves by its last place across a bf16 rounding boundary the bf16
+# value (an activation, a product operand) lands one step (2^-8) the other
+# way; the gradients, and most of all the moments, follow.  One call of the
+# bf16-state kernel shows the size (its plain version in float32 against
+# float64, printed by the dstep_bf16 phase: moments up to ~5e-2 of their
+# scale, params one bf16 step); five rounds carry it on.  So params are
+# held to 2^-5 of the group's largest entry (8 bf16 steps there), the Adam
+# moments to 0.2, the metrics (losses ~0.7) to 1e-2 absolute; a wrong route
+# or a missing term moves them by O(1).
+TOL_BF16_SCALED = {"params": 2.0 ** -5, "mu": 0.2, "nu": 0.2}
+TOL_BF16_METRICS = 1e-2
+# fused_dstep with bf16 state against its plain version: both do the same
+# float32 math on bf16-rounded product operands and round the state once,
+# but where float32's sum order moves an activation by its last place
+# across a bf16 rounding boundary, that operand rounds one bf16 step the
+# other way and the step's gradients follow.  The plain version against
+# itself in float64 (``work_dtype``) shows the size, and each call below
+# prints it beside the kernel's error (on an H100: moments 4.5e-2 / 4.9e-2
+# of their scale at the main / CGL-GAN shape, params 3.9e-3 / 5.1e-3,
+# losses 3.6e-6 / 4.0e-6 relative).  So bf16 state is held to 0.1 of each
+# tensor's largest entry and losses to 2e-4 relative; a wrong fragment
+# layout, index or term gives O(1).
+TOL_BF16_KERNEL = 0.1
+TOL_BF16_LOSS = 2e-4
 
 
 def emit(obj):
@@ -130,6 +170,16 @@ def peaks(name):
     if "H200" in name:
         return 67e12, 4.8e12, 495e12
     return 67e12, 3.35e12, 495e12                # H100 SXM
+
+
+def bf16_peak(name):
+    """Dense bf16 tensor-core FLOP/s of the card (NVIDIA's data sheets, SXM
+    part unless the name says otherwise)."""
+    if "H100" in name and "PCIe" in name:
+        return 756e12
+    if "H100" in name and "NVL" in name:
+        return 835e12
+    return 989e12                                # H100 / H200 SXM
 
 
 def cuda_ms(fn, reps):
@@ -180,20 +230,22 @@ def device_ms(fn, reps):
     return us / reps / 1e3
 
 
-def dstep_work(W, E, B, din, h1, h2, dout, row_bytes=1, fake_sets=1):
+def dstep_work(W, E, B, din, h1, h2, dout, row_bytes=1, fake_sets=1,
+               state_bytes=4, fake_bytes=4):
     """(FLOP, bytes) one fused_d_epoch_steps call must do: forward, weight
     and input grads (the first layer's input grad is not needed) for every
     client-step; each input read once and each output written once.
     ``row_bytes``: 1 for u8 images, 4 for float rows; ``fake_sets``: 1 for
-    a shared fake batch, W for per-client fakes."""
+    a shared fake batch, W for per-client fakes; ``state_bytes`` and
+    ``fake_bytes``: 4 for float32, 2 for bf16."""
     R = 2 * B
     fwd = 2 * R * (din * h1 + h1 * h2 + h2 * dout)
     bwd = fwd + 2 * R * (h2 * dout + h1 * h2)
     flops = W * E * (fwd + bwd)
     n_state = din * h1 + h1 + h1 * h2 + h2 + h2 * dout + dout
-    state = 3 * W * n_state * 4
+    state = 3 * W * n_state * state_bytes
     bytes_ = 2 * state + E * W * B * din * row_bytes \
-        + fake_sets * B * din * 4 + W * E * 2 * 4 + W * 4 + W * 8
+        + fake_sets * B * din * fake_bytes + W * E * 2 * 4 + W * 4 + W * 8
     return flops, bytes_
 
 
@@ -209,15 +261,23 @@ def scaled_errs(got, ref, tol):
             "tol_scaled": tol, "ok": scaled <= tol}
 
 
-def compare(got, ref):
+def compare(got, ref, tol=TOL_SCALED, tol_loss=TOL_LOSS):
     """fused_dstep results per group (params, mu, nu, loss) against the
-    plain version's, each with its tolerance."""
+    plain version's, each with its tolerance; the state must come back in
+    the plain version's dtype (bf16 state stays bf16), the losses
+    float32."""
     import torch
     if not torch.equal(got[3].cpu(), ref[3].cpu()):
         raise AssertionError("Adam counts differ")
-    out = {g: scaled_errs(got[i], ref[i], TOL_SCALED)
+    for i in range(3):
+        if any(x.dtype != y.dtype for x, y in zip(got[i], ref[i])):
+            raise AssertionError(f"fused_dstep returned state group {i} in "
+                                 f"{[str(x.dtype) for x in got[i]]}")
+    if got[4].dtype != torch.float32:
+        raise AssertionError(f"fused_dstep losses in {got[4].dtype}")
+    out = {g: scaled_errs(got[i], ref[i], tol)
            for i, g in enumerate(("params", "mu", "nu"))}
-    out["loss"] = scaled_errs([got[4]], [ref[4]], TOL_LOSS)
+    out["loss"] = scaled_errs([got[4]], [ref[4]], tol_loss)
     return out
 
 
@@ -266,7 +326,7 @@ def dstep_call(args, kw):
         *args, is_image=not args[4].is_floating_point(), **kw)
 
 
-def dstep_check(args, kw):
+def dstep_check(args, kw, **tols):
     """One kernel call against the plain version on the same inputs, which
     the call must leave as they were."""
     import torch
@@ -278,7 +338,7 @@ def dstep_check(args, kw):
     if not all(torch.equal(x, y) for x, y in zip(before, state)):
         raise AssertionError("fused_dstep modified its inputs")
     ref = fused_dstep.fused_d_epoch_steps_plain(*args, **kw)
-    return compare(got, ref)
+    return compare(got, ref, **tols)
 
 
 # no size a multiple of a tile or of 8; the first has rows of the first
@@ -401,6 +461,108 @@ def phase_kernel(card_name):
             if not all(v["ok"] for v in errs.values()):
                 raise AssertionError(f"fused_dstep (ragged, {head}) disagrees "
                                      f"with its plain version: {errs}")
+    return results
+
+
+# fused_dstep with bf16 state (--dtype bfloat16, pallas_dstep=True): the
+# CAP-GAN main path's shape (shared fakes, u8 images), the CGL-GAN shape (a
+# bf16 fake batch a client) and a ragged shape at din=2 (float rows, per
+# client): (label, W, E, B, din, h1, h2, out, head, x0.5, float rows, per
+# client, timed against the autograd D phase)
+BF16_SHAPES = (("capgan", W, E, B, DIN, H1, H2, 2, "logits2", True, False,
+                False, True),
+               ("cglgan", 20, E, B, DIN, H1, H2, 1, "sigmoid", False, False,
+                True, True),
+               ("ragged din=2", 3, 3, 37, 2, 24, 40, 1, "sigmoid", False,
+                True, True, False))
+
+
+def phase_kernel_bf16(card_name):
+    """fused_dstep with bf16 state against its plain version at
+    BF16_SHAPES: both return bf16 state and float32 losses, held to
+    TOL_BF16_KERNEL / TOL_BF16_LOSS, beside the plain version's own
+    float32-vs-float64 difference on the same inputs; the call, device,
+    plain and bf16 autograd D phase times and the bound at the dense bf16
+    rate."""
+    import torch
+    from cglgan_tpu_torch.algos import common
+    from cglgan_tpu_torch.models.zoo import build_discriminator
+    from cglgan_tpu_torch.ops import fused_dstep
+
+    bf = torch.bfloat16
+    results = []
+    for (label, w, e, b, din, h1, h2, dout, head, half, rows, per_client,
+         timed) in BF16_SHAPES:
+        gen = torch.Generator().manual_seed(1357 + w + dout)
+        d_model = None
+        if timed:
+            d_model = build_discriminator("mnist", dout, in_dim=din)
+            params, bn = d_model.init(gen, w)
+            six = [x for p in params if p is not None
+                   for x in (p["w"], p["b"])]
+        else:
+            six = None
+        six, mu6, nu6, count, shards, starts, fake = dstep_inputs(
+            gen, w, e, b, din, h1, h2, dout, six=six, max_len=90 if not timed
+            else 1000, float_rows=rows, per_client=per_client)
+        args = ([x.to(bf) for x in six], [x.to(bf) for x in mu6],
+                [x.to(bf) for x in nu6], count, shards, starts, fake.to(bf))
+        kw = dict(head=head, d_loss_half=half, lr=2e-4, b1=0.5, b2=0.999)
+        launched = fused_dstep.launches
+        errs = dstep_check(args, kw, tol=TOL_BF16_KERNEL,
+                           tol_loss=TOL_BF16_LOSS)
+        if fused_dstep.launches != launched + 1:
+            raise AssertionError("fused_dstep (bf16) did not launch")
+        # the yardstick: what float32's own rounding moves the plain
+        # version by on these inputs
+        plain32 = fused_dstep.fused_d_epoch_steps_plain(*args, **kw)
+        plain64 = fused_dstep.fused_d_epoch_steps_plain(
+            *args, work_dtype=torch.float64, **kw)
+        pairs = list(zip(plain32[:3], plain64[:3])) + [([plain32[4]],
+                                                        [plain64[4]])]
+        yard = {g: scaled_errs(a, b, 1.0)["max_scaled_err"]
+                for g, (a, b) in zip(("params", "mu", "nu", "loss"), pairs)}
+        call = lambda: dstep_call(args, kw)
+        res = {"phase": "kernel", "kernel": "fused_dstep", "state": "bf16",
+               "shape_of": label, "head": head, "d_loss_half": half,
+               "rows": "float32" if rows else "uint8",
+               "fakes": "per client (bf16)" if per_client else "shared (bf16)",
+               "shape": {"W": w, "E": e, "B": b, "din": din, "h1": h1,
+                         "h2": h2, "out": dout},
+               "errors": errs, "plain_f32_vs_f64": yard,
+               "kernel_ms": cuda_ms(call, 20),
+               "device_ms": device_ms(call, 10),
+               "device_kernels_in_call": device_kernels(call),
+               "launches_inside_call": e * fused_dstep.LAUNCHES_PER_STEP
+               + fused_dstep.BF16_EXTRA_LAUNCHES,
+               "plain_ms": cuda_ms(
+                   lambda: fused_dstep.fused_d_epoch_steps_plain(*args, **kw),
+                   5)}
+        if timed:
+            # the local-D phase that auto runs in bf16: autograd, bf16
+            # params, activations and Adam moments
+            net = fused_dstep.repack_net(
+                common.NetState(params, bn, common.AdamState(
+                    count, params, params)), *args[:3], count)
+            step = common.d_epoch_steps(common.d_step_fn(
+                d_model, common.make_adv_loss(head), 2e-4, 0.5, 0.999, b,
+                not rows, half, dtype=bf), e)
+            res["autograd_bf16_ms"] = cuda_ms(
+                lambda: step(net, shards, starts, args[6]), 5)
+        flops, nbytes = dstep_work(w, e, b, din, h1, h2, dout,
+                                   row_bytes=4 if rows else 1,
+                                   fake_sets=w if per_client else 1,
+                                   state_bytes=2, fake_bytes=2)
+        _, hbm, _ = peaks(card_name)
+        t_ops, t_bytes = flops / bf16_peak(card_name) * 1e3, nbytes / hbm * 1e3
+        res.update(gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        emit(res)
+        results.append(res)
+        if not all(v["ok"] for v in errs.values()):
+            raise AssertionError(f"fused_dstep bf16 ({label}) disagrees with "
+                                 f"its plain version: {errs}")
     return results
 
 
@@ -810,7 +972,8 @@ def state_errs(card_state, cpu_state):
     import numpy as np
     from cglgan_tpu_torch.utils.transplant import to_numpy
     from cglgan_tpu_torch.utils.tree import tree_leaves
-    a, b = to_numpy(card_state), to_numpy(cpu_state)
+    a = to_numpy(card_state, bf16="float32")
+    b = to_numpy(cpu_state, bf16="float32")
     errs = {}
     for net in ("g", "d"):
         if not np.array_equal(a[net]["count"], b[net]["count"]):
@@ -824,10 +987,19 @@ def state_errs(card_state, cpu_state):
     return errs
 
 
-def reference_rounds(label, cfg, part, rounds):
+def over_limit(errs, tol):
+    """Whether a state_errs result exceeds ``tol``: one limit for every
+    group, or a limit by group kind (``params``, ``mu``, ``nu``)."""
+    limit = (lambda k: tol) if not isinstance(tol, dict) else \
+        (lambda k: tol[k.split(".", 1)[1]])
+    return any(v > limit(k) for k, v in errs.items())
+
+
+def reference_rounds(label, cfg, part, rounds, tol=TOL_SCALED,
+                     tol_metrics=1e-4):
     """Card (kernel path) against CPU (plain path) from one init and one
     stream: ``rounds`` rounds of the CGL family; the card must launch
-    ``fused_dstep`` once a round."""
+    ``fused_dstep`` once a round where the config engages it, else never."""
     from cglgan_tpu_torch.algos.registry import build_runner
     from cglgan_tpu_torch.core import prng
     from cglgan_tpu_torch.ops import fused_dstep
@@ -842,16 +1014,17 @@ def reference_rounds(label, cfg, part, rounds):
         sg, mg = gpu.round_fn(sg, (starts, z_d, z_g))
         sc, mc = cpu.round_fn(sc, (starts, z_d, z_g))
     launches = fused_dstep.launches - launched
+    expect = rounds if fused_dstep.eligible(cfg) else 0
     errs = state_errs(sg, sc)
     merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
-    # same float32 math on two devices, sums in another order: as in the
-    # kernel phase, scaled by each tensor's max; metrics 1e-4 absolute
-    res = {"phase": "reference", "algo": label, "rounds": rounds,
-           "fused_dstep_launches": launches, "max_scaled_err": errs,
-           "tol_scaled": TOL_SCALED, "metrics_max_abs_err": merr,
-           "tol_metrics": 1e-4}
+    # same math on two devices, sums in another order: as in the kernel
+    # phase, scaled by each tensor's max; float32 metrics 1e-4 absolute
+    res = {"phase": "reference", "algo": label, "dtype": cfg.dtype,
+           "rounds": rounds, "fused_dstep_launches": launches,
+           "max_scaled_err": errs, "tol_scaled": tol,
+           "metrics_max_abs_err": merr, "tol_metrics": tol_metrics}
     emit(res)
-    if max(errs.values()) > TOL_SCALED or merr > 1e-4 or launches != rounds:
+    if over_limit(errs, tol) or merr > tol_metrics or launches != expect:
         raise AssertionError(f"card and CPU rounds disagree: {res}")
     return res
 
@@ -887,6 +1060,39 @@ def phase_reference():
     return out
 
 
+def phase_reference_bf16():
+    """bf16 rounds, card against CPU from one init and one stream, at
+    TOL_BF16_SCALED / TOL_BF16_METRICS: shrunk CAP-GAN with the forced
+    kernel (bf16 state) and on the autograd path, CGL-GAN with the forced
+    kernel (per-client bf16 fakes), FL-GAN on 2DMG (default path)."""
+    import numpy as np
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.data.partition import Partition
+
+    rng = np.random.default_rng(7)
+    nw, L, d = 4, 48, 64
+    part = Partition(rng.integers(0, 256, (nw, L, d)).astype(np.uint8),
+                     np.zeros((nw, L), np.int32),
+                     np.asarray([30, 48, 41, 36], np.int32),
+                     np.zeros((nw, 10), np.int64),
+                     np.zeros((10, d), np.uint8))
+    image = dict(dataset="synthetic-mnist", num_workers=nw, num_servers=2,
+                 img_size=8, batch_size=8, epoch=2, dtype="bfloat16")
+    tols = (TOL_BF16_SCALED, TOL_BF16_METRICS)
+    out = [reference_rounds(label, FedGANConfig(**kw, **image), part, 5,
+                            *tols)
+           for label, kw in (
+               ("capgan bf16 kernel", dict(algo="capgan", pallas_dstep=True,
+                                           num_communication=12)),
+               ("capgan bf16 autograd", dict(algo="capgan",
+                                             num_communication=12)),
+               ("cglgan bf16 kernel", dict(algo="cglgan", iid=1,
+                                           pallas_dstep=True)))]
+    out += phase_reference_fedavg([(fedavg_shrunk(
+        "flgan", dtype="bfloat16", force_dtype=True), *tols)])
+    return out
+
+
 # the CGL path: the reference-exact runs RESULTS.md archives
 # (results/runs/{mnist-ref-iid1-cglgan,mnist-ref-iid1-mixgan,2dmg-ref-cglgan}
 # /config.json), on synthetic-mnist for MNIST, at epoch=5 (the kernel path)
@@ -905,11 +1111,13 @@ MAIN = dict(dataset="synthetic-mnist", num_workers=16, num_servers=1, iid=1,
             batch_size=100)
 
 
-def phase_rounds(phase, label, algo, base, epoch, part):
+def phase_rounds(phase, label, algo, base, epoch, part, **extra):
     """One CGL-family configuration at full width through ``build_runner``
     and ``train``: 2 warm-up and ROUNDS timed rounds; ``fused_dstep``'s
-    count, set to 0 just before, must rise by ROUNDS at epoch > 1 and stay 0
-    at epoch=1; finite metrics and samples in [-1, 1]."""
+    count, set to 0 just before, must rise by ROUNDS where the config
+    engages the kernel (epoch > 1 in float32, ``pallas_dstep=True``) and
+    stay 0 elsewhere; finite metrics and samples in [-1, 1].  ``extra``:
+    further config fields (``dtype``, ``pallas_dstep``)."""
     import torch
     from cglgan_tpu_torch.algos.registry import build_runner
     from cglgan_tpu_torch.algos.runner import train
@@ -918,7 +1126,7 @@ def phase_rounds(phase, label, algo, base, epoch, part):
     from cglgan_tpu_torch.ops import fused_dstep
     from cglgan_tpu_torch.utils.profiling import profile_rounds
 
-    cfg = FedGANConfig(algo=algo, epoch=epoch, **base)
+    cfg = FedGANConfig(algo=algo, epoch=epoch, **base, **extra)
     runner = build_runner(cfg, part)
     state = train(runner, 2, eval_every=2)["state"]      # warm-up rounds
     torch.cuda.synchronize()
@@ -931,10 +1139,11 @@ def phase_rounds(phase, label, algo, base, epoch, part):
     launches = fused_dstep.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
     finite_metrics(out["history"])
-    expect = ROUNDS if epoch > 1 else 0
+    uses_kernel = fused_dstep.eligible(cfg)
+    expect = ROUNDS if uses_kernel else 0
     if launches != expect:
-        raise AssertionError(f"{label} epoch={epoch}: fused_dstep launches "
-                             f"{launches}, expected {expect}")
+        raise AssertionError(f"{label} epoch={epoch} {extra}: fused_dstep "
+                             f"launches {launches}, expected {expect}")
     # painter semantics: n // S samples a server
     n = (16 if cfg.is_image else 10000) // cfg.num_servers * cfg.num_servers
     samples = runner.sample(out["state"], n)
@@ -943,13 +1152,12 @@ def phase_rounds(phase, label, algo, base, epoch, part):
             not bool(torch.isfinite(samples).all()) or \
             float(samples.abs().max()) > 1.0:
         raise AssertionError(f"{label}: bad samples {tuple(samples.shape)}")
-    res = {"phase": phase, "path": "kernel" if epoch > 1 else "autograd",
-           "config": {"algo": algo, **base, "epoch": epoch},
+    res = {"phase": phase, "path": "kernel" if uses_kernel else "autograd",
+           "config": {"algo": algo, **base, "epoch": epoch, **extra},
            "multipath": cfg.algo == "mixgan" or cfg.iid != 0,
            "shards": list(part.data.shape), "rounds": ROUNDS,
            "wall_s": wall, "rounds_per_s": ROUNDS / wall,
-           "fused_dstep_launches": launches,
-           "uses_kernel": fused_dstep.eligible(cfg),
+           "fused_dstep_launches": launches, "uses_kernel": uses_kernel,
            "last_tick": out["history"][-1], "peak_mem_gb": peak}
     if not cfg.is_image:
         real = torch.from_numpy(part.eval_pool).to(samples.device)
@@ -961,18 +1169,31 @@ def phase_rounds(phase, label, algo, base, epoch, part):
     return res, launches
 
 
-def phase_reference_fedavg():
-    """Shrunk FL-GAN and FeGAN: card (kernel path) vs CPU (plain path)."""
+def fedavg_shrunk(algo, **extra):
+    """The shrunk 2DMG FedAvg-family config of the reference phases."""
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    return FedGANConfig(algo=algo, dataset="2dmg", num_workers=4,
+                        num_class=4, num_sample=64, batch_size=16, iid=1,
+                        epoch=2, num_communication=8, **extra)
+
+
+def phase_reference_fedavg(cases=None):
+    """Shrunk FL-GAN and FeGAN: card vs CPU from one init and one stream
+    (by default on the kernel path, the CPU on its plain version).
+    ``cases``: (config, scaled tolerance, metric tolerance) triples."""
     from cglgan_tpu_torch.algos.registry import build_runner, load_partition
     from cglgan_tpu_torch.core import prng
-    from cglgan_tpu_torch.core.config import FedGANConfig
 
+    if cases is None:
+        # as for capgan: the same float32 math on two devices, scaled by
+        # the group's largest entry; metrics 1e-4 absolute
+        cases = [(fedavg_shrunk("flgan", pallas_sweep=True), TOL_SCALED,
+                  1e-4),
+                 (fedavg_shrunk("fegan", pallas_sweep=True,
+                                frac_workers=0.5), TOL_SCALED, 1e-4)]
     out = []
-    for algo, extra in (("flgan", {}), ("fegan", {"frac_workers": 0.5})):
-        cfg = FedGANConfig(algo=algo, dataset="2dmg", num_workers=4,
-                           num_class=4, num_sample=64, batch_size=16, iid=1,
-                           epoch=2, num_communication=8, pallas_sweep=True,
-                           **extra)
+    for cfg, tol, tol_metrics in cases:
+        algo = cfg.algo
         part = load_partition(cfg)
         gpu = build_runner(cfg, part)
         cpu = build_runner(cfg, part, device="cpu")
@@ -984,21 +1205,21 @@ def phase_reference_fedavg():
             sc, mc = cpu.round_fn(sc, streams)
         errs = state_errs(sg, sc)
         merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
-        # as for capgan: the same float32 math on two devices, scaled by the
-        # group's largest entry; metrics 1e-4 absolute
-        res = {"phase": "reference", "algo": algo, "rounds": 3,
-               "max_scaled_err": errs, "tol_scaled": TOL_SCALED,
-               "metrics_max_abs_err": merr, "tol_metrics": 1e-4}
+        res = {"phase": "reference", "algo": algo, "dtype": cfg.dtype,
+               "pallas_sweep": cfg.pallas_sweep, "rounds": 3,
+               "max_scaled_err": errs, "tol_scaled": tol,
+               "metrics_max_abs_err": merr, "tol_metrics": tol_metrics}
         emit(res)
-        if max(errs.values()) > TOL_SCALED or merr > 1e-4:
+        if over_limit(errs, tol) or merr > tol_metrics:
             raise AssertionError(f"card and CPU rounds disagree: {res}")
         out.append(res)
     return out
 
 
-def phase_fedavg(algo, use_kernel):
+def phase_fedavg(algo, use_kernel, phase="fedavg", **extra):
     """One full-width 2DMG configuration through ``load_partition``,
-    ``build_runner`` and ``train``; returns (result, sweep launches)."""
+    ``build_runner`` and ``train``; returns (result, sweep launches).
+    ``extra``: further config fields (``dtype``, ``force_dtype``)."""
     import torch
     from cglgan_tpu_torch.algos.registry import build_runner, load_partition
     from cglgan_tpu_torch.algos.runner import train
@@ -1007,9 +1228,9 @@ def phase_fedavg(algo, use_kernel):
     from cglgan_tpu_torch.ops import fused_sweep
     from cglgan_tpu_torch.utils.profiling import profile_rounds
 
-    extra = {"frac_workers": 0.5} if algo == "fegan" else {}
+    workers = {"frac_workers": 0.5} if algo == "fegan" else {}
     cfg = FedGANConfig(algo=algo, pallas_sweep=True if use_kernel else None,
-                       **FEDAVG, **extra)
+                       **FEDAVG, **workers, **extra)
     t0 = time.perf_counter()
     part = load_partition(cfg)
     runner = build_runner(cfg, part)
@@ -1041,8 +1262,8 @@ def phase_fedavg(algo, use_kernel):
     if sweep_calls != (1.0 if use_kernel else 0.0):
         raise AssertionError(f"{algo}: {sweep_calls} sweep kernels a round "
                              f"in the profile")
-    res = {"phase": "fedavg", "path": "kernel" if use_kernel else "autograd",
-           "config": {"algo": algo, **FEDAVG, **extra,
+    res = {"phase": phase, "path": "kernel" if use_kernel else "autograd",
+           "config": {"algo": algo, **FEDAVG, **workers, **extra,
                       "pallas_sweep": cfg.pallas_sweep},
            "shards": list(part.data.shape), "setup_s": setup_s,
            "rounds": ROUNDS, "wall_s": wall, "rounds_per_s": ROUNDS / wall,
@@ -1060,8 +1281,8 @@ def phase_fedavg(algo, use_kernel):
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    all_phases = ("dstep", "sweep", "adam", "reference", "main", "fedavg",
-                  "cgl")
+    all_phases = ("dstep", "dstep_bf16", "sweep", "adam", "reference",
+                  "main", "fedavg", "cgl", "bf16")
     ap.add_argument("--phases", default=",".join(all_phases),
                     help="comma-separated subset of: " + " ".join(all_phases))
     phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
@@ -1097,6 +1318,8 @@ def main(argv=None):
     done = {}
     if "dstep" in phases:
         done["dstep"] = phase_kernel(name)
+    if "dstep_bf16" in phases:
+        done["dstep_bf16"] = phase_kernel_bf16(name)
     if "sweep" in phases:
         done["sweep"] = phase_kernel_sweep(name)
     if "adam" in phases:
@@ -1104,12 +1327,21 @@ def main(argv=None):
     if "reference" in phases:
         phase_reference()
         phase_reference_fedavg()
+    parts = {}
+
+    def part_of(algo, base):
+        key = tuple(sorted(base.items()))
+        if key not in parts:
+            t0 = time.perf_counter()
+            parts[key] = load_partition(FedGANConfig(algo=algo, **base))
+            emit({"phase": "data", "dataset": base["dataset"],
+                  "seconds": time.perf_counter() - t0,
+                  "glyph_backend": "native" if native.available()
+                  else "numpy", "shards": list(parts[key].data.shape)})
+        return parts[key]
+
     if "main" in phases:
-        t0 = time.perf_counter()
-        part = load_partition(FedGANConfig(algo="capgan", **MAIN))
-        emit({"phase": "data", "seconds": time.perf_counter() - t0,
-              "glyph_backend": "native" if native.available() else "numpy",
-              "shards": list(part.data.shape)})
+        part = part_of("capgan", MAIN)
         _, done["dstep_launches"] = phase_rounds("main", "capgan", "capgan",
                                                  MAIN, 5, part)
         phase_rounds("autograd", "capgan", "capgan", MAIN, 1, part)
@@ -1119,19 +1351,26 @@ def main(argv=None):
         phase_fedavg("fegan", True)
         phase_fedavg("fegan", False)
     if "cgl" in phases:
-        parts = {}
         for label, algo, base, epoch in CGL_RUNS:
-            key = base["dataset"]
-            if key not in parts:
-                t0 = time.perf_counter()
-                parts[key] = load_partition(FedGANConfig(algo=algo, **base))
-                emit({"phase": "data", "dataset": key,
-                      "seconds": time.perf_counter() - t0,
-                      "shards": list(parts[key].data.shape)})
             _, n = phase_rounds("cgl", label, algo, base, epoch,
-                                parts[key])
+                                part_of(algo, base))
             if epoch > 1:
                 done[f"dstep_launches {label}"] = n
+    if "bf16" in phases:
+        bf = dict(dtype="bfloat16")
+        part = part_of("capgan", MAIN)
+        # CAP-GAN main path: the forced bf16-state kernel, then what auto
+        # runs in bf16 (autograd) at epoch=5 and epoch=1
+        _, done["dstep_bf16_launches"] = phase_rounds(
+            "bf16", "capgan", "capgan", MAIN, 5, part, pallas_dstep=True,
+            **bf)
+        phase_rounds("bf16", "capgan", "capgan", MAIN, 5, part, **bf)
+        phase_rounds("bf16", "capgan", "capgan", MAIN, 1, part, **bf)
+        _, done["dstep_bf16_launches cglgan"] = phase_rounds(
+            "bf16", "cglgan", "cglgan", CGL_MNIST, 5,
+            part_of("cglgan", CGL_MNIST), pallas_dstep=True, **bf)
+        phase_fedavg("flgan", False, phase="bf16", force_dtype=True, **bf)
+        phase_reference_bf16()
     if len(phases) != len(all_phases):
         print(card, flush=True)
         emit({"partial": phases})
@@ -1154,8 +1393,17 @@ def main(argv=None):
         "capgan": done["dstep_launches"],
         **{k.split(" ", 1)[1]: v for k, v in done.items()
            if k.startswith("dstep_launches ")}}
+    # bf16 state, the main path's shape; launches from the forced bf16
+    # CAP-GAN run (and the CGL-GAN one beside it)
+    dstep_bf16 = entry(fused_dstep, done["dstep_bf16_launches"],
+                       done["dstep_bf16"], done["dstep_bf16"][0], None)
+    dstep_bf16["name"] = "fused_dstep_bf16"
+    dstep_bf16["replaces"] = fused_dstep.REPLACES_BF16
+    dstep_bf16["launches_by_path"] = {
+        "capgan bf16": done["dstep_bf16_launches"],
+        "cglgan bf16": done["dstep_bf16_launches cglgan"]}
     kernels = [
-        dstep,
+        dstep, dstep_bf16,
         # the FL-GAN pair's shape; launches from its 20 kernel-path rounds
         entry(fused_sweep, done["sweep_launches"], done["sweep"],
               done["sweep"][0], None),
@@ -1164,7 +1412,8 @@ def main(argv=None):
         entry(fused_adam, done["adam_launches"], done["adam"], adam_f32,
               adam_f32["library_ms"])]
     if any(k["launches"] < 1 for k in kernels) or \
-            min(dstep["launches_by_path"].values()) < 1:
+            min(dstep["launches_by_path"].values()) < 1 or \
+            min(dstep_bf16["launches_by_path"].values()) < 1:
         raise AssertionError(f"a kernel was never launched: {kernels}")
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -185,6 +185,10 @@ def test_train_and_entry_point_contract():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_runner(cfg, part)
     for kw in (dict(algo="mdgan"), dict(algo="acgan"), dict(conv=True),
-               dict(dtype="bfloat16"), dict(model_shards=2)):
+               dict(model_shards=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_runner(cfg.replace(**kw), part, device="cpu")
+    # bf16 mode is ported: it builds and trains
+    bf16 = train(build_runner(cfg.replace(dtype="bfloat16"), part,
+                              device="cpu"), rounds=1, eval_every=1)
+    assert np.isfinite(bf16["history"][0]["g_loss"])

@@ -142,6 +142,85 @@ def test_plain_matches_jax_kernel_float_rows(family, din, half, per_client):
                   _jax_run(*args, "sigmoid", half), TOL_P_STEP)
 
 
+# bf16 state, as tests/test_pallas_dstep.py:160-176 holds the reference's
+# own bf16-state kernel to float32 math: params rtol 1e-2 / atol 1e-3,
+# moments rtol 2e-2 / atol 3e-3 (nu atol 1e-6), losses rtol 2e-2 / atol
+# 1e-3.  Here both sides compute the same float32 math on bf16-rounded
+# operands and round once, so they part only where float32's sum order
+# flips an operand's bf16 rounding.
+TOL_BF16 = {"params": (1e-2, 1e-3), "mu": (2e-2, 3e-3), "nu": (2e-2, 1e-6),
+            "loss": (2e-2, 1e-3)}
+
+
+def _bf16_inputs(out_dim, per_client, **kw):
+    """``_inputs`` with the 18 state tensors and the fakes rounded to bf16
+    (``ml_dtypes.bfloat16`` numpy arrays, which both packages take)."""
+    import ml_dtypes
+    six, mu6, nu6, count, shard, fake = _inputs(out_dim, [0, 7, 3], seed=1,
+                                               per_client=per_client, **kw)
+    bf = lambda xs: [np.asarray(x).astype(ml_dtypes.bfloat16) for x in xs]
+    return (bf(six), bf(mu6), bf(nu6), count, shard,
+            np.asarray(fake).astype(ml_dtypes.bfloat16))
+
+
+def _bf16_close(got, ref):
+    """Port (torch tensors) against the reference (JAX arrays): bf16 state
+    out, float32 losses, each group at TOL_BF16."""
+    for name, a, b in (("params", got[0], ref[0]), ("mu", got[1], ref[1]),
+                       ("nu", got[2], ref[2])):
+        rtol, atol = TOL_BF16[name]
+        for j, (x, y) in enumerate(zip(a, b)):
+            assert x.dtype == torch.bfloat16 and y.dtype == jnp.bfloat16
+            np.testing.assert_allclose(x.float().numpy(),
+                                       np.asarray(y, np.float32), rtol=rtol,
+                                       atol=atol, err_msg=f"{name}[{j}]")
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+    assert got[4].dtype == torch.float32
+    np.testing.assert_allclose(got[4].numpy(), np.asarray(ref[4]),
+                               rtol=TOL_BF16["loss"][0],
+                               atol=TOL_BF16["loss"][1])
+
+
+def _port_run_bf16(args, head, half, device="cpu"):
+    from cglgan_tpu_torch.utils.transplant import tensor_from_numpy
+    six, mu6, nu6, count, shard, fake = args
+    t = lambda x: tensor_from_numpy(x, device)
+    return fused_dstep.fused_d_epoch_steps(
+        [t(x) for x in six], [t(x) for x in mu6], [t(x) for x in nu6],
+        t(count.astype(np.int64)), t(shard), STARTS, t(fake), head=head,
+        d_loss_half=half, is_image=shard.dtype == np.uint8, lr=LR, b1=B1,
+        b2=B2)
+
+
+@pytest.mark.parametrize("head,out_dim,half,per_client,rows", [
+    ("logits2", 2, True, False, False),      # CAP-GAN's main path
+    ("sigmoid", 1, False, True, False),      # CGL-GAN: a bf16 fake a client
+    ("sigmoid", 1, False, True, True),       # CGL-GAN on 2DMG, din=2
+], ids=["logits2", "sigmoid_per_client", "2dmg_per_client"])
+def test_plain_bf16_matches_jax_kernel(head, out_dim, half, per_client,
+                                       rows):
+    """bf16 state and bf16 fakes: the plain version against
+    ``_dstep_kernel`` with ``mxu_bf16`` in interpret mode (its products on
+    bf16 operands, float32 elsewhere, the state rounded once); the outputs
+    stay bf16."""
+    kw = dict(family="2dmg", din=2, float_rows=True) if rows else {}
+    args = _bf16_inputs(out_dim, per_client, **kw)
+    ref = _jax_run(*args, head, half)
+    got = _port_run_bf16(args, head, half)
+    _bf16_close(got, ref)
+
+
+def test_bf16_state_must_not_mix():
+    """All 18 state tensors bf16, or all float32: a mix raises."""
+    six, mu6, nu6, count, shard, fake = _inputs(1, [0, 0, 0])
+    t = lambda x: torch.from_numpy(np.array(x))
+    mixed = [t(x).bfloat16() if j == 2 else t(x) for j, x in enumerate(mu6)]
+    with pytest.raises(ValueError, match="mixed dtypes"):
+        fused_dstep.fused_d_epoch_steps(
+            [t(x) for x in six], mixed, [t(x) for x in nu6],
+            t(count.astype(np.int64)), t(shard), STARTS, t(fake))
+
+
 def test_rows_must_match_is_image():
     """uint8 shards are images and float32 shards are rows; anything else
     is refused before a kernel or plain step runs."""
@@ -298,6 +377,44 @@ def test_cuda_kernel_per_client_fakes(family, din, head, out_dim, half,
     got, ref = _on_card(args, STARTS, head, half)
     assert fused_dstep.launches == launched + 1
     _assert_close(got, ref, TOL_P_STEP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head,out_dim,half,per_client,rows", [
+    ("logits2", 2, True, False, False),      # CAP-GAN's main path
+    ("sigmoid", 1, False, True, False),      # CGL-GAN: a bf16 fake a client
+    ("sigmoid", 1, False, True, True),       # 2DMG rows, din=2
+], ids=["logits2", "sigmoid_per_client", "2dmg"])
+def test_cuda_kernel_bf16_matches_plain(head, out_dim, half, per_client,
+                                        rows):
+    """The CUDA kernel with bf16 state (bf16-operand tensor-core products,
+    one rounding at the store) against the plain version on the card, same
+    inputs: bf16 out, each state tensor within 0.1 of its largest entry and
+    losses 2e-4 relative, as ``chip_smoke.py`` holds it (float32 sum order
+    can flip a product operand's bf16 rounding; the plain version against
+    itself in float64 moves moments by up to 4e-2 of their scale)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from cglgan_tpu_torch.utils.transplant import tensor_from_numpy
+    kw = dict(family="2dmg", din=2, float_rows=True) if rows else {}
+    six, mu6, nu6, count, shard, fake = _bf16_inputs(out_dim, per_client,
+                                                     **kw)
+    t = lambda x: tensor_from_numpy(x, "cuda")
+    targs = ([t(x) for x in six], [t(x) for x in mu6], [t(x) for x in nu6],
+             t(count.astype(np.int64)), t(shard), STARTS, t(fake))
+    kwargs = dict(head=head, d_loss_half=half, lr=LR, b1=B1, b2=B2)
+    launched = fused_dstep.launches
+    got = fused_dstep.fused_d_epoch_steps(
+        *targs, is_image=shard.dtype == np.uint8, **kwargs)
+    assert fused_dstep.launches == launched + 1
+    ref = fused_dstep.fused_d_epoch_steps_plain(*targs, **kwargs)
+    for a, b in zip([x for g in got[:3] for x in g],
+                    [x for g in ref[:3] for x in g]):
+        assert a.dtype == b.dtype == torch.bfloat16
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 0.1 * float(b.float().abs().max())
+    torch.testing.assert_close(got[4], ref[4], rtol=2e-4, atol=1e-7)
 
 
 @pytest.mark.cuda
