@@ -27,17 +27,10 @@ from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 # what the port covers
 # ---------------------------------------------------------------------------
 
-PORTED_ALGOS = ("cglgan", "capgan", "mixgan", "flgan", "fegan")
-CGL_FAMILY = ("cglgan", "capgan", "mixgan")
-
-
 def check_supported(cfg, mesh=None) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the
-    ported slices do not cover."""
-    if cfg.algo not in PORTED_ALGOS:
-        raise NotImplementedError(
-            f"algo {cfg.algo!r} is not ported yet (ROADMAP queue 1 item 9 "
-            "mdgan/acgan)")
+    ported slices do not cover: conv models, meshes and the FedAvg
+    family's image sweep (every algorithm runs on MLP models)."""
     if cfg.conv:
         raise NotImplementedError("conv=True is not ported yet (ROADMAP "
                                   "queue 1 item 12)")
@@ -46,18 +39,28 @@ def check_supported(cfg, mesh=None) -> None:
     if mesh is not None or cfg.model_shards > 1:
         raise NotImplementedError("meshes and model_shards > 1 are not "
                                   "ported yet (ROADMAP queue 1 item 17)")
-    if cfg.algo in CGL_FAMILY:      # MLP models, both datasets
-        return
-    # the FedAvg family: the 2DMG "batches" sweep only
-    if cfg.is_image or cfg.resolved_local_sweep == "epochs":
+    if cfg.algo in ("flgan", "fegan") and (
+            cfg.is_image or cfg.resolved_local_sweep == "epochs"):
         raise NotImplementedError(
             "flgan/fegan on image datasets (the ragged 'epochs' sweep, "
             "step-count buckets, per-worker BatchNorm state) are not ported "
             "yet (ROADMAP queue 1 item 10)")
-    if cfg.dropout_rate > 0.0:
-        raise NotImplementedError(
-            "dropout_rate > 0 (participation masks) is not ported yet "
-            "(ROADMAP queue 1 item 10)")
+
+
+def participation_mask(alive: torch.Tensor,
+                       dropout_rate: float) -> torch.Tensor:
+    """Straggler simulation: the float32 (n,) survival mask of one round
+    from its Bernoulli(1 - dropout_rate) draw ``alive`` (bool (n,), drawn
+    from the round's stream by ``core/prng.py`` ``survival``, or the
+    reference's draw injected).  All ones at rate 0; otherwise client 0 is
+    kept alive when nobody survives, so a round always has a survivor
+    (``cglgan_tpu/algos/common.py:109-118``)."""
+    if dropout_rate <= 0.0:
+        return torch.ones(alive.shape, dtype=torch.float32,
+                          device=alive.device)
+    alive = alive.to(torch.bool).clone()
+    alive[0] |= ~alive.any()
+    return alive.float()
 
 
 # ---------------------------------------------------------------------------

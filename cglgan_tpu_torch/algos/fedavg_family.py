@@ -18,10 +18,17 @@ worker, stacked ``(W, ...)``; FeGAN also stacks the BN state per worker (the
 
 The local phase runs the fused CUDA kernel (``ops/fused_sweep.py``) when
 ``fused_sweep.eligible`` says so — the reference's rule: only when
-``pallas_sweep=True`` forces it — and autograd otherwise.  The ragged
-"epochs" sweep of the image datasets (``_plan_buckets``, ``_sweep_buckets``)
-and dropout participation are not ported yet: ``common.check_supported``
-raises for them.
+``pallas_sweep=True`` forces it, never with dropout — and autograd
+otherwise.  The ragged "epochs" sweep of the image datasets
+(``_plan_buckets``, ``_sweep_buckets``) is not ported yet:
+``common.check_supported`` raises for it.
+
+Dropout (``dropout_rate > 0``, ``common.participation_mask`` on the
+round's survival draw): FL-GAN's dropped workers train but neither enter
+the aggregate nor keep their new Adam state, and the metrics count the
+survivors (``participants``); FeGAN's drop mask multiplies its group
+schedule, so a dropped sampled worker is treated as unsampled, and a round
+whose every sampled worker dropped leaves the global params as they were.
 
 bfloat16 (``dtype="bfloat16"``, on 2DMG only with ``force_dtype``, as the
 reference's config demands): params, latents, fakes, real rows and Adam
@@ -152,13 +159,23 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str):
                 common.adam_init(stacked(dp), W))
 
     def streams_for(t: int, streams):
+        """(starts, z1, z2, survival mask or None): ``streams`` may carry
+        the survival draw as a 4th entry; else it is drawn for round t."""
+        alive = streams[3] if streams is not None and len(streams) > 3 \
+            else None
         if streams is None:
             streams = prng.sweep_streams(cfg, t, max_len, max_steps, dev)
-        starts, z1, z2 = streams
+        starts, z1, z2 = streams[:3]
         # the latents in the run's dtype (the reference draws them so)
         z1 = torch.as_tensor(z1, device=dev).to(dtype)
         z2 = torch.as_tensor(z2, device=dev).to(dtype)
-        return [int(s) for s in starts], z1, z2
+        mask = None
+        if cfg.dropout_rate > 0.0:
+            if alive is None:
+                alive = prng.survival(cfg, t, W, dev)
+            mask = common.participation_mask(
+                torch.as_tensor(alive, device=dev), cfg.dropout_rate)
+        return [int(s) for s in starts], z1, z2, mask
 
     def local_phase(g: NetState, d: NetState, lane_shards, starts, z1, z2):
         """g, d: lane-stacked states with params broadcast."""
@@ -198,20 +215,38 @@ def build_flgan(cfg, part: Partition, device=None) -> Runner:
 
     def round_fn(state: FedState, streams=None):
         """One federated round.  ``streams``: optional injected
-        ``(starts (E,), z1 (W,E,B,zdim), z2 (W,E,B,zdim))``; by default
-        they are drawn from ``core.prng`` for round ``state.t``."""
-        starts, z1, z2 = streams_for(state.t, streams)
+        ``(starts (E,), z1 (W,E,B,zdim), z2 (W,E,B,zdim)[, alive (W,)])``
+        (``alive``: the survival draw, with dropout); by default they are
+        drawn from ``core.prng`` for round ``state.t``."""
+        starts, z1, z2, mask = streams_for(state.t, streams)
         bcast = lambda tree: collectives.broadcast_tree(tree, W)
         g, d, d_loss, g_loss = local_phase(
             NetState(bcast(state.g.params), bcast(state.g.bn), state.g.opt),
             NetState(bcast(state.d.params), bcast(state.d.bn), state.d.opt),
             shards, starts, z1, z2)
-        # uniform FedAvg of params and BN buffers (state_dict transfer,
-        # FLGAN/MNIST/flgan.py:148-162)
-        agg = collectives.fedavg_tree
-        metrics = {"d_loss": d_loss.mean(), "g_loss": g_loss.mean()}
-        return FedState(NetState(agg(g.params), agg(g.bn), g.opt),
-                        NetState(agg(d.params), agg(d.bn), d.opt),
+        if mask is None:
+            # uniform FedAvg of params and BN buffers (state_dict transfer,
+            # FLGAN/MNIST/flgan.py:148-162)
+            agg = collectives.fedavg_tree
+            metrics = {"d_loss": d_loss.mean(), "g_loss": g_loss.mean()}
+            gopt, dopt = g.opt, d.opt
+        else:
+            # dropped workers neither enter the aggregate nor keep their
+            # new Adam state
+            ones = torch.ones((W,), dtype=torch.float32, device=dev)
+            agg = lambda tree: collectives.masked_weighted_avg_tree(
+                tree, ones, mask)
+            keep = lambda old, new: common.AdamState(
+                *collectives.select_update_tree(tuple(old), tuple(new),
+                                                mask))
+            gopt, dopt = keep(state.g.opt, g.opt), keep(state.d.opt, d.opt)
+            n = mask.sum()
+            denom = torch.clamp(n, min=1.0)
+            metrics = {"d_loss": (d_loss * mask).sum() / denom,
+                       "g_loss": (g_loss * mask).sum() / denom,
+                       "participants": n}
+        return FedState(NetState(agg(g.params), agg(g.bn), gopt),
+                        NetState(agg(d.params), agg(d.bn), dopt),
                         None, state.t + 1), metrics
 
     gen, sample = make_gen(lambda state: state.g.bn)
@@ -254,14 +289,15 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
         member_np = np.zeros((len(schedule), W), np.float32)   # (R, W)
         member_np[rounds, schedule] = 1.0
     # w = exp(sk) over the group, normalised (fegan.py:145-146)
-    weight_np = (np.exp(sk)[schedule] if gather_mode
-                 else np.exp(sk)[None, :]) * member_np
+    exp_np = np.exp(sk)[schedule] if gather_mode else np.exp(sk)[None, :]
+    weight_np = exp_np * member_np
     total_np = weight_np.sum(axis=1, keepdims=True)
     any_alive = total_np[:, 0] > 0
     weight_dev = torch.from_numpy(
         weight_np / np.maximum(total_np, np.float32(1e-12))).to(dev)
     member_dev = torch.from_numpy(member_np).to(dev)
     members = np.maximum(member_np.sum(axis=1), 1.0)       # metric denominators
+    exp_dev = torch.from_numpy(exp_np.astype(np.float32)).to(dev)
 
     def init_state() -> FedState:
         gp, gbn, dp, dbn, gopt, dopt = init_nets()
@@ -272,23 +308,40 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
         return FedState(NetState(gp, stack(gbn), gopt),
                         NetState(dp, stack(dbn), dopt), None, 0)
 
-    def aggregate(lanes, t: int, old):
+    def round_weights(t: int, drop):
+        """Round t's member mask (lanes in gather mode, else workers), its
+        normalised aggregation weights, whether any weight is left, and
+        the metric denominator: from the schedule, times the survival mask
+        ``drop`` (on the device) with dropout."""
+        if drop is None:
+            return (member_dev[t], weight_dev[t], bool(any_alive[t]),
+                    float(members[t]))
+        m = member_dev[t] * (drop[groups_dev[t]] if gather_mode else drop)
+        w = exp_dev[t if gather_mode else 0] * m
+        total = w.sum()
+        return (m, w / torch.clamp(total, min=1e-12), total > 0,
+                torch.clamp(m.sum(), min=1.0))
+
+    def aggregate(lanes, w, alive, old):
         """Score-weighted aggregate over round t's lanes; if the weights sum
         to zero the round is a no-op and the old params stay."""
-        if not any_alive[t]:
+        if alive is False:
             return old
-        return collectives.weighted_avg_tree(lanes, weight_dev[t])
+        avg = collectives.weighted_avg_tree(lanes, w)
+        if alive is True:
+            return avg
+        return tree_map(lambda a, b: torch.where(alive, a, b), avg, old)
 
-    def metrics_of(d_loss, g_loss, t: int):
-        m = member_dev[t]
-        return {"d_loss": (d_loss * m).sum() / float(members[t]),
-                "g_loss": (g_loss * m).sum() / float(members[t])}
+    def metrics_of(d_loss, g_loss, m, denom):
+        return {"d_loss": (d_loss * m).sum() / denom,
+                "g_loss": (g_loss * m).sum() / denom}
 
     def round_fn(state: FedState, streams=None):
         """One federated round; ``streams`` as for FL-GAN, for all W
         workers also in gather mode (the sampled lanes take ``z[group]``)."""
         t = state.t
-        starts, z1, z2 = streams_for(t, streams)
+        starts, z1, z2, drop = streams_for(t, streams)
+        m, w, alive, denom = round_weights(t, drop)
 
         if gather_mode:
             # ---- train only the sampled lanes -------------------------
@@ -304,30 +357,36 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
                 shards[idx], starts, z1[idx], z2[idx])
             # scatter local state back; duplicate lanes (lane_valid == 0,
             # the degenerate schedule only) are dropped, so each worker is
-            # written once
+            # written once; with dropout a dropped lane writes its old state
             if lane_valid[t].all():
                 src, dst = None, idx
             else:
                 src = torch.from_numpy(np.flatnonzero(lane_valid[t])).to(dev)
                 dst = idx[src]
+            live = None if drop is None else \
+                (m if src is None else m[src]) > 0
 
             def scatter(old_full, new_lanes):
                 def put(full, lane):
                     out = full.clone()
-                    out[dst] = lane if src is None else lane[src]
+                    new = lane if src is None else lane[src]
+                    if live is not None:
+                        new = torch.where(live.reshape(
+                            (-1,) + (1,) * (new.ndim - 1)), new, full[dst])
+                    out[dst] = new
                     return out
                 return tree_map(put, old_full, new_lanes)
 
             opt_of = lambda old, new: common.AdamState(
                 *scatter(tuple(old), tuple(new)))
-            new_g = NetState(aggregate(g.params, t, state.g.params),
+            new_g = NetState(aggregate(g.params, w, alive, state.g.params),
                              scatter(state.g.bn, g.bn),
                              opt_of(state.g.opt, g.opt))
-            new_d = NetState(aggregate(d.params, t, state.d.params),
+            new_d = NetState(aggregate(d.params, w, alive, state.d.params),
                              scatter(state.d.bn, d.bn),
                              opt_of(state.d.opt, d.opt))
             return (FedState(new_g, new_d, None, t + 1),
-                    metrics_of(d_loss, g_loss, t))
+                    metrics_of(d_loss, g_loss, m, denom))
 
         # ---- full-width path (kernel / full participation) ------------
         bcast = lambda tree: collectives.broadcast_tree(tree, W)
@@ -337,16 +396,15 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
             shards, starts, z1, z2)
         # local state (opt, BN) advances only for sampled workers —
         # unsampled workers stay blocked on their queue in the reference
-        mask = member_dev[t]
-        sel = lambda old, new: collectives.select_update_tree(old, new, mask)
+        sel = lambda old, new: collectives.select_update_tree(old, new, m)
         opt_of = lambda old, new: common.AdamState(
             *sel(tuple(old), tuple(new)))
-        new_g = NetState(aggregate(g.params, t, state.g.params),
+        new_g = NetState(aggregate(g.params, w, alive, state.g.params),
                          sel(state.g.bn, g.bn), opt_of(state.g.opt, g.opt))
-        new_d = NetState(aggregate(d.params, t, state.d.params),
+        new_d = NetState(aggregate(d.params, w, alive, state.d.params),
                          sel(state.d.bn, d.bn), opt_of(state.d.opt, d.opt))
         return (FedState(new_g, new_d, None, t + 1),
-                metrics_of(d_loss, g_loss, t))
+                metrics_of(d_loss, g_loss, m, denom))
 
     # the server evaluates with a net whose BN buffers were never trained
     # (deserialize moves params only, fegan.py:169): the fixed init BN

@@ -1,0 +1,217 @@
+"""AC-GAN and MD-GAN: central generator(s), distributed discriminators,
+loss feedback.
+
+Port of ``cglgan_tpu/algos/mdgan_family.py`` (MLP models, float32 or
+bfloat16, one device).  Every round each server's G makes a detached fake
+batch Xd (train mode, so its BN buffers advance); every client trains its
+D ``epoch`` steps on (real window, Xd); the server's G then takes one Adam
+step on the mean of its clients' losses ``adv(D(G(z_g)), 1)`` through the
+UPDATED Ds (ACGAN/2DMG/acgan.py:102-257, MDGAN/MNIST/mdgan.py:107-297).
+MD-GAN has one server (``num_servers=1``); AC-GAN S servers of k clients.
+
+Dropout (``dropout_rate > 0``): a dropped client keeps its D and its loss
+counts for nothing; a server's G loss is the mean over its survivors
+(``max(survivors, 1)``), the metrics the mean over servers of those means.
+
+Every E rounds (``E > 0``, at ``(t + 1) % E == 0``) the Ds are exchanged;
+the Adam state stays with the client:
+* MD-GAN: the D-swap over all W clients, ``d_swap="ring"`` (client i's D to
+  client i+1) or ``"shuffle"`` (a fresh permutation a swap);
+* AC-GAN: within a server's block, ``gossip="mean"`` (the block mean) or
+  ``"delta"`` (``fed/collectives.py`` ``delta_share_tree``, with per-client
+  anchors for params and BN carried in the state's ``lam`` slot, zero at
+  init and replaced on exchange rounds only).
+
+Layout: G state stacked ``(S, ...)``, D state flat ``(W, ...)`` with
+clients ``[s*k, (s+1)*k)`` on server s (viewed ``(S, k, ...)`` where a
+server sees only its own clients).  The local-D phase runs the fused CUDA
+kernel (``ops/fused_dstep.py``) when ``fused_dstep.eligible`` says so — the
+reference's rule: auto at epoch > 1 in float32, forced by
+``pallas_dstep=True`` (also in bfloat16), never with dropout — and
+autograd otherwise.  The kernel path's G loss is the plain mean over the
+server's clients, as the reference's (equal to the masked mean when every
+client survives).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cglgan_tpu_torch.algos import common
+from cglgan_tpu_torch.algos.common import FedState, NetState
+from cglgan_tpu_torch.algos.runner import Runner
+from cglgan_tpu_torch.core import device as device_mod
+from cglgan_tpu_torch.core import prng
+from cglgan_tpu_torch.core.dtypes import torch_dtype
+from cglgan_tpu_torch.data.partition import Partition
+from cglgan_tpu_torch.fed import collectives
+from cglgan_tpu_torch.models.zoo import models_for_config
+from cglgan_tpu_torch.ops import fused_dstep
+from cglgan_tpu_torch.utils.tree import tree_map, tree_unflatten
+
+
+def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
+    """algo == "acgan" (S servers) or "mdgan" (one central G)."""
+    dev = device_mod.resolve(device)
+    common.check_supported(cfg)
+    S, k, W = cfg.num_servers, cfg.clients_per_server, cfg.num_workers
+    if cfg.algo == "mdgan" and S != 1:
+        raise ValueError("mdgan has one central generator (num_servers=1)")
+    g_model, d_model = models_for_config(cfg)
+    adv = common.make_adv_loss(cfg.resolved_d_head)
+    B, zdim = cfg.batch_size, cfg.latent_dim
+    dtype = torch_dtype(cfg)
+    max_len = part.data.shape[1]
+    shards = torch.from_numpy(
+        np.ascontiguousarray(part.data.reshape(W, max_len, -1))).to(dev)
+    din = shards.shape[2]
+
+    d_step = common.d_epoch_steps(
+        common.d_step_fn(d_model, adv, cfg.lr_d, cfg.b1, cfg.b2, B,
+                         cfg.is_image, d_loss_half=False, dtype=dtype),
+        cfg.epoch)
+    use_kernel = fused_dstep.eligible(cfg)
+    dropout = cfg.dropout_rate > 0.0
+    exchange = cfg.E > 0
+    swap = exchange and cfg.algo == "mdgan"
+    shuffle = swap and cfg.d_swap == "shuffle"
+    delta = exchange and cfg.algo == "acgan" and cfg.gossip == "delta"
+
+    def init_state() -> FedState:
+        gp, gbn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), S,
+                               dtype)
+        dp, dbn = d_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_D), W,
+                               dtype)
+        to = lambda tree: tree_map(lambda x: x.to(dev), tree)
+        gp, gbn, dp, dbn = to(gp), to(gbn), to(dp), to(dbn)
+        # the delta gossip's per-client anchors start at zero, as the
+        # reference sketch's ``w[key] = 0`` (ACGAN/MNIST/acgan.py:235-237)
+        aux = tree_map(torch.zeros_like, (dp, dbn)) if delta else None
+        return FedState(NetState(gp, gbn, common.adam_init(gp, S)),
+                        NetState(dp, dbn, common.adam_init(dp, W)), aux, 0)
+
+    def route(fake):
+        """A server's (S, B, ...) batch to each of its k clients."""
+        return fake.reshape(S, 1, B, din).expand(S, k, B, din) \
+            .reshape(W, B, din)
+
+    def server_mean(x, mask):
+        """(W,) per-client values -> (S,): the mean over a server's
+        clients, or with ``mask`` (S, k) over its survivors
+        (``max(survivors, 1)``)."""
+        x = x.reshape(S, k)
+        if mask is None:
+            return x.mean(dim=1)
+        return (x * mask).sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1.0)
+
+    def g_update(g: NetState, gbn1, z_g, d_new: NetState, mask):
+        """One G forward from gbn1 through each server's k updated Ds, one
+        Adam step on each server's ``server_mean`` of its clients' losses.
+        Returns (new G, G loss (S,))."""
+        gp, leaves = common.with_grad(g.params)
+        with torch.enable_grad():
+            fake, gbn2 = g_model.apply(gp, gbn1, z_g, train=True)
+            out, _ = d_model.apply(d_new.params, d_new.bn, route(fake),
+                                   train=True)
+            g_loss = server_mean(adv(out, 1.0), mask)
+            grads = torch.autograd.grad(g_loss.sum(), leaves)
+        new_p, new_opt = common.adam_update(
+            g.params, tree_unflatten(g.params, list(grads)), g.opt,
+            cfg.lr_g, cfg.b1, cfg.b2)
+        return NetState(new_p, gbn2, new_opt), g_loss.detach()
+
+    def extras_for(t: int, streams):
+        """(survival draw or None, swap permutation or None): injected as
+        the 4th and 5th entries of ``streams`` (a missing 5th is None) or
+        drawn for round t."""
+        if streams is not None and len(streams) > 3:
+            return streams[3], (streams[4] if len(streams) > 4 else None)
+        alive = prng.survival(cfg, t, W, dev) if dropout else None
+        perm = prng.swap_permutation(cfg, t, W, dev) if shuffle else None
+        return alive, perm
+
+    def round_fn(state: FedState, streams=None):
+        """One federated round.  ``streams``: optional injected
+        ``(starts (E,), z_d (S,B,zdim), z_g (S,B,zdim)[, alive (W,),
+        perm (W,)])`` (``alive`` the survival draw, ``perm`` MD-GAN's
+        shuffle; either may be None where the config uses none); by default
+        they are drawn from ``core.prng`` for round ``state.t``."""
+        t = state.t
+        alive, perm = extras_for(t, streams)
+        if streams is None:
+            streams = prng.round_streams(cfg, t, max_len, dev)
+        starts, z_d, z_g = streams[:3]
+        z_d = torch.as_tensor(z_d, device=dev).to(dtype)
+        z_g = torch.as_tensor(z_g, device=dev).to(dtype)
+        starts = [int(s) for s in starts]
+        g = state.g
+
+        if use_kernel:
+            new_d, d_loss, gbn1 = fused_dstep.kernel_local_phase(
+                cfg, g_model, g, state.d, shards, starts, z_d)
+            new_g, g_loss = g_update(g, gbn1, z_g, new_d, None)
+            metrics = {"d_loss": d_loss.mean(), "g_loss": g_loss.mean()}
+        else:
+            with torch.no_grad():
+                xd, gbn1 = g_model.apply(g.params, g.bn, z_d, train=True)
+            fake = xd.reshape(B, din) if S == 1 else route(xd)
+            new_d, d_loss = d_step(state.d, shards, starts, fake)
+            mask = None
+            if dropout:
+                m = common.participation_mask(
+                    torch.as_tensor(alive, device=dev), cfg.dropout_rate)
+                old = state.d
+                new_d = NetState(
+                    collectives.select_update_tree(old.params, new_d.params,
+                                                   m),
+                    collectives.select_update_tree(old.bn, new_d.bn, m),
+                    common.AdamState(*collectives.select_update_tree(
+                        tuple(old.opt), tuple(new_d.opt), m)))
+                mask = m.reshape(S, k)
+            new_g, g_loss = g_update(g, gbn1, z_g, new_d, mask)
+            metrics = {"d_loss": server_mean(d_loss, mask).mean(),
+                       "g_loss": g_loss.mean()}
+
+        lam = state.lam
+        if exchange and (t + 1) % cfg.E == 0:
+            blocked = lambda tree: tree_map(
+                lambda x: x.reshape((S, k) + x.shape[1:]), tree)
+            flat = lambda tree: tree_map(
+                lambda x: x.reshape((W,) + x.shape[2:]), tree)
+            cur = (new_d.params, new_d.bn)
+            if shuffle:
+                cur = collectives.permute_tree(
+                    cur, torch.as_tensor(perm, device=dev))
+            elif swap:
+                cur = collectives.ring_shift_tree(cur, 1)
+            elif delta:
+                cur, lam = collectives.delta_share_tree(
+                    blocked(cur), blocked(lam), k, blocked=True)
+                cur, lam = flat(cur), flat(lam)
+            else:
+                cur = flat(collectives.neighbor_share_tree(blocked(cur), k,
+                                                           blocked=True))
+            new_d = NetState(cur[0], cur[1], new_d.opt)
+        return FedState(new_g, new_d, lam, t + 1), metrics
+
+    @torch.no_grad()
+    def gen(state: FedState, z):
+        """Eval-mode samples from caller latents z (n, zdim), n divisible
+        by S; server i generates from the block z[i*per:(i+1)*per]."""
+        per = z.shape[0] // S
+        out, _ = g_model.apply(state.g.params, state.g.bn,
+                               z.reshape(S, per, zdim), train=False)
+        return out.reshape((S * per,) + tuple(out.shape[2:]))
+
+    def sample(state: FedState, n: int):
+        """Eval samples: each server gives n/S (the painter pools the
+        servers' fixed_z outputs, ACGAN/2DMG/acgan.py:69-75)."""
+        per = n // S
+        z = torch.stack([
+            torch.randn((per, zdim),
+                        generator=prng.generator(cfg.seed, prng.ROLE_EVAL, i))
+            for i in range(S)]).to(dev)
+        return gen(state, z.reshape(S * per, zdim))
+
+    return Runner(cfg, part, init_state, round_fn, sample, gen=gen,
+                  gen_batch_multiple=S, device=dev)

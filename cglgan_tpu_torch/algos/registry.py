@@ -1,9 +1,9 @@
 """Algorithm registry: config -> Runner, loading data and partitioning.
 
 Port of ``cglgan_tpu/algos/registry.py`` for the CGL family (CGL-GAN,
-CAP-GAN, Mix-G) on the image datasets and on 2DMG, and FL-GAN / FeGAN on
-2DMG; everything else raises ``NotImplementedError`` naming its ROADMAP
-item.
+CAP-GAN, Mix-G) and the MD-GAN family (AC-GAN, MD-GAN) on the image
+datasets and on 2DMG, and FL-GAN / FeGAN on 2DMG; everything else raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -60,5 +60,8 @@ def build_runner(cfg, part: Optional[Partition] = None, device=None):
     if cfg.algo == "fegan":
         from cglgan_tpu_torch.algos.fedavg_family import build_fegan
         return build_fegan(cfg, part, dev)
+    if cfg.algo in ("acgan", "mdgan"):
+        from cglgan_tpu_torch.algos.mdgan_family import build_mdgan_family
+        return build_mdgan_family(cfg, part, dev)
     from cglgan_tpu_torch.algos.cgl_family import build_cgl_family
     return build_cgl_family(cfg, part, dev)

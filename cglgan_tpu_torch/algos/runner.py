@@ -4,7 +4,8 @@ Port of ``cglgan_tpu/algos/runner.py``.  A round is one Python call
 ``round_fn(state) -> (state, metrics)`` whose work is queued on the device;
 ``train`` loops rounds and keeps each tick's metric sums on the device, so
 the host waits for the device once per tick (the counterpart of the
-reference's ``scan_rounds`` chunk means).  Capturing rounds into CUDA
+reference's ``scan_rounds`` chunk means), and then for the evaluator's
+metrics, if any.  Capturing rounds into CUDA
 graphs is a later ROADMAP item (queue 1 item 7).
 """
 from __future__ import annotations
@@ -38,15 +39,18 @@ def train(runner: Runner,
 
     Returns {"state": final_state, "history": [tick dicts]}; each tick
     carries the round metrics averaged over its interval, the absolute
-    ``round``, ``wall_s`` and ``rounds_per_s``.  Workload evaluation
-    (FID/IS, KL/DS) is not ported yet: ``evaluator`` must stay False."""
-    if evaluator is not False:
-        raise NotImplementedError("workload evaluation (evalx) is not ported "
-                                  "yet (ROADMAP queue 1 item 13)")
+    ``round``, ``wall_s`` and ``rounds_per_s``.  ``evaluator``: False (the
+    default) skips workload evaluation; a callable ``(runner, state) ->
+    dict`` adds its metrics to every tick; None builds
+    ``evalx.evaluator.make_evaluator`` (KL / DS / mode coverage on 2DMG;
+    image configs raise, ROADMAP queue 1 item 13)."""
     cfg = runner.cfg
     rounds = rounds if rounds is not None else cfg.num_communication
     eval_every = eval_every if eval_every is not None else cfg.num_plt
     eval_every = max(1, min(eval_every, rounds))
+    if evaluator is None:
+        from cglgan_tpu_torch.evalx.evaluator import make_evaluator
+        evaluator = make_evaluator(cfg, runner.part)
     if state is None:
         state = runner.init_state()
 
@@ -65,6 +69,8 @@ def train(runner: Runner,
         done += interval
         tick: Dict[str, Any] = dict(zip(keys, means))
         tick["round"] = int(state.t)
+        if evaluator:
+            tick.update(evaluator(runner, state))
         tick["wall_s"] = time.perf_counter() - t0
         tick["rounds_per_s"] = done / tick["wall_s"]
         history.append(tick)

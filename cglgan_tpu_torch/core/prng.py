@@ -21,6 +21,7 @@ ROLE_BATCH = 5       # real-data minibatch sampling
 ROLE_EVAL = 6        # fixed_z evaluation noise
 ROLE_LOCAL = 7       # local-loop noise
 ROLE_SWAP = 8        # MD-GAN D-swap shuffle permutation
+FOLD_SURVIVAL = 7    # a round's dropout draw (the reference's fold_in(key, 7))
 
 _MASK64 = (1 << 64) - 1
 
@@ -65,6 +66,21 @@ def round_streams(cfg, t: int, max_len: int, device
     z_d = torch.randn((S, B, zdim), generator=g, device=device)
     z_g = torch.randn((S, B, zdim), generator=g, device=device)
     return starts, z_d, z_g
+
+
+def survival(cfg, t: int, n: int, device) -> torch.Tensor:
+    """Round ``t``'s dropout draw: bool (n,) Bernoulli(1 - dropout_rate),
+    the input of ``algos/common.py`` ``participation_mask``."""
+    g = generator(cfg.seed, ROLE_LOCAL, t, FOLD_SURVIVAL, device=device)
+    return torch.rand((n,), generator=g, device=device) \
+        < 1.0 - cfg.dropout_rate
+
+
+def swap_permutation(cfg, t: int, n: int, device) -> torch.Tensor:
+    """Round ``t``'s MD-GAN shuffle D-swap: a permutation of the n clients
+    (int64 (n,))."""
+    g = generator(cfg.seed, ROLE_LOCAL, t, ROLE_SWAP, device=device)
+    return torch.randperm(n, generator=g, device=device)
 
 
 def sweep_streams(cfg, t: int, max_len: int, steps: int, device

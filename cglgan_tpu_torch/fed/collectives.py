@@ -1,8 +1,8 @@
 """Federated exchanges as ops on stacked tensors (leading axis = members).
 
-The functions of ``cglgan_tpu/fed/collectives.py`` that the CAP-GAN and
-FedAvg-family rounds reach, on trees (lists/dicts) of stacked tensors.  Single-device:
-the multi-GPU forms (``torch.distributed``) are a later ROADMAP item.
+The functions of ``cglgan_tpu/fed/collectives.py``, on trees (lists/dicts)
+of stacked tensors.  Single-device: the multi-GPU forms
+(``torch.distributed``) are a later ROADMAP item.
 
 bfloat16 leaves round as the reference's do under JAX: weights are cast to
 the leaf's dtype before the product, sums and means over the members
@@ -50,6 +50,17 @@ def sigma_mix(self_tree, avg_tree, segema: float):
                     + weak(1.0 - segema, b) * b, self_tree, avg_tree)
 
 
+def _group_mean(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean(x, axis=1, keepdims=True)`` over a small group axis as
+    XLA computes it on the CPU, bit for bit: the members added in order (in
+    float32 for bfloat16), times float32(1 / n), rounded once."""
+    n = x.shape[1]
+    acc = x[:, 0].float() if x.dtype == torch.bfloat16 else x[:, 0]
+    for i in range(1, n):
+        acc = acc + x[:, i]
+    return (acc * (1.0 / n)).to(x.dtype).unsqueeze(1)
+
+
 def neighbor_share_tree(stacked, group_size: int, *, blocked: bool = False):
     """Replace each member with the mean of its contiguous group.
     ``blocked=True``: leaves are already ``(G, group_size, ...)``."""
@@ -58,13 +69,37 @@ def neighbor_share_tree(stacked, group_size: int, *, blocked: bool = False):
             if x.shape[1] != group_size:
                 raise ValueError(f"blocked share: axis 1 is {x.shape[1]}, "
                                  f"expected {group_size}")
-            return dtypes.mean(x, 1, keepdim=True).expand_as(x).clone()
+            return _group_mean(x).expand_as(x).clone()
         g = x.shape[0] // group_size
         grouped = x.reshape((g, group_size) + tuple(x.shape[1:]))
-        mean = dtypes.mean(grouped, 1, keepdim=True)
-        return mean.expand_as(grouped).reshape(x.shape)
+        return _group_mean(grouped).expand_as(grouped).reshape(x.shape)
 
     return tree_map(share, stacked)
+
+
+def ring_shift_tree(stacked, shift: int = 1):
+    """Client i's model moves to client (i + shift) mod N: MD-GAN's ring
+    D-swap (MDGAN/MNIST/mdgan.py:158-164)."""
+    return tree_map(lambda x: torch.roll(x, shift, dims=0), stacked)
+
+
+def permute_tree(stacked, perm: torch.Tensor):
+    """Client i takes member ``perm[i]``'s state: MD-GAN's shuffle D-swap,
+    with ``perm`` drawn fresh per swap event."""
+    return tree_map(lambda x: x.index_select(0, perm), stacked)
+
+
+def delta_share_tree(stacked, anchor, group_size: int, *,
+                     blocked: bool = False):
+    """AC-GAN's delta-accumulating gossip (ACGAN/MNIST/acgan.py:240-263):
+    every member's delta ``p - w`` from its anchor ``w`` is averaged over
+    its group, the new state is ``w + mean delta`` and the new anchor the
+    pre-exchange state.  From the zero anchor the first exchange equals the
+    group mean; later ones do not.  Returns ``(new_stacked, new_anchor)``;
+    ``blocked`` as in ``neighbor_share_tree``."""
+    deltas = tree_map(lambda p, w: p - w, stacked, anchor)
+    mean_delta = neighbor_share_tree(deltas, group_size, blocked=blocked)
+    return tree_map(lambda w, s: w + s, anchor, mean_delta), stacked
 
 
 def masked_weighted_avg_tree(stacked, weights: torch.Tensor,

@@ -7,7 +7,10 @@ so this module imports neither jax nor optax.  CAP-GAN: the reference stacks
 D state ``(S, k, ...)``; the port keeps it flat ``(W, ...)``.  FedAvg family
 (flgan, fegan): both packages keep G and D params unstacked and the Adam
 state (fegan: the BN state too) stacked ``(W, ...)``, and ``lam`` is None,
-so every array carries over as it is.  A multipath G's trees are dicts
+so every array carries over as it is.  AC-GAN and MD-GAN: D state as for
+CAP-GAN, and the ``lam`` slot holds the delta gossip's anchors, a
+``(params, bn)`` pair shaped like the D's (flattened the same way), or
+None.  A multipath G's trees are dicts
 ``{"trunk": [...], "heads": [...]}`` in both packages (heads ``(S, k, ...)``)
 and carry over as dicts.  ``to_numpy`` is the inverse view used by the
 tests: plain dicts of numpy arrays in the port's layout.
@@ -78,6 +81,14 @@ def from_jax_numpy(tree, cfg, device) -> FedState:
     if cfg.algo in ("flgan", "fegan"):
         return FedState(net(tree.g, False), net(tree.d, False), None,
                         int(tree.t))
+    if cfg.algo in ("acgan", "mdgan"):
+        lam = None
+        if tree.lam is not None:           # the delta anchors (params, bn)
+            flat = lambda x: tensor_from_numpy(
+                np.asarray(x).reshape((W,) + np.shape(x)[2:]), dev)
+            lam = tuple(tree_map(flat, list(sub)) for sub in tree.lam)
+        return FedState(net(tree.g, False), net(tree.d, True), lam,
+                        int(tree.t))
     return FedState(net(tree.g, False), net(tree.d, True),
                     torch.from_numpy(np.array(tree.lam, np.float32)).to(dev),
                     int(tree.t))
@@ -91,6 +102,6 @@ def to_numpy(state: FedState, bf16: str = "keep") -> Dict[str, Any]:
                 "count": npy(n.opt.count), "mu": tree_map(npy, n.opt.mu),
                 "nu": tree_map(npy, n.opt.nu)}
 
-    lam = None if state.lam is None else npy(state.lam)
+    lam = None if state.lam is None else tree_map(npy, state.lam)
     return {"g": net(state.g), "d": net(state.d), "lam": lam,
             "t": int(state.t)}

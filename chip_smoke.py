@@ -14,7 +14,9 @@ Phases, each printing one JSON line:
             enqueue a call beside the device's time to run it; the CGL
             path's shapes with distinct fakes a client: CGL-GAN (W=20,
             784-512-256-1, sigmoid, x1), Mix-G (W=20, ...-2, x0.5) and 2DMG
-            CGL-GAN (W=10, float rows, 2-128-256-1); then small ragged
+            CGL-GAN (W=10, float rows, 2-128-256-1); AC-GAN's (W=10, a
+            server's fake batch to each of its k=2 clients, 784-512-256-2,
+            2-logit CE at x1); then small ragged
             shapes, W=3, E=3, B=37, 50-24-40 and W=2, E=2, B=19, 33-27-30
             (u8, shared fakes) and W=3, E=3, B=37, 2-24-40 and the second
             again (float rows, per-client fakes), for errors only, so that
@@ -36,9 +38,10 @@ Phases, each printing one JSON line:
             2-24-40 (float rows), held to the plain version with the state
             returned in bf16, timed beside the bf16 autograd D phase;
   reference a shrunk CAP-GAN, CGL-GAN (multipath and iid=0), Mix-G, 2DMG
-            CGL-GAN, FL-GAN and FeGAN on the card (kernel path) against the
-            same rounds on the CPU (plain path) from one init and one
-            stream;
+            CGL-GAN, MD-GAN (shuffle D-swap), AC-GAN (delta gossip; and
+            dropout, autograd), FL-GAN and FeGAN on the card (kernel path)
+            against the same rounds on the CPU (plain path) from one init
+            and one stream;
   main      16-client CAP-GAN on MNIST shapes at epoch=5 (the kernel path),
             20 rounds through ``build_runner`` and ``train``; the kernel's
             launch count must rise by exactly 20 and every metric be finite;
@@ -55,19 +58,29 @@ Phases, each printing one JSON line:
             10 workers / 5 servers on 2DMG (iid=2): 20 rounds each at
             epoch=5 (``fused_dstep``'s count must rise by exactly 20), and
             CGL-GAN on MNIST shapes at epoch=1 too (the count must stay 0);
+  mdgan     MD-GAN (10 workers, 1 server) and AC-GAN (10 workers / 5
+            servers, 2-logit D) on MNIST shapes at epoch=5 (the kernel
+            path) and epoch=1, MD-GAN (10 workers, iid=2) and AC-GAN (20 /
+            5, 10 000 samples a class) on 2DMG at epoch=5, and at epoch=1
+            with E=2 the ring and shuffle D-swaps, the mean and delta
+            gossips and AC-GAN with dropout_rate=0.2: 20 rounds each (the
+            count must rise by exactly 20 where the kernel is engaged, and
+            stay 0 elsewhere); the 2DMG runs print the evaluator's KL,
+            Distribution Score and mode coverage;
   bf16      ``dtype="bfloat16"``: shrunk CAP-GAN (forced kernel and
             autograd), CGL-GAN (forced kernel) and FL-GAN on 2DMG, card
             against CPU at a bf16 tolerance; then the CAP-GAN main path at
             epoch=5 with ``pallas_dstep=True`` (the count must rise by
             20), epoch=5 auto and epoch=1 (autograd: it must stay 0),
-            CGL-GAN (20 workers / 5 servers) at epoch=5 forced and FL-GAN
-            on 2DMG (``force_dtype``, default path), 20 rounds each.
+            CGL-GAN (20 workers / 5 servers) and MD-GAN (10 workers) at
+            epoch=5 forced and FL-GAN on 2DMG (``force_dtype``, default
+            path), 20 rounds each.
 The round phases also profile a few further rounds (device time by kernel,
 busy share; ``cglgan_tpu_torch/utils/profiling.py``).
 Then the card line, the ``kernels`` line and, last, the ok line.  Any
 failure raises and exits non-zero; without a card it exits 2 and prints
 no result.  ``--phases a,b`` runs only the named phases (of ``dstep
-dstep_bf16 sweep adam reference main fedavg cgl bf16``) for a short first
+dstep_bf16 sweep adam reference main fedavg cgl mdgan bf16``) for a short first
 look at a new kernel; the
 ``kernels`` and ok lines are printed only by a full run.  Imports nothing
 of JAX.
@@ -282,12 +295,13 @@ def compare(got, ref, tol=TOL_SCALED, tol_loss=TOL_LOSS):
 
 
 def dstep_inputs(gen, W, E, B, din, h1, h2, dout, six=None, max_len=1000,
-                 float_rows=False, per_client=False):
+                 float_rows=False, per_client=False, servers=None):
     """Seeded inputs of one fused_d_epoch_steps call on the card: state
     (``six`` or random weights at 1/sqrt(fan-in)), nonzero moments, Adam
     counts that differ between clients, shards (u8 images, or float32 2DMG
     points: ring modes plus noise), window starts, fakes (shared (B, din),
-    or per client (W, B, din))."""
+    or per client (W, B, din): a batch a client, or with ``servers`` a
+    batch a server, routed to each of its W / servers clients)."""
     import torch
     dev = torch.device("cuda")
     if six is None:
@@ -313,9 +327,13 @@ def dstep_inputs(gen, W, E, B, din, h1, h2, dout, six=None, max_len=1000,
         shards = torch.randint(0, 256, (W, max_len, din), generator=gen,
                                dtype=torch.uint8).to(dev)
     starts = torch.randint(0, max_len - B + 1, (E,), generator=gen).tolist()
-    fake_shape = (W, B, din) if per_client else (B, din)
-    fake = torch.tanh(torch.randn(fake_shape, generator=gen)).to(dev)
-    return six, mu6, nu6, count, shards, starts, fake
+    if servers:
+        fake = torch.tanh(torch.randn((servers, 1, B, din), generator=gen))
+        fake = fake.expand(servers, W // servers, B, din).reshape(W, B, din)
+    else:
+        fake_shape = (W, B, din) if per_client else (B, din)
+        fake = torch.tanh(torch.randn(fake_shape, generator=gen))
+    return six, mu6, nu6, count, shards, starts, fake.contiguous().to(dev)
 
 
 def dstep_call(args, kw):
@@ -326,9 +344,12 @@ def dstep_call(args, kw):
         *args, is_image=not args[4].is_floating_point(), **kw)
 
 
-def dstep_check(args, kw, **tols):
+def dstep_check(args, kw, f64=False, **tols):
     """One kernel call against the plain version on the same inputs, which
-    the call must leave as they were."""
+    the call must leave as they were.  ``f64``: also against the plain
+    version in float64, and a group passes within its tolerance of either
+    (each group's ``vs_plain_f64``; ``plain_f32_vs_f64`` says how far
+    float32 rounding alone moves the plain version)."""
     import torch
     from cglgan_tpu_torch.ops import fused_dstep
     state = [t for ts in args[:3] for t in ts]
@@ -338,7 +359,16 @@ def dstep_check(args, kw, **tols):
     if not all(torch.equal(x, y) for x, y in zip(before, state)):
         raise AssertionError("fused_dstep modified its inputs")
     ref = fused_dstep.fused_d_epoch_steps_plain(*args, **kw)
-    return compare(got, ref, **tols)
+    errs = compare(got, ref, **tols)
+    if f64:
+        ref64 = dstep_plain64(args, kw)
+        errs64 = compare(got, ref64, **tols)
+        plain64 = compare(ref, ref64, **tols)
+        for g, e in errs.items():
+            e["vs_plain_f64"] = errs64[g]
+            e["plain_f32_vs_f64"] = plain64[g]["max_scaled_err"]
+            e["ok"] = e["ok"] or errs64[g]["ok"]
+    return errs
 
 
 # no size a multiple of a tile or of 8; the first has rows of the first
@@ -358,11 +388,30 @@ CGL_SHAPES = (("cglgan", 20, DIN, H1, H2, 1, "sigmoid", False, False),
               ("cglgan-2dmg", 10, 2, 128, 256, 1, "sigmoid", False, True))
 
 
+# the MD-GAN family's new kernel shape: AC-GAN on MNIST shapes (label, W,
+# servers, din, h1, h2, out, head, x0.5): a server's batch to each of its
+# k=2 clients, the 2-logit CE head at x1
+MDGAN_SHAPES = (("acgan", 10, 5, DIN, H1, H2, 2, "logits2", False),)
+
+
+def dstep_plain64(args, kw):
+    """The plain version of fused_dstep run in float64 on ``args`` (float32
+    state), its state and losses rounded to float32 once at the end."""
+    from cglgan_tpu_torch.ops import fused_dstep
+    wide = lambda ts: [t.double() for t in ts]
+    r64 = fused_dstep.fused_d_epoch_steps_plain(
+        *map(wide, args[:3]), *args[3:6], args[6].double(), **kw)
+    narrow = lambda ts: [t.float() for t in ts]
+    return (*map(narrow, r64[:3]), r64[3], r64[4].float())
+
+
 def dstep_shape(card_name, label, gen, d_model, W, din, h1, h2, dout, head,
-                half, float_rows=False, per_client=False):
-    """fused_dstep at one full shape: errors against the plain version,
-    the kernel's time (call, host enqueue, device), the plain version's and
-    the autograd D phase's, and the bound; raises if they disagree."""
+                half, float_rows=False, per_client=False, servers=None,
+                f64=False):
+    """fused_dstep at one full shape: errors against the plain version
+    (``f64``: as ``dstep_check``), the kernel's time (call, host enqueue,
+    device), the plain version's and the autograd D phase's, and the bound;
+    raises if they disagree."""
     from cglgan_tpu_torch.algos import common
     from cglgan_tpu_torch.ops import fused_dstep
 
@@ -370,10 +419,11 @@ def dstep_shape(card_name, label, gen, d_model, W, din, h1, h2, dout, head,
     args = dstep_inputs(gen, W, E, B, din, h1, h2, dout,
                         six=[x for p in params if p is not None
                              for x in (p["w"], p["b"])],
-                        float_rows=float_rows, per_client=per_client)
+                        float_rows=float_rows, per_client=per_client,
+                        servers=servers)
     six, mu6, nu6, count, shards, starts, fake = args
     kw = dict(head=head, d_loss_half=half, lr=2e-4, b1=0.5, b2=0.999)
-    errs = dstep_check(args, kw)
+    errs = dstep_check(args, kw, f64)
 
     # timings on the same inputs
     call = lambda: dstep_call(args, kw)
@@ -395,7 +445,8 @@ def dstep_shape(card_name, label, gen, d_model, W, din, h1, h2, dout, head,
     # the bytes.
     flops, nbytes = dstep_work(W, E, B, din, h1, h2, dout,
                                row_bytes=4 if float_rows else 1,
-                               fake_sets=W if per_client else 1)
+                               fake_sets=servers or (W if per_client
+                                                     else 1))
     f32_peak, hbm, tf32_peak = peaks(card_name)
     t_simt = flops / f32_peak * 1e3
     t_ops = min(t_simt, 3 * flops / tf32_peak * 1e3)
@@ -403,7 +454,8 @@ def dstep_shape(card_name, label, gen, d_model, W, din, h1, h2, dout, head,
     res = {"phase": "kernel", "kernel": "fused_dstep", "shape_of": label,
            "head": head, "d_loss_half": half,
            "rows": "float32" if float_rows else "uint8",
-           "fakes": "per client" if per_client else "shared",
+           "fakes": f"a server's to its {W // servers} clients" if servers
+           else "per client" if per_client else "shared",
            "shape": {"W": W, "E": E, "B": B, "din": din, "h1": h1,
                      "h2": h2, "out": dout},
            "errors": errs,
@@ -440,6 +492,18 @@ def phase_kernel(card_name):
             build_discriminator("mnist", dout, in_dim=din)
         results.append(dstep_shape(card_name, label, gen, d_model, w, din,
                                    h1, h2, dout, head, half, rows, True))
+    # the MD-GAN family's: a server's fakes to its clients, also held to
+    # the plain version in float64: on these inputs one LeakyReLU slope that
+    # float32 rounding flips puts the plain version's mu 1.0005e-2 of its
+    # scale from the plain version in float64 (on an H100 80GB HBM3 at
+    # 700 W), and the kernel's rounding may fall on either side
+    for label, w, servers, din, h1, h2, dout, head, half in MDGAN_SHAPES:
+        gen = torch.Generator().manual_seed(3579 + w + dout)
+        results.append(dstep_shape(
+            card_name, label, gen, build_discriminator("mnist", dout,
+                                                       in_dim=din),
+            w, din, h1, h2, dout, head, half, False, True, servers,
+            f64=True))
 
     # small ragged shapes; errors only
     cases = [(shape, False, False) for shape in RAGGED] + \
@@ -998,21 +1062,27 @@ def over_limit(errs, tol):
 def reference_rounds(label, cfg, part, rounds, tol=TOL_SCALED,
                      tol_metrics=1e-4):
     """Card (kernel path) against CPU (plain path) from one init and one
-    stream: ``rounds`` rounds of the CGL family; the card must launch
-    ``fused_dstep`` once a round where the config engages it, else never."""
+    stream: ``rounds`` rounds of the CGL or MD-GAN family (with the latter's
+    survival draw and swap permutation, drawn on the host, in the stream);
+    the card must launch ``fused_dstep`` once a round where the config
+    engages it, else never."""
     from cglgan_tpu_torch.algos.registry import build_runner
     from cglgan_tpu_torch.core import prng
     from cglgan_tpu_torch.ops import fused_dstep
 
     L = part.data.shape[1]
+    W = cfg.num_workers
     gpu = build_runner(cfg, part)
     cpu = build_runner(cfg, part, device="cpu")
     sg, sc = gpu.init_state(), cpu.init_state()
     launched = fused_dstep.launches
     for t in range(rounds):
-        starts, z_d, z_g = prng.round_streams(cfg, t, L, "cpu")
-        sg, mg = gpu.round_fn(sg, (starts, z_d, z_g))
-        sc, mc = cpu.round_fn(sc, (starts, z_d, z_g))
+        streams = prng.round_streams(cfg, t, L, "cpu")
+        if cfg.algo in ("acgan", "mdgan"):
+            streams = (*streams, prng.survival(cfg, t, W, "cpu"),
+                       prng.swap_permutation(cfg, t, W, "cpu"))
+        sg, mg = gpu.round_fn(sg, streams)
+        sc, mc = cpu.round_fn(sc, streams)
     launches = fused_dstep.launches - launched
     expect = rounds if fused_dstep.eligible(cfg) else 0
     errs = state_errs(sg, sc)
@@ -1030,8 +1100,10 @@ def reference_rounds(label, cfg, part, rounds, tol=TOL_SCALED,
 
 
 def phase_reference():
-    """Shrunk CAP-GAN, CGL-GAN (multipath and single path), Mix-G and 2DMG
-    CGL-GAN: card (kernel path) vs CPU (plain path)."""
+    """Shrunk CAP-GAN, CGL-GAN (multipath and single path), Mix-G, 2DMG
+    CGL-GAN, MD-GAN (shuffle D-swap every round) and AC-GAN (delta gossip
+    every round; dropout, on the autograd path): card (kernel path) vs CPU
+    (plain path)."""
     import numpy as np
     from cglgan_tpu_torch.algos.registry import load_partition
     from cglgan_tpu_torch.core.config import FedGANConfig
@@ -1053,6 +1125,13 @@ def phase_reference():
                       ("mixgan", dict(algo="mixgan", iid=1))):
         out.append(reference_rounds(label, FedGANConfig(**kw, **image),
                                     part, 5))
+    for label, kw in (
+            ("mdgan shuffle", dict(algo="mdgan", num_servers=1, E=1,
+                                   d_swap="shuffle")),
+            ("acgan delta", dict(algo="acgan", E=1, gossip="delta")),
+            ("acgan dropout", dict(algo="acgan", dropout_rate=0.5))):
+        out.append(reference_rounds(label, FedGANConfig(
+            **{**image, **kw}), part, 5))
     cfg = FedGANConfig(algo="cglgan", dataset="2dmg", num_workers=4,
                        num_servers=2, num_class=4, num_sample=64,
                        batch_size=16, iid=1, epoch=2)
@@ -1109,10 +1188,42 @@ CGL_RUNS = (("cglgan", "cglgan", CGL_MNIST, 5),
 # the CAP-GAN main path (bench.py:111-113)
 MAIN = dict(dataset="synthetic-mnist", num_workers=16, num_servers=1, iid=1,
             batch_size=100)
+# the MD-GAN family: the archived reference runs
+# (results/runs/{mnist-ref-iid1-mdgan,mnist-ref-iid1-acgan,2dmg-ref-mdgan,
+# 2dmg-ref-acgan}/config.json), on synthetic-mnist for MNIST, at epoch=5
+# (the kernel path) and, on MNIST shapes, at the scripts' own epoch=1;
+# then the exchanges and dropout at epoch=1, E=2
+MDGAN_MNIST = dict(dataset="synthetic-mnist", num_workers=10, num_servers=1,
+                   iid=1, batch_size=100)
+ACGAN_MNIST = dict(dataset="synthetic-mnist", num_workers=10, num_servers=5,
+                   iid=1, batch_size=100)
+MDGAN_2DMG = dict(dataset="2dmg", num_workers=10, num_servers=1,
+                  num_class=10, num_sample=1000, iid=2, batch_size=100,
+                  num_communication=10000)
+ACGAN_2DMG = dict(dataset="2dmg", num_workers=20, num_servers=5,
+                  num_class=10, num_sample=10000, iid=2, batch_size=100,
+                  num_communication=10000)
+MDGAN_RUNS = (("mdgan", "mdgan", MDGAN_MNIST, 5, {}),
+              ("mdgan", "mdgan", MDGAN_MNIST, 1, {}),
+              ("acgan", "acgan", ACGAN_MNIST, 5, {}),
+              ("acgan", "acgan", ACGAN_MNIST, 1, {}),
+              ("mdgan-2dmg", "mdgan", MDGAN_2DMG, 5, {}),
+              ("acgan-2dmg", "acgan", ACGAN_2DMG, 5, {}),
+              ("mdgan ring", "mdgan", MDGAN_MNIST, 1,
+               dict(E=2, d_swap="ring")),
+              ("mdgan shuffle", "mdgan", MDGAN_MNIST, 1,
+               dict(E=2, d_swap="shuffle")),
+              ("acgan mean", "acgan", ACGAN_MNIST, 1,
+               dict(E=2, gossip="mean")),
+              ("acgan delta", "acgan", ACGAN_MNIST, 1,
+               dict(E=2, gossip="delta")),
+              ("acgan dropout", "acgan", ACGAN_MNIST, 1,
+               dict(dropout_rate=0.2)))
 
 
 def phase_rounds(phase, label, algo, base, epoch, part, **extra):
-    """One CGL-family configuration at full width through ``build_runner``
+    """One CGL- or MD-GAN-family configuration at full width through
+    ``build_runner``
     and ``train``: 2 warm-up and ROUNDS timed rounds; ``fused_dstep``'s
     count, set to 0 just before, must rise by ROUNDS where the config
     engages the kernel (epoch > 1 in float32, ``pallas_dstep=True``) and
@@ -1122,7 +1233,8 @@ def phase_rounds(phase, label, algo, base, epoch, part, **extra):
     from cglgan_tpu_torch.algos.registry import build_runner
     from cglgan_tpu_torch.algos.runner import train
     from cglgan_tpu_torch.core.config import FedGANConfig
-    from cglgan_tpu_torch.evalx import hist2d
+    from cglgan_tpu_torch.evalx.evaluator import make_evaluator
+    from cglgan_tpu_torch.models.zoo import models_for_config
     from cglgan_tpu_torch.ops import fused_dstep
     from cglgan_tpu_torch.utils.profiling import profile_rounds
 
@@ -1154,15 +1266,15 @@ def phase_rounds(phase, label, algo, base, epoch, part, **extra):
         raise AssertionError(f"{label}: bad samples {tuple(samples.shape)}")
     res = {"phase": phase, "path": "kernel" if uses_kernel else "autograd",
            "config": {"algo": algo, **base, "epoch": epoch, **extra},
-           "multipath": cfg.algo == "mixgan" or cfg.iid != 0,
+           "multipath": models_for_config(cfg)[0].multipath,
            "shards": list(part.data.shape), "rounds": ROUNDS,
            "wall_s": wall, "rounds_per_s": ROUNDS / wall,
            "fused_dstep_launches": launches, "uses_kernel": uses_kernel,
            "last_tick": out["history"][-1], "peak_mem_gb": peak}
     if not cfg.is_image:
-        real = torch.from_numpy(part.eval_pool).to(samples.device)
-        kl, ds = hist2d.kl_and_distribution_score(samples, real, 16)
-        res.update(kl_score=float(kl), distribution_score=float(ds))
+        # the evaluator's KL, DS and mode coverage (32 bins for MD-GAN)
+        res.update(make_evaluator(cfg, part)(runner, out["state"],
+                                             samples=samples))
     # after the counted run: where a round's time goes
     res["profile"] = profile_rounds(runner, out["state"], PROFILE_ROUNDS)
     emit(res)
@@ -1282,7 +1394,7 @@ def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     all_phases = ("dstep", "dstep_bf16", "sweep", "adam", "reference",
-                  "main", "fedavg", "cgl", "bf16")
+                  "main", "fedavg", "cgl", "mdgan", "bf16")
     ap.add_argument("--phases", default=",".join(all_phases),
                     help="comma-separated subset of: " + " ".join(all_phases))
     phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
@@ -1330,7 +1442,9 @@ def main(argv=None):
     parts = {}
 
     def part_of(algo, base):
-        key = tuple(sorted(base.items()))
+        # 2DMG partitions depend on the algorithm (composition scale)
+        key = (algo if base["dataset"] == "2dmg" else None,
+               *sorted(base.items()))
         if key not in parts:
             t0 = time.perf_counter()
             parts[key] = load_partition(FedGANConfig(algo=algo, **base))
@@ -1356,6 +1470,12 @@ def main(argv=None):
                                 part_of(algo, base))
             if epoch > 1:
                 done[f"dstep_launches {label}"] = n
+    if "mdgan" in phases:
+        for label, algo, base, epoch, extra in MDGAN_RUNS:
+            _, n = phase_rounds("mdgan", label, algo, base, epoch,
+                                part_of(algo, base), **extra)
+            if epoch > 1:
+                done[f"dstep_launches {label}"] = n
     if "bf16" in phases:
         bf = dict(dtype="bfloat16")
         part = part_of("capgan", MAIN)
@@ -1369,6 +1489,9 @@ def main(argv=None):
         _, done["dstep_bf16_launches cglgan"] = phase_rounds(
             "bf16", "cglgan", "cglgan", CGL_MNIST, 5,
             part_of("cglgan", CGL_MNIST), pallas_dstep=True, **bf)
+        _, done["dstep_bf16_launches mdgan"] = phase_rounds(
+            "bf16", "mdgan", "mdgan", MDGAN_MNIST, 5,
+            part_of("mdgan", MDGAN_MNIST), pallas_dstep=True, **bf)
         phase_fedavg("flgan", False, phase="bf16", force_dtype=True, **bf)
         phase_reference_bf16()
     if len(phases) != len(all_phases):
@@ -1388,7 +1511,8 @@ def main(argv=None):
     dstep = entry(fused_dstep, done["dstep_launches"], done["dstep"],
                   done["dstep"][0], None)
     # each path's own count, set to 0 just before it ran: the CAP-GAN main
-    # path (``launches``) and the CGL path's three kernel-path runs
+    # path (``launches``), the CGL path's three kernel-path runs and the
+    # MD-GAN family's four
     dstep["launches_by_path"] = {
         "capgan": done["dstep_launches"],
         **{k.split(" ", 1)[1]: v for k, v in done.items()
@@ -1401,7 +1525,8 @@ def main(argv=None):
     dstep_bf16["replaces"] = fused_dstep.REPLACES_BF16
     dstep_bf16["launches_by_path"] = {
         "capgan bf16": done["dstep_bf16_launches"],
-        "cglgan bf16": done["dstep_bf16_launches cglgan"]}
+        "cglgan bf16": done["dstep_bf16_launches cglgan"],
+        "mdgan bf16": done["dstep_bf16_launches mdgan"]}
     kernels = [
         dstep, dstep_bf16,
         # the FL-GAN pair's shape; launches from its 20 kernel-path rounds

@@ -184,8 +184,8 @@ def test_train_and_entry_point_contract():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_runner(cfg, part)
-    for kw in (dict(algo="mdgan"), dict(algo="acgan"), dict(conv=True),
-               dict(model_shards=2)):
+    for kw in (dict(algo="mdgan", conv=True), dict(algo="acgan", conv=True),
+               dict(conv=True), dict(model_shards=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_runner(cfg.replace(**kw), part, device="cpu")
     # bf16 mode is ported: it builds and trains

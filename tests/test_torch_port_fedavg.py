@@ -6,7 +6,8 @@ Module by module (2DMG models, ``data/gmm``, the 2DMG branch of
 4 classes, batch 16) start from the JAX ``init_state()`` carried across by
 ``utils/transplant.py`` and run 3 rounds on each side from the JAX partition,
 with the JAX draws injected into the port's ``round_fn``
-(``benchmarks/trajectory_parity.py`` ``flgan_round_streams``).  The port runs
+(``benchmarks/trajectory_parity.py`` ``flgan_round_streams``, and with
+dropout the reference's survival draw).  The port runs
 both its autograd path and its fused-sweep path (``pallas_sweep=True``: on
 the CPU the kernel's plain version); FeGAN so covers gather mode and the
 full-width mode.  Inputs come from numpy seeds; float32 math agrees to the
@@ -151,10 +152,12 @@ def test_gmm_dataset_statistics():
 
 @pytest.mark.parametrize("algo,iid", [("flgan", 1), ("fegan", 1),
                                       ("flgan", 0), ("fegan", 2),
-                                      ("cglgan", 2), ("mixgan", 1)])
+                                      ("cglgan", 2), ("mixgan", 1),
+                                      ("mdgan", 2), ("acgan", 2)])
 def test_load_partition_2dmg_byte_equal(algo, iid, monkeypatch):
     """The 2DMG branch (eval pool of num_sample * num_class, composition
-    scale 2 * num_workers for flgan, num_workers**2 for the others, whole
+    scale 2 * num_workers for flgan and mdgan, num_workers**2 for the
+    others, whole
     label runs at iid=2) on the
     reference's own ``(data, labels)``: byte-equal float32 rows of width 2."""
     kw = dict(algo=algo, dataset="2dmg", num_workers=6, num_class=6,
@@ -287,13 +290,28 @@ def test_kl_ds_and_coverage_match_jax(bins):
 # the slice as a whole: rounds against the JAX runner
 # ---------------------------------------------------------------------------
 
+def _survival_draw(jcfg, t):
+    """The Bernoulli(1 - dropout_rate) draw behind the reference's round-t
+    participation mask, before it forces a survivor: FL-GAN folds 7 into
+    its round key, FeGAN into the root's round key
+    (``cglgan_tpu/algos/fedavg_family.py:278,388-391``)."""
+    root = jprng.root_key(jcfg.seed)
+    base = jprng.for_round(root, t) if jcfg.algo == "fegan" else \
+        jprng.for_round(jprng.for_role(root, jprng.ROLE_LOCAL), t)
+    return np.asarray(jax.random.bernoulli(
+        jax.random.fold_in(base, 7), 1.0 - jcfg.dropout_rate,
+        (jcfg.num_workers,)))
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_rounds(algo, epoch):
+def _jax_rounds(algo, epoch, dropout=0.0):
     """The JAX runner's 3 rounds on its default (XLA) path: the partition,
-    the initial state, each round's streams and metrics, the final state and
-    the FeGAN schedule, all as numpy."""
+    the initial state, each round's streams (with dropout, the survival
+    draw as a 4th entry) and metrics, the final state and the FeGAN
+    schedule, all as numpy."""
     extra = {"frac_workers": 0.5} if algo == "fegan" else {}
-    jcfg = JaxConfig(algo=algo, epoch=epoch, **SHRUNK, **extra)
+    jcfg = JaxConfig(algo=algo, epoch=epoch, dropout_rate=dropout, **SHRUNK,
+                     **extra)
     jpart = jregistry.load_partition(jcfg)
     jrun = jregistry.build_runner(jcfg, jpart)
     state = jrun.init_state()
@@ -303,7 +321,10 @@ def _jax_rounds(algo, epoch):
     step = jax.jit(jrun.round_fn)
     streams, metrics = [], []
     for t in range(ROUNDS):
-        streams.append(draw(t))
+        drawn = draw(t)
+        if dropout > 0:
+            drawn = (*drawn, _survival_draw(jcfg, t))
+        streams.append(drawn)
         state, m = step(state)
         metrics.append({k: float(v) for k, v in m.items()})
     fields = (jpart.data, jpart.labels, jpart.lengths, jpart.class_freq,
@@ -313,20 +334,28 @@ def _jax_rounds(algo, epoch):
             schedule)
 
 
-@pytest.mark.parametrize("algo,epoch,kernel", [
-    ("flgan", 2, False), ("flgan", 2, True),
-    ("flgan", 3, False), ("flgan", 3, True),
-    ("fegan", 2, False),         # gather mode: only the sampled lanes train
-    ("fegan", 2, True),          # full-width mode through the fused sweep
+@pytest.mark.parametrize("algo,epoch,kernel,dropout", [
+    ("flgan", 2, False, 0.0), ("flgan", 2, True, 0.0),
+    ("flgan", 3, False, 0.0), ("flgan", 3, True, 0.0),
+    ("fegan", 2, False, 0.0),    # gather mode: only the sampled lanes train
+    ("fegan", 2, True, 0.0),     # full-width mode through the fused sweep
+    ("flgan", 2, False, 0.5),    # dropout: masked aggregate and Adam state
+    ("fegan", 2, False, 0.5),    # dropout times the group schedule
 ], ids=["flgan_e2_autograd", "flgan_e2_kernel", "flgan_e3_autograd",
-        "flgan_e3_kernel", "fegan_gather_autograd", "fegan_full_kernel"])
-def test_rounds_match_jax(algo, epoch, kernel):
-    fields, init, streams, jmetrics, ref, schedule = _jax_rounds(algo, epoch)
+        "flgan_e3_kernel", "fegan_gather_autograd", "fegan_full_kernel",
+        "flgan_dropout", "fegan_gather_dropout"])
+def test_rounds_match_jax(algo, epoch, kernel, dropout):
+    fields, init, streams, jmetrics, ref, schedule = _jax_rounds(
+        algo, epoch, dropout)
     extra = {"frac_workers": 0.5} if algo == "fegan" else {}
-    cfg = FedGANConfig(algo=algo, epoch=epoch,
+    cfg = FedGANConfig(algo=algo, epoch=epoch, dropout_rate=dropout,
                        pallas_sweep=True if kernel else None, **SHRUNK,
                        **extra)
     assert fused_sweep.eligible(cfg) is kernel
+    if dropout:
+        # the injected draws drop someone the reference would have trained
+        drops = [~streams[t][3] for t in range(ROUNDS)]
+        assert any(d.any() for d in drops)
     run = registry.build_runner(cfg, Partition(*fields), device="cpu")
     state = from_jax_numpy(init, cfg, "cpu")
     assert state.lam is None
@@ -334,9 +363,11 @@ def test_rounds_match_jax(algo, epoch, kernel):
     if algo == "fegan":
         np.testing.assert_array_equal(run.extras["schedule"], schedule)
     for t in range(ROUNDS):
-        starts, z1, z2 = streams[t]
+        starts, z1, z2 = streams[t][:3]
         before = to_numpy(state)
-        state, m = run.round_fn(state, (starts, _t(z1), _t(z2)))
+        state, m = run.round_fn(state, (starts, _t(z1), _t(z2),
+                                        *map(_t, streams[t][3:])))
+        assert set(m) == set(jmetrics[t])
         for key in jmetrics[t]:
             assert abs(float(m[key]) - jmetrics[t][key]) < TOL_METRIC, \
                 (t, key, float(m[key]), jmetrics[t][key])
@@ -426,13 +457,15 @@ def test_entry_point_contract():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             registry.build_runner(cfg)
     image = dict(dataset="synthetic-mnist", img_size=8)
-    for kw in (image, dict(local_sweep="epochs"), dict(dropout_rate=0.2),
-               dict(conv=True),
-               dict(algo="fegan", **image), dict(algo="mdgan"),
-               dict(algo="acgan"), dict(algo="cglgan", conv=True),
+    for kw in (image, dict(local_sweep="epochs"), dict(conv=True),
+               dict(algo="fegan", **image), dict(algo="mdgan", conv=True),
+               dict(algo="acgan", conv=True), dict(algo="cglgan", conv=True),
                dict(algo="capgan", model_shards=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             registry.build_runner(cfg.replace(**kw), device="cpu")
-    # bf16 on 2DMG under force_dtype is ported: it builds
-    registry.build_runner(cfg.replace(dtype="bfloat16", force_dtype=True),
-                          device="cpu")
+    # bf16 on 2DMG under force_dtype, dropout, MD-GAN and AC-GAN are
+    # ported: they build
+    for kw in (dict(dtype="bfloat16", force_dtype=True),
+               dict(dropout_rate=0.2), dict(algo="fegan", dropout_rate=0.2),
+               dict(algo="mdgan"), dict(algo="acgan")):
+        registry.build_runner(cfg.replace(**kw), device="cpu")
