@@ -29,8 +29,8 @@ from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 def check_supported(cfg, mesh=None) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the
-    ported slices do not cover: conv models, meshes and the FedAvg
-    family's image sweep (every algorithm runs on MLP models)."""
+    ported slices do not cover: conv models and meshes (every algorithm
+    runs on MLP models, on 2DMG and the image datasets)."""
     if cfg.conv:
         raise NotImplementedError("conv=True is not ported yet (ROADMAP "
                                   "queue 1 item 12)")
@@ -39,12 +39,6 @@ def check_supported(cfg, mesh=None) -> None:
     if mesh is not None or cfg.model_shards > 1:
         raise NotImplementedError("meshes and model_shards > 1 are not "
                                   "ported yet (ROADMAP queue 1 item 17)")
-    if cfg.algo in ("flgan", "fegan") and (
-            cfg.is_image or cfg.resolved_local_sweep == "epochs"):
-        raise NotImplementedError(
-            "flgan/fegan on image datasets (the ragged 'epochs' sweep, "
-            "step-count buckets, per-worker BatchNorm state) are not ported "
-            "yet (ROADMAP queue 1 item 10)")
 
 
 def participation_mask(alive: torch.Tensor,

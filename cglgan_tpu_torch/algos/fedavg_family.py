@@ -1,27 +1,42 @@
 """FL-GAN and FeGAN: FedAvg of whole G and D with local alternating training.
 
-Port of ``cglgan_tpu/algos/fedavg_family.py`` for the 2DMG "batches" sweep.
+Port of ``cglgan_tpu/algos/fedavg_family.py``: the 2DMG "batches" sweep and
+the image datasets' ragged "epochs" sweep, on MLP models.
 
-FL-GAN (FLGAN/2DMG/flgan.py): one server broadcasts (p_g, p_d); each worker
-loads them, trains ``epoch`` batches locally, returns the state dicts; the
-server averages uniformly.
+FL-GAN (FLGAN/2DMG/flgan.py, FLGAN/MNIST/flgan.py): one server broadcasts
+(p_g, p_d); each worker loads them, trains locally (2DMG: ``epoch``
+batches; MNIST: ``epoch`` full local epochs), returns the state dicts; the
+server averages uniformly, params and BN buffers alike.
 
 FeGAN (fegan.py): adds (a) KL device scores, (b) per-round exp-score
 aggregation weights, (c) the balanced group schedule — only sampled workers
-train each round.
+train each round.  On image data its D is the 1-logit ``mnist`` D whatever
+``d_head`` says (``cglgan_tpu/algos/fedavg_family.py:320-323``).
 
 Layout: G and D params are global and unstacked; every worker starts the
 round from the same broadcast params, so the W local sweeps are one batched
-pass over stacked ``(W, ...)`` tensors.  Adam moments and counts persist per
-worker, stacked ``(W, ...)``; FeGAN also stacks the BN state per worker (the
-2DMG nets have none; the layout is kept).  ``lam`` is None.
+pass over stacked ``(W, ...)`` lanes.  Adam moments and counts persist per
+worker, stacked ``(W, ...)``; FeGAN also stacks the BN state per worker
+(the MNIST G's running stats really change; the 2DMG nets have none).
+``lam`` is None.
+
+The ragged sweep: worker w takes ``steps[w]`` local steps
+(``_local_steps``: ``epoch`` full passes over its shard), so a lane's step
+i is active where ``i < steps[lane]`` and an inactive step leaves the whole
+lane state (G and D params, BN state, Adam) as it was; the losses average
+over the active steps.  The counts are host ints, so the host knows which
+steps have every lane active (no merge) and stops at the lanes' largest
+count.  Every full-width sweep is this one masked sweep of all lanes.  The
+reference, on one device, splits the workers into step-count buckets
+(``_plan_buckets``) and sweeps each for only its own largest count: less
+device work, more sequential steps.  The port's sweep is host-bound on the
+H100, so it keeps the fewer sequential steps; ``_plan_buckets`` stays to
+report the reference's plan beside the port's.
 
 The local phase runs the fused CUDA kernel (``ops/fused_sweep.py``) when
 ``fused_sweep.eligible`` says so — the reference's rule: only when
-``pallas_sweep=True`` forces it, never with dropout — and autograd
-otherwise.  The ragged "epochs" sweep of the image datasets
-(``_plan_buckets``, ``_sweep_buckets``) is not ported yet:
-``common.check_supported`` raises for it.
+``pallas_sweep=True`` forces it, on 2DMG's "batches" sweep, never with
+dropout — and autograd otherwise.
 
 Dropout (``dropout_rate > 0``, ``common.participation_mask`` on the
 round's survival draw): FL-GAN's dropped workers train but neither enter
@@ -30,10 +45,11 @@ survivors (``participants``); FeGAN's drop mask multiplies its group
 schedule, so a dropped sampled worker is treated as unsampled, and a round
 whose every sampled worker dropped leaves the global params as they were.
 
-bfloat16 (``dtype="bfloat16"``, on 2DMG only with ``force_dtype``, as the
-reference's config demands): params, latents, fakes, real rows and Adam
-moments are bfloat16, the losses float32; the kernel stays float32-only
-(``fused_sweep.eligible`` raises for ``pallas_sweep=True`` in bfloat16).
+bfloat16 (``dtype="bfloat16"``; on 2DMG only with ``force_dtype``, as the
+reference's config demands): params, BN state, latents, fakes, real rows
+and Adam moments are bfloat16, the losses float32; the kernel stays
+float32-only (``fused_sweep.eligible`` raises for ``pallas_sweep=True`` in
+bfloat16).
 """
 from __future__ import annotations
 
@@ -49,7 +65,8 @@ from cglgan_tpu_torch.core.dtypes import torch_dtype
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.fed import collectives
 from cglgan_tpu_torch.fed.sampling import fegan_scores, init_groups
-from cglgan_tpu_torch.models.zoo import models_for_config
+from cglgan_tpu_torch.models.zoo import (build_discriminator,
+                                         models_for_config)
 from cglgan_tpu_torch.ops import fused_sweep
 from cglgan_tpu_torch.utils.tree import tree_map, tree_unflatten
 
@@ -62,11 +79,62 @@ def _local_steps(cfg, lengths: np.ndarray) -> np.ndarray:
     return (cfg.epoch * per_epoch).astype(np.int32)
 
 
+def _plan_buckets(steps: np.ndarray, max_buckets: int = 4):
+    """Partition workers into <= max_buckets step-count buckets
+    (``cglgan_tpu/algos/fedavg_family.py:45-83``, the same DP and output).
+
+    Under iid=1 the shard sizes, hence the ragged sweep's step counts,
+    spread ~20x, so a sweep of every lane for max(steps) iterations masks
+    most lane-steps away.  The counts are static host ints, so the workers
+    are sorted and split into contiguous buckets, each swept for only its
+    own largest count; the DP minimises sum(|bucket| * bucket_max).
+    Returns [(worker_idx_array, bucket_max), ...] in ascending step order,
+    or None when one bucket is optimal.  The port sweeps all lanes at once
+    and reads this plan only to report it (``chip_smoke.py``)."""
+    steps = np.asarray(steps)
+    n = len(steps)
+    if n < 2 or steps.max() == steps.min() or max_buckets < 2:
+        return None
+    order = np.argsort(steps, kind="stable")
+    s = steps[order]
+    K = min(max_buckets, n)
+    INF = float("inf")
+    dp = [[INF] * (n + 1) for _ in range(K + 1)]
+    cut = [[0] * (n + 1) for _ in range(K + 1)]
+    dp[0][0] = 0
+    for k in range(1, K + 1):
+        dp[k][0] = 0
+        for i in range(1, n + 1):
+            for j in range(i):
+                c = dp[k - 1][j] + (i - j) * int(s[i - 1])
+                if c < dp[k][i]:
+                    dp[k][i], cut[k][i] = c, j
+    segs = []
+    i, k = n, K
+    while i > 0:
+        j = cut[k][i]
+        segs.append((order[j:i].astype(np.int64), int(s[i - 1])))
+        i, k = j, k - 1
+    segs.reverse()
+    return segs if len(segs) > 1 else None
+
+
+def _merge(active: torch.Tensor, new: NetState, old: NetState) -> NetState:
+    """Lane by lane, ``new`` where ``active`` (n,) and ``old`` elsewhere:
+    an inactive step of the ragged sweep leaves the lane as it was."""
+    def pick(a, b):
+        return torch.where(active.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+    both = lambda x, y: tree_map(pick, x, y)
+    return NetState(both(new.params, old.params), both(new.bn, old.bn),
+                    common.AdamState(*both(tuple(new.opt), tuple(old.opt))))
+
+
 def _local_sweep(cfg, g_model, d_model, adv):
-    """The local round of n worker lanes at once: ``steps`` iterations of
-    (D step on real + fresh fake, unhalved; then G step through the updated
-    D) — the reference worker train loop (FLGAN/2DMG/flgan.py:229-256,
-    fegan.py:282-303).  Returns the mean loss over the steps."""
+    """The local round of n worker lanes at once: iterations of (D step on
+    real + fresh fake, unhalved; then G step through the updated D) — the
+    reference worker train loop (FLGAN/2DMG/flgan.py:229-256,
+    FLGAN/MNIST/flgan.py:249-269, fegan.py:282-303).  Lane j takes
+    ``steps[j]`` of them; returns each lane's mean loss over its steps."""
     B = cfg.batch_size
     dtype = torch_dtype(cfg)
 
@@ -95,23 +163,39 @@ def _local_sweep(cfg, g_model, d_model, adv):
             cfg.lr_d, cfg.b1, cfg.b2)
         return NetState(new_p, bn2, new_opt), loss.detach()
 
-    def sweep(g: NetState, d: NetState, shards, starts, z1, z2, steps: int):
+    def sweep(g: NetState, d: NetState, shards, starts, z1, z2,
+              steps: np.ndarray, steps_dev=None):
         """g, d: (n, ...) stacked lane states (params already broadcast);
-        shards (n, L, ...); z1, z2 (n, steps, B, zdim)."""
+        shards (n, L, ...); z1, z2 (n, >= max(steps), B, zdim); ``steps``
+        the lanes' step counts on the host, ``steps_dev`` the same on the
+        device (needed only where they differ)."""
+        lo, hi = int(steps.min()), int(steps.max())
         d_sum = g_sum = 0.0
-        for i in range(steps):
+        for i in range(hi):
             real = common.prepare_real(
                 common.slice_batch(shards, int(starts[i]), B), cfg.is_image,
                 dtype)
-            # D step: fake regenerated by the local G, gradient discarded
+            # D step: fake regenerated by the local G, gradient discarded;
+            # its train-mode forward moves the G's BN running stats
             with torch.no_grad():
                 fake, gbn_d = g_model.apply(g.params, g.bn, z1[:, i],
                                             train=True)
-            d, d_loss = d_step(d, real, fake)
-            # G step against the updated D
-            g, g_loss = g_step(g, gbn_d, d.params, d.bn, z2[:, i])
+            d_new, d_loss = d_step(d, real, fake)
+            # G step against the updated D, from the stats the D step left
+            g_new, g_loss = g_step(g, gbn_d, d_new.params, d_new.bn,
+                                   z2[:, i])
+            if i < lo:                   # every lane active: nothing to mask
+                g, d = g_new, d_new
+            else:
+                active = steps_dev > i
+                g, d = _merge(active, g_new, g), _merge(active, d_new, d)
+                d_loss = torch.where(active, d_loss, 0.0)
+                g_loss = torch.where(active, g_loss, 0.0)
             d_sum, g_sum = d_sum + d_loss, g_sum + g_loss
-        denom = max(steps, 1)
+        if lo == hi:
+            denom = max(hi, 1)
+        else:
+            denom = torch.clamp(steps_dev, min=1).to(torch.float32)
         return g, d, d_sum / denom, g_sum / denom
 
     return sweep
@@ -128,16 +212,19 @@ def _kernel_sweep_all(cfg, g: NetState, d: NetState, shards, starts, z1, z2):
             NetState(new_d.params, d.bn, new_d.opt), d_loss, g_loss)
 
 
-def _family_parts(cfg, part: Partition, dev, adv_head: str):
+def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None):
     """What both runners share: models, shards, the local phase and the
-    serving functions."""
+    serving functions.  ``d_model`` replaces the config's D (FeGAN's on
+    image data)."""
     common.check_supported(cfg)
-    g_model, d_model = models_for_config(cfg)
+    g_model, cfg_d = models_for_config(cfg)
+    d_model = d_model or cfg_d
     adv = common.make_adv_loss(adv_head)
     W, B, zdim = cfg.num_workers, cfg.batch_size, cfg.latent_dim
     dtype = torch_dtype(cfg)
     shards = torch.from_numpy(np.ascontiguousarray(part.data)).to(dev)
     steps_np = _local_steps(cfg, part.lengths)
+    steps_dev = torch.from_numpy(steps_np.astype(np.int64)).to(dev)
     max_steps = int(steps_np.max())
     max_len = part.data.shape[1]
     sweep = _local_sweep(cfg, g_model, d_model, adv)
@@ -177,11 +264,17 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str):
                 torch.as_tensor(alive, device=dev), cfg.dropout_rate)
         return [int(s) for s in starts], z1, z2, mask
 
-    def local_phase(g: NetState, d: NetState, lane_shards, starts, z1, z2):
-        """g, d: lane-stacked states with params broadcast."""
+    def local_phase(g: NetState, d: NetState, lane_shards, starts, z1, z2,
+                    lanes=None, lanes_dev=None):
+        """g, d: lane-stacked states with params broadcast; ``lanes``: the
+        lanes' workers on the host and ``lanes_dev`` on the device (gather
+        mode), or None for all W workers in order."""
         if use_kernel:
             return _kernel_sweep_all(cfg, g, d, lane_shards, starts, z1, z2)
-        return sweep(g, d, lane_shards, starts, z1, z2, max_steps)
+        if lanes is not None:
+            return sweep(g, d, lane_shards, starts, z1, z2, steps_np[lanes],
+                         steps_dev[lanes_dev])
+        return sweep(g, d, lane_shards, starts, z1, z2, steps_np, steps_dev)
 
     def make_gen(bn_of):
         @torch.no_grad()
@@ -256,16 +349,24 @@ def build_flgan(cfg, part: Partition, device=None) -> Runner:
 
 def build_fegan(cfg, part: Partition, device=None) -> Runner:
     dev = device_mod.resolve(device)
-    # fegan.py:224 uses BCELoss with a 2-logit D whose Sigmoid is commented
-    # out — shape-incompatible in torch.  As the reference package does, the
-    # intended semantics are implemented: sigmoid head + BCE.
-    (W, shards, init_nets, streams_for, local_phase, make_gen,
-     use_kernel) = _family_parts(cfg, part, dev, "sigmoid")
-
+    W = cfg.num_workers
     sk = fegan_scores(part.class_freq, part.class_freq.sum(0))
     schedule = init_groups(W, part.class_freq, cfg.frac_workers,
                            num_rounds=cfg.num_communication,
                            num_class=cfg.num_class)       # (R, gp_size), once
+    # group-gather: with partial participation, train ONLY the gp_size
+    # sampled members — gather their (shard, opt, BN) state, sweep, scatter
+    # back — instead of sweeping all W and masking away (1-frac) of the work
+    gather_mode = not fused_sweep.eligible(cfg) and schedule.shape[1] < W
+    # fegan.py:224 uses BCELoss with a 2-logit D whose Sigmoid is commented
+    # out — shape-incompatible in torch.  As the reference package does, the
+    # intended semantics are implemented: sigmoid head + BCE, and on image
+    # data the 1-logit mnist D whatever d_head says.
+    d_model = build_discriminator("mnist", 1) \
+        if cfg.is_image and not cfg.conv else None
+    (_, shards, init_nets, streams_for, local_phase, make_gen,
+     use_kernel) = _family_parts(cfg, part, dev, "sigmoid", d_model)
+
     # first-occurrence lane mask: init_groups only repeats a member in the
     # degenerate group-smaller-than-gp_size fallback; duplicate lanes must
     # count once in the aggregate and write once in the scatter
@@ -273,10 +374,6 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
     for j in range(1, schedule.shape[1]):
         dup = (schedule[:, :j] == schedule[:, j:j + 1]).any(axis=1)
         lane_valid[dup, j] = 0.0
-    # group-gather: with partial participation, train ONLY the gp_size
-    # sampled members — gather their (shard, opt, BN) state, sweep, scatter
-    # back — instead of sweeping all W and masking away (1-frac) of the work
-    gather_mode = not use_kernel and schedule.shape[1] < W
     # Every round's lanes, masks and aggregation weights are known from the
     # schedule, so they are made once here and live on the device: a round
     # then copies nothing from the host (a host-to-device copy would make the
@@ -354,7 +451,8 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
                          common.AdamState(*take(tuple(state.g.opt)))),
                 NetState(bcast(state.d.params), take(state.d.bn),
                          common.AdamState(*take(tuple(state.d.opt)))),
-                shards[idx], starts, z1[idx], z2[idx])
+                shards[idx], starts, z1[idx], z2[idx], lanes=schedule[t],
+                lanes_dev=idx)
             # scatter local state back; duplicate lanes (lane_valid == 0,
             # the degenerate schedule only) are dropped, so each worker is
             # written once; with dropout a dropped lane writes its old state
@@ -407,10 +505,11 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
                 metrics_of(d_loss, g_loss, m, denom))
 
     # the server evaluates with a net whose BN buffers were never trained
-    # (deserialize moves params only, fegan.py:169): the fixed init BN
+    # (deserialize moves params only, fegan.py:169): the fixed init BN, in
+    # float32 whatever the run's dtype, as the reference makes it
+    # (``g_model.init(key)``, ``cglgan_tpu/algos/fedavg_family.py:504``)
     g_model, _ = models_for_config(cfg)
-    _, eval_bn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), 1,
-                              torch_dtype(cfg))
+    _, eval_bn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), 1)
     eval_bn = tree_map(lambda x: x[0].to(dev), eval_bn)
     gen, sample = make_gen(lambda state: eval_bn)
     return Runner(cfg, part, init_state, round_fn, sample, gen=gen,

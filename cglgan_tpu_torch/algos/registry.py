@@ -1,9 +1,10 @@
 """Algorithm registry: config -> Runner, loading data and partitioning.
 
-Port of ``cglgan_tpu/algos/registry.py`` for the CGL family (CGL-GAN,
-CAP-GAN, Mix-G) and the MD-GAN family (AC-GAN, MD-GAN) on the image
-datasets and on 2DMG, and FL-GAN / FeGAN on 2DMG; everything else raises
-``NotImplementedError`` naming its ROADMAP item.
+Port of ``cglgan_tpu/algos/registry.py`` for all seven algorithms on MLP
+models, on the image datasets and on 2DMG: the CGL family (CGL-GAN,
+CAP-GAN, Mix-G), the MD-GAN family (AC-GAN, MD-GAN) and the FedAvg family
+(FL-GAN, FeGAN; the ragged "epochs" sweep on image data).  Conv models and
+meshes raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 

@@ -4,14 +4,32 @@ rounds, summed by device kernel.
 Device time is the sum of every kernel's own time (one stream, so kernels do
 not overlap); the busy share is that sum over the wall time of the profiled
 window, which the profiler itself lengthens on the host, so the share is a
-lower bound.  Used by ``chip_smoke.py``.
+lower bound.  The sums read the profiler's raw device events, not
+``key_averages()``: building its event tree takes minutes for a round of
+~250 000 launches (the ragged FedAvg sweep on MNIST shapes).
+``chip_smoke.py`` holds the two to the same names, counts and times on one
+round.  Used by ``chip_smoke.py``.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
+
+
+def device_kernel_sums(prof) -> Dict[str, Tuple[float, int]]:
+    """Per device kernel name: (µs, launches), from a finished profiler's
+    raw device events."""
+    sums: Dict[str, list] = {}
+    for ev in prof.profiler.kineto_results.events():
+        hidden = getattr(ev, "is_hidden_event", lambda: False)()
+        if ev.device_type() != torch.autograd.DeviceType.CUDA or hidden:
+            continue
+        acc = sums.setdefault(ev.name(), [0.0, 0])
+        acc[0] += ev.duration_ns() / 1e3
+        acc[1] += 1
+    return {name: (us, n) for name, (us, n) in sums.items() if us > 0}
 
 
 def profile_rounds(runner, state, rounds: int, top: int = 8
@@ -26,13 +44,8 @@ def profile_rounds(runner, state, rounds: int, top: int = 8
             state, _ = runner.round_fn(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0:
-            kernels.append((ev.key, us, ev.count))
+    kernels = [(name, us, n)
+               for name, (us, n) in device_kernel_sums(prof).items()]
     kernels.sort(key=lambda k: -k[1])
     device_us = sum(k[1] for k in kernels)
     return {"rounds": rounds, "wall_ms_per_round": wall * 1e3 / rounds,

@@ -53,6 +53,22 @@ Phases, each printing one JSON line:
             must show it once a round) and with the default (autograd; the
             count must stay 0); KL and Distribution Score of 10 000 samples
             are printed, not gated;
+  fedavg_image
+            FL-GAN and FeGAN on MNIST shapes: the shrunk setup of
+            ``tests/test_torch_port_fedavg_image.py`` (800 images, 4
+            workers, B=32) card against CPU for 3 rounds (FL-GAN iid=1 with
+            ragged step counts, FeGAN frac 0.5 in gather mode and frac 1.0
+            at full width, FL-GAN's "batches" sweep, FL-GAN with dropout
+            0.5, FL-GAN in bf16); then the archived
+            ``mnist-ref-iid1-flgan`` (epoch=1, 3 timed rounds),
+            ``-flgan-e5`` (1 timed round) and ``mnist-ref-iid1-fegan``
+            (frac 0.2, 3 timed rounds) on synthetic-mnist after a warm-up
+            round (none at epoch=5), through ``build_runner`` and ``train``,
+            with the step plan (the reference's step-count buckets
+            beside it), rounds/s, launches a round and a step and the busy
+            share from a 1-round profile at epoch=1, and peak memory (no
+            kernel may launch: the reference's fused sweep is 2DMG-only);
+            FeGAN's profile sums are held to ``key_averages()``;
   cgl       CGL-GAN and Mix-G at 20 workers / 5 servers on MNIST shapes
             (iid=1, B=100, cloud sync every round, segema 0) and CGL-GAN at
             10 workers / 5 servers on 2DMG (iid=2): 20 rounds each at
@@ -80,8 +96,8 @@ busy share; ``cglgan_tpu_torch/utils/profiling.py``).
 Then the card line, the ``kernels`` line and, last, the ok line.  Any
 failure raises and exits non-zero; without a card it exits 2 and prints
 no result.  ``--phases a,b`` runs only the named phases (of ``dstep
-dstep_bf16 sweep adam reference main fedavg cgl mdgan bf16``) for a short first
-look at a new kernel; the
+dstep_bf16 sweep adam reference main fedavg fedavg_image cgl mdgan bf16``)
+for a short first look at a new kernel; the
 ``kernels`` and ok lines are printed only by a full run.  Imports nothing
 of JAX.
 """
@@ -730,6 +746,7 @@ def device_kernels(fn):
 
 
 def phase_kernel_sweep(card_name):
+    import numpy as np
     import torch
     from cglgan_tpu_torch.algos import common, fedavg_family
     from cglgan_tpu_torch.core.config import FedGANConfig
@@ -761,8 +778,9 @@ def phase_kernel_sweep(card_name):
         reals, z1, z2 = args[8:]
         shards = reals.reshape(W, E * B, 2)
         starts = [e * B for e in range(E)]
+        steps = np.full(W, E)               # every worker takes E steps
         autograd_ms = cuda_ms(lambda: sweep(g_net, d_net, shards, starts,
-                                            z1, z2, E), 5)
+                                            z1, z2, steps), 5)
 
         flops, nbytes = sweep_work(W, E, B, gdims, D_DIMS)
         f32_peak, hbm, _ = peaks(card_name)
@@ -1289,12 +1307,16 @@ def fedavg_shrunk(algo, **extra):
                         epoch=2, num_communication=8, **extra)
 
 
-def phase_reference_fedavg(cases=None):
+def phase_reference_fedavg(cases=None, part=None):
     """Shrunk FL-GAN and FeGAN: card vs CPU from one init and one stream
     (by default on the kernel path, the CPU on its plain version).
-    ``cases``: (config, scaled tolerance, metric tolerance) triples."""
+    ``cases``: (config, scaled tolerance, metric tolerance) triples;
+    ``part``: their partition (default: ``load_partition``).  The streams
+    cover the largest local step count (the ragged "epochs" sweep)."""
+    from cglgan_tpu_torch.algos.fedavg_family import _local_steps
     from cglgan_tpu_torch.algos.registry import build_runner, load_partition
     from cglgan_tpu_torch.core import prng
+    from cglgan_tpu_torch.ops import fused_dstep, fused_sweep
 
     if cases is None:
         # as for capgan: the same float32 math on two devices, scaled by
@@ -1306,23 +1328,35 @@ def phase_reference_fedavg(cases=None):
     out = []
     for cfg, tol, tol_metrics in cases:
         algo = cfg.algo
-        part = load_partition(cfg)
-        gpu = build_runner(cfg, part)
-        cpu = build_runner(cfg, part, device="cpu")
+        cpart = part if part is not None else load_partition(cfg)
+        steps = int(_local_steps(cfg, cpart.lengths).max())
+        gpu = build_runner(cfg, cpart)
+        cpu = build_runner(cfg, cpart, device="cpu")
         sg, sc = gpu.init_state(), cpu.init_state()
+        launched = fused_sweep.launches, fused_dstep.launches
         for t in range(3):
-            streams = prng.sweep_streams(cfg, t, part.data.shape[1],
-                                         cfg.epoch, "cpu")
+            streams = prng.sweep_streams(cfg, t, cpart.data.shape[1], steps,
+                                         "cpu")
+            if cfg.dropout_rate > 0.0:          # one survival draw for both
+                streams = (*streams,
+                           prng.survival(cfg, t, cfg.num_workers, "cpu"))
             sg, mg = gpu.round_fn(sg, streams)
             sc, mc = cpu.round_fn(sc, streams)
+        launches = {"fused_sweep": fused_sweep.launches - launched[0],
+                    "fused_dstep": fused_dstep.launches - launched[1]}
+        expect = 3 if fused_sweep.eligible(cfg) else 0
         errs = state_errs(sg, sc)
         merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
         res = {"phase": "reference", "algo": algo, "dtype": cfg.dtype,
-               "pallas_sweep": cfg.pallas_sweep, "rounds": 3,
+               "dataset": cfg.dataset, "pallas_sweep": cfg.pallas_sweep,
+               "frac_workers": cfg.frac_workers,
+               "sweep": cfg.resolved_local_sweep, "steps": steps,
+               "rounds": 3, "launches": launches,
                "max_scaled_err": errs, "tol_scaled": tol,
                "metrics_max_abs_err": merr, "tol_metrics": tol_metrics}
         emit(res)
-        if over_limit(errs, tol) or merr > tol_metrics:
+        if over_limit(errs, tol) or merr > tol_metrics or \
+                launches != {"fused_sweep": expect, "fused_dstep": 0}:
             raise AssertionError(f"card and CPU rounds disagree: {res}")
         out.append(res)
     return out
@@ -1390,11 +1424,221 @@ def phase_fedavg(algo, use_kernel, phase="fedavg", **extra):
     return res, launches
 
 
+# FL-GAN and FeGAN on MNIST shapes: the archived reference runs
+# (results/runs/{mnist-ref-iid1-flgan,mnist-ref-iid1-flgan-e5,
+# mnist-ref-iid1-fegan}/config.json) on synthetic-mnist, as archived
+# otherwise: W=10, iid=1, B=100, the ragged "epochs" sweep (FeGAN: 2 of the
+# 10 workers a round); (algo, epoch, extra config, timed rounds)
+FEDAVG_MNIST = dict(dataset="synthetic-mnist", num_workers=10, num_class=10,
+                    num_sample=1000, iid=1, batch_size=100,
+                    num_communication=20000)
+FEDAVG_IMAGE_RUNS = (("flgan", 1, {}, 3), ("flgan", 5, {}, 1),
+                     ("fegan", 1, {"frac_workers": 0.2}, 3))
+# Card against CPU on the shrunk image setup.  The G's BatchNorm outputs
+# now and then lie within float32 rounding of 0, so the LeakyReLU after one
+# takes another slope on each device, that channel's gradient moves by ~10%
+# of its leaf's scale and Adam carries it on
+# (tests/test_torch_port_fedavg_image.py: the port and JAX on the CPU part so
+# by up to 1.7e-2 of mu's scale in 3 rounds).  So params are held to
+# TOL_SCALED of their group's largest entry, the Adam moments to 0.05,
+# metrics to 1e-4; a wrong route or a missing term moves them by O(1).
+TOL_IMAGE_FEDAVG = {"params": TOL_SCALED, "mu": 0.05, "nu": 0.05}
+
+
+def fedavg_image_shrunk():
+    """The shrunk image setup of ``tests/test_torch_port_fedavg_image.py``
+    (800 synthetic 28x28 images, 4 workers, B=32, the full-width MNIST G and
+    D) through the port's own ``synthetic_mnist`` and ``partition``."""
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.data.mnist import synthetic_mnist
+    from cglgan_tpu_torch.data.partition import partition
+    imgs, labels = synthetic_mnist(n=800, seed=3)
+    part = partition(imgs.reshape(800, -1), labels, 4, 1, num_class=10,
+                     num_sample=100, seed=FedGANConfig().seed)
+    base = dict(dataset="synthetic-mnist", num_workers=4, num_class=10,
+                num_sample=100, iid=1, batch_size=32, num_communication=8)
+    return base, part
+
+
+def step_plan(cfg, part, runner, rounds):
+    """The ragged sweep's plan for ``rounds`` (round indices): the largest
+    local step count and the lane-steps and sequential steps of the port's
+    one masked sweep of every lane (in FeGAN's gather mode, of the sampled
+    lanes, on average a round), with the step-count buckets the reference
+    takes at full width beside them."""
+    import numpy as np
+    from cglgan_tpu_torch.algos.fedavg_family import (_local_steps,
+                                                      _plan_buckets)
+    steps = _local_steps(cfg, part.lengths)
+    W, top = len(steps), int(steps.max())
+    plan = {"steps": steps.tolist(), "max_steps": top,
+            "sequential_steps_per_round": top,
+            "lane_steps_per_round": W * top}
+    schedule = (runner.extras or {}).get("schedule")
+    if schedule is not None and schedule.shape[1] < W:
+        lanes = [steps[schedule[t]] for t in rounds]
+        plan["gather_lanes"] = int(schedule.shape[1])
+        plan["lane_steps_per_round"] = float(np.mean(
+            [len(x) * int(x.max()) for x in lanes]))
+        plan["sequential_steps_per_round"] = float(np.mean(
+            [int(x.max()) for x in lanes]))
+        return plan
+    buckets = _plan_buckets(steps)
+    if buckets is not None:
+        plan["reference_buckets"] = [[len(idx), mb] for idx, mb in buckets]
+        plan["reference_sequential_steps"] = sum(mb for _, mb in buckets)
+        plan["reference_lane_steps"] = sum(len(i) * mb for i, mb in buckets)
+    return plan
+
+
+def phase_fedavg_image_run(algo, epoch, extra, rounds, part,
+                           check_sums=False):
+    """One archived configuration at full width through ``build_runner``
+    and ``train``: at epoch=1 1 warm-up round (at epoch=5 none: the
+    epoch=1 run before it has warmed the same kernels and shapes), then
+    ``rounds`` timed rounds; no kernel may launch (``fused_sweep`` and
+    ``fused_dstep`` counts, set to 0 just before, stay 0); finite metrics
+    and samples in [-1, 1]; at epoch=1 a 1-round profile (launches a round
+    and a step, busy share), and with ``check_sums`` its sums held to
+    ``key_averages()`` on one more round."""
+    import torch
+    from cglgan_tpu_torch.algos.registry import build_runner
+    from cglgan_tpu_torch.algos.runner import train
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.ops import fused_dstep, fused_sweep
+    from cglgan_tpu_torch.utils.profiling import profile_rounds
+
+    cfg = FedGANConfig(algo=algo, epoch=epoch, **FEDAVG_MNIST, **extra)
+    t0 = time.perf_counter()
+    runner = build_runner(cfg, part)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = train(runner, 1, eval_every=1)["state"] if epoch == 1 \
+        else runner.init_state()                         # warm-up round
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    plan = step_plan(cfg, part, runner, range(state.t, state.t + rounds))
+    torch.cuda.reset_peak_memory_stats()
+    fused_sweep.launches = fused_dstep.launches = 0
+    t0 = time.perf_counter()
+    out = train(runner, rounds, eval_every=rounds, state=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_sweep": fused_sweep.launches,
+                "fused_dstep": fused_dstep.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    finite_metrics(out["history"])
+    if any(launches.values()) or fused_sweep.eligible(cfg):
+        raise AssertionError(f"{algo} epoch={epoch}: a kernel launched on "
+                             f"the image FedAvg path: {launches}")
+    samples = runner.sample(out["state"], 16)
+    if tuple(samples.shape) != (16, 1, 28, 28) or \
+            not bool(torch.isfinite(samples).all()) or \
+            float(samples.abs().max()) > 1.0:
+        raise AssertionError(f"{algo}: bad samples {tuple(samples.shape)}")
+    res = {"phase": "fedavg_image", "path": "autograd",
+           "config": {"algo": algo, **FEDAVG_MNIST, "epoch": epoch,
+                      **extra},
+           "shards": list(part.data.shape), "setup_s": setup_s,
+           "warmup_round_s": warm_s, "rounds": rounds, "wall_s": wall,
+           "rounds_per_s": rounds / wall, "s_per_round": wall / rounds,
+           "plan": plan, "launches": launches,
+           "last_tick": out["history"][-1], "peak_mem_gb": peak}
+    if epoch == 1:
+        t = out["state"].t
+        t0 = time.perf_counter()
+        prof = profile_rounds(runner, out["state"], 1)
+        prof["profile_s"] = time.perf_counter() - t0
+        prof["sequential_steps"] = step_plan(
+            cfg, part, runner, [t])["sequential_steps_per_round"]
+        prof["launches_per_step"] = (prof["kernel_launches_per_round"]
+                                     / prof["sequential_steps"])
+        res["profile"] = prof
+    if check_sums:
+        res["profile_sums"] = check_profile_sums(runner, out["state"])
+    emit(res)
+    return res
+
+
+def check_profile_sums(runner, state):
+    """``profile_rounds`` sums the profiler's raw device events
+    (``utils/profiling.py`` ``device_kernel_sums``); hold them to
+    ``key_averages()`` on one round: the same kernel names and launch
+    counts, and device µs within 1 µs a launch (whole-µs rounding)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cglgan_tpu_torch.utils.profiling import device_kernel_sums
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.round_fn(state)
+        torch.cuda.synchronize()
+    raw = device_kernel_sums(prof)
+    t0 = time.perf_counter()
+    avg = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0:
+            avg[ev.key] = (us, ev.count)
+    avg_s = time.perf_counter() - t0
+    both = set(raw) & set(avg)
+    worst = max((abs(raw[k][0] - avg[k][0]) / raw[k][1] for k in both),
+                default=0.0)
+    res = {"phase": "fedavg_image",
+           "what": "profile sums: raw device events vs key_averages()",
+           "kernels": len(raw), "launches": sum(n for _, n in raw.values()),
+           "device_us": {"raw": sum(us for us, _ in raw.values()),
+                         "key_averages": sum(us for us, _ in avg.values())},
+           "only_raw": sorted(set(raw) - both)[:4],
+           "only_key_averages": sorted(set(avg) - both)[:4],
+           "count_mismatches": sorted(k for k in both
+                                      if raw[k][1] != avg[k][1])[:4],
+           "max_us_diff_per_launch": worst, "key_averages_s": avg_s}
+    if set(raw) != set(avg) or res["count_mismatches"] or worst > 1.0:
+        raise AssertionError(f"profile sums disagree: {res}")
+    return res
+
+
+def phase_fedavg_image(part):
+    """FL-GAN and FeGAN on MNIST shapes: the shrunk setup card against CPU
+    (FL-GAN with ragged step counts, FeGAN in gather mode and at full
+    width, FL-GAN's "batches" sweep, with dropout and in bf16), then the
+    archived runs at full width.  ``part``: the synthetic-mnist partition
+    of the archived runs."""
+    from cglgan_tpu_torch.algos.fedavg_family import _local_steps
+    from cglgan_tpu_torch.core.config import FedGANConfig
+
+    t0 = time.perf_counter()
+    base, small = fedavg_image_shrunk()
+    flgan = FedGANConfig(algo="flgan", **base)
+    if len(set(_local_steps(flgan, small.lengths).tolist())) < 2:
+        raise AssertionError("the shrunk partition's step counts are equal")
+    out = phase_reference_fedavg([
+        (flgan, TOL_IMAGE_FEDAVG, 1e-4),
+        (FedGANConfig(algo="fegan", frac_workers=0.5, **base),
+         TOL_IMAGE_FEDAVG, 1e-4),
+        (FedGANConfig(algo="fegan", frac_workers=1.0, **base),
+         TOL_IMAGE_FEDAVG, 1e-4),
+        (flgan.replace(local_sweep="batches", epoch=2), TOL_IMAGE_FEDAVG,
+         1e-4),
+        (flgan.replace(dropout_rate=0.5), TOL_IMAGE_FEDAVG, 1e-4),
+        (flgan.replace(dtype="bfloat16"), TOL_BF16_SCALED,
+         TOL_BF16_METRICS)], part=small)
+    for algo, epoch, extra, rounds in FEDAVG_IMAGE_RUNS:
+        out.append(phase_fedavg_image_run(algo, epoch, extra, rounds, part,
+                                          check_sums=algo == "fegan"))
+    emit({"phase": "fedavg_image", "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     all_phases = ("dstep", "dstep_bf16", "sweep", "adam", "reference",
-                  "main", "fedavg", "cgl", "mdgan", "bf16")
+                  "main", "fedavg", "fedavg_image", "cgl", "mdgan", "bf16")
     ap.add_argument("--phases", default=",".join(all_phases),
                     help="comma-separated subset of: " + " ".join(all_phases))
     phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
@@ -1464,6 +1708,8 @@ def main(argv=None):
         phase_fedavg("flgan", False)
         phase_fedavg("fegan", True)
         phase_fedavg("fegan", False)
+    if "fedavg_image" in phases:
+        phase_fedavg_image(part_of("flgan", FEDAVG_MNIST))
     if "cgl" in phases:
         for label, algo, base, epoch in CGL_RUNS:
             _, n = phase_rounds("cgl", label, algo, base, epoch,

@@ -450,22 +450,24 @@ def test_train_ticks_finite(algo, kernel):
 
 
 def test_entry_point_contract():
-    """The default device is the card; what the slice does not cover raises
-    NotImplementedError naming its ROADMAP item."""
+    """The default device is the card; what the port does not cover (conv
+    models, model_shards > 1) raises NotImplementedError naming its ROADMAP
+    item."""
     cfg = FedGANConfig(algo="flgan", epoch=2, **SHRUNK)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             registry.build_runner(cfg)
-    image = dict(dataset="synthetic-mnist", img_size=8)
-    for kw in (image, dict(local_sweep="epochs"), dict(conv=True),
-               dict(algo="fegan", **image), dict(algo="mdgan", conv=True),
+    for kw in (dict(conv=True), dict(algo="mdgan", conv=True),
                dict(algo="acgan", conv=True), dict(algo="cglgan", conv=True),
                dict(algo="capgan", model_shards=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             registry.build_runner(cfg.replace(**kw), device="cpu")
-    # bf16 on 2DMG under force_dtype, dropout, MD-GAN and AC-GAN are
-    # ported: they build
+    # bf16 on 2DMG under force_dtype, dropout, MD-GAN and AC-GAN, and the
+    # ragged "epochs" sweep (on 2DMG by request; the image configs are
+    # tests/test_torch_port_fedavg_image.py's) are ported: they build
     for kw in (dict(dtype="bfloat16", force_dtype=True),
                dict(dropout_rate=0.2), dict(algo="fegan", dropout_rate=0.2),
-               dict(algo="mdgan"), dict(algo="acgan")):
+               dict(algo="mdgan"), dict(algo="acgan"),
+               dict(local_sweep="epochs"),
+               dict(algo="fegan", local_sweep="epochs")):
         registry.build_runner(cfg.replace(**kw), device="cpu")
