@@ -253,10 +253,8 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
     def sample(state: FedState, n: int):
         """Painter semantics: per server, G(fixed_z) in eval mode."""
         per = max(n // S, 1)
-        z = torch.stack([
-            torch.randn((per, zdim),
-                        generator=prng.generator(cfg.seed, prng.ROLE_EVAL, i))
-            for i in range(S)]).to(dev)
+        z = torch.stack([prng.eval_z(cfg.seed, (per, zdim), dev, i)
+                         for i in range(S)])
         return gen(state, z.reshape(S * per, zdim))
 
     return Runner(cfg, part, init_state, round_fn, sample, gen=gen,

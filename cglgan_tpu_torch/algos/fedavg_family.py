@@ -286,10 +286,7 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None):
             return out[0]
 
         def sample(state: FedState, n: int):
-            z = torch.randn((n, zdim),
-                            generator=prng.generator(cfg.seed,
-                                                     prng.ROLE_EVAL)).to(dev)
-            return gen(state, z)
+            return gen(state, prng.eval_z(cfg.seed, (n, zdim), dev))
         return gen, sample
 
     return (W, shards, init_nets, streams_for, local_phase, make_gen,

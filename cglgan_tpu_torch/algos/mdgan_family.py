@@ -207,10 +207,8 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
         """Eval samples: each server gives n/S (the painter pools the
         servers' fixed_z outputs, ACGAN/2DMG/acgan.py:69-75)."""
         per = n // S
-        z = torch.stack([
-            torch.randn((per, zdim),
-                        generator=prng.generator(cfg.seed, prng.ROLE_EVAL, i))
-            for i in range(S)]).to(dev)
+        z = torch.stack([prng.eval_z(cfg.seed, (per, zdim), dev, i)
+                         for i in range(S)])
         return gen(state, z.reshape(S * per, zdim))
 
     return Runner(cfg, part, init_state, round_fn, sample, gen=gen,

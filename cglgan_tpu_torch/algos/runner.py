@@ -33,26 +33,29 @@ class Runner(NamedTuple):
 def train(runner: Runner,
           rounds: Optional[int] = None,
           eval_every: Optional[int] = None,
+          eval_n: Optional[int] = None,
           state=None,
-          evaluator=False) -> Dict[str, Any]:
+          evaluator=None) -> Dict[str, Any]:
     """Run ``rounds`` rounds with a metrics tick every ``eval_every``.
 
     Returns {"state": final_state, "history": [tick dicts]}; each tick
     carries the round metrics averaged over its interval, the absolute
-    ``round``, ``wall_s`` and ``rounds_per_s``.  ``evaluator``: False (the
-    default) skips workload evaluation; a callable ``(runner, state) ->
-    dict`` adds its metrics to every tick; None builds
-    ``evalx.evaluator.make_evaluator`` (KL / DS / mode coverage on 2DMG;
-    image configs raise, ROADMAP queue 1 item 13)."""
+    ``round``, ``wall_s`` and ``rounds_per_s``, and the workload's eval
+    metrics.  ``evaluator``: None (the default, as in the reference) builds
+    ``evalx.evaluator.make_evaluator`` on the runner's device with
+    ``eval_n`` samples a tick: KL / DS / mode coverage on 2DMG, FID /
+    Inception Score on images (the probe trains here); False skips
+    evaluation; a callable ``(runner, state) -> dict`` adds its metrics."""
     cfg = runner.cfg
     rounds = rounds if rounds is not None else cfg.num_communication
     eval_every = eval_every if eval_every is not None else cfg.num_plt
     eval_every = max(1, min(eval_every, rounds))
-    if evaluator is None:
-        from cglgan_tpu_torch.evalx.evaluator import make_evaluator
-        evaluator = make_evaluator(cfg, runner.part)
     if state is None:
         state = runner.init_state()
+    if evaluator is None:
+        from cglgan_tpu_torch.evalx.evaluator import make_evaluator
+        evaluator = make_evaluator(cfg, runner.part, eval_n=eval_n,
+                                   device=runner.device)
 
     history: List[Dict[str, Any]] = []
     t0 = time.perf_counter()

@@ -2,15 +2,19 @@
 seeded from (``cfg.seed``, role tag, index...), never from global state.
 
 Same role tags as ``cglgan_tpu/core/prng.py``, so streams never collide and a
-run is reproducible from its seed.  The bits differ from JAX's threefry
-(bit parity is an open ROADMAP item); the parity tests therefore inject the
-reference's draws through ``round_fn(state, streams=...)``.
+run is reproducible from its seed.  The round draws differ from JAX's
+threefry (the algorithms' split tree is an open ROADMAP item); the parity
+tests therefore inject the reference's draws through
+``round_fn(state, streams=...)``.  The eval noise (``eval_z``) is the
+reference's, drawn through ``core/threefry.py``.
 """
 from __future__ import annotations
 
 from typing import List, Tuple
 
 import torch
+
+from cglgan_tpu_torch.core import threefry
 
 ROLE_DATA = 0        # dataset synthesis / partition shuffles
 ROLE_INIT_G = 1      # generator init
@@ -45,6 +49,16 @@ def generator(seed: int, *tags: int, device="cpu") -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(derive_seed(seed, *tags))
     return g
+
+
+def eval_z(seed: int, shape, device, member=None) -> torch.Tensor:
+    """The fixed eval latents: float32 ``normal`` under
+    ``fold_in(key(seed), ROLE_EVAL)``, folded with ``member`` (a server)
+    where the family draws them a server, as the reference's ``sample``."""
+    key = threefry.fold_in(threefry.key(seed, device), ROLE_EVAL)
+    if member is not None:
+        key = threefry.fold_in(key, member)
+    return threefry.normal(key, shape)
 
 
 def batch_starts(seed: int, t: int, epoch: int, max_len: int,

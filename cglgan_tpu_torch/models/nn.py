@@ -7,6 +7,10 @@ Weights stay ``(din, dout)`` as in the reference.
 
 * ``linear_init``: weight & bias ~ U(-1/sqrt(din), +1/sqrt(din)) (torch
   ``nn.Linear``'s default).
+* ``keyed_linear_init``, ``conv_init``: one unstacked layer drawn from a
+  threefry key (``core/threefry.py``) with the reference's bits; conv
+  weights OIHW, bound 1/sqrt(cin k k) (``nn.Conv2d``'s default).
+* ``conv2d``: NCHW / OIHW, the bias added after the convolution.
 * ``batchnorm``: the reference's ``BatchNorm1d(out, 0.8)`` — eps 0.8,
   momentum 0.1, running variance unbiased, normalisation by the biased
   batch variance.
@@ -28,8 +32,9 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from cglgan_tpu_torch.core import dtypes
+from cglgan_tpu_torch.core import dtypes, threefry
 from cglgan_tpu_torch.core.dtypes import weak
 
 BN_MOMENTUM = 0.1
@@ -45,6 +50,26 @@ def linear_init(gen: torch.Generator, n: int, din: int, dout: int,
         return ((torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound) \
             .to(dtype)
     return {"w": u((n, din, dout)), "b": u((n, dout))}
+
+
+def keyed_linear_init(key: torch.Tensor, din: int, dout: int
+                      ) -> Dict[str, torch.Tensor]:
+    """One float32 linear layer from a threefry key, as the reference's
+    ``linear_init(key, din, dout)`` draws it."""
+    kw, kb = threefry.split(key)
+    bound = 1.0 / math.sqrt(din)
+    return {"w": threefry.uniform(kw, (din, dout), -bound, bound),
+            "b": threefry.uniform(kb, (dout,), -bound, bound)}
+
+
+def conv_init(key: torch.Tensor, cin: int, cout: int, k: int
+              ) -> Dict[str, torch.Tensor]:
+    """One float32 conv layer (OIHW) from a threefry key, as the
+    reference's ``conv_init`` draws it."""
+    kw, kb = threefry.split(key)
+    bound = 1.0 / math.sqrt(cin * k * k)
+    return {"w": threefry.uniform(kw, (cout, cin, k, k), -bound, bound),
+            "b": threefry.uniform(kb, (cout,), -bound, bound)}
 
 
 def bn_init(n: int, dim: int, dtype=torch.float32
@@ -65,8 +90,8 @@ def dcgan_reinit(gen: torch.Generator, params):
     ``(N, ...)`` and multipath ``(S, k, ...)`` leaves alike.  Leaves are
     drawn in ``tree_leaves`` order, in the leaf's dtype (as the reference
     draws them, ``cglgan_tpu/models/nn.py:83-86``), with the scale and
-    shift as weak scalars; the draws cannot equal JAX's (threefry is
-    ROADMAP queue 1 item 2)."""
+    shift as weak scalars; the draws are not JAX's (the algorithms'
+    threefry split tree is ROADMAP queue 1 item 2)."""
     def walk(tree):
         if isinstance(tree, dict):
             w = tree.get("w")
@@ -98,6 +123,14 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     float32)."""
     dt = torch.promote_types(x.dtype, p["w"].dtype)
     return torch.matmul(x.to(dt), p["w"].to(dt)) + p["b"].unsqueeze(-2)
+
+
+def conv2d(p: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
+           padding: int = 1) -> torch.Tensor:
+    """NCHW convolution with OIHW weights, then the bias, as the
+    reference's ``conv2d`` (``torch.nn.Conv2d``)."""
+    y = F.conv2d(x, p["w"], stride=stride, padding=padding)
+    return y + p["b"][None, :, None, None]
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,9 @@ None.  A multipath G's trees are dicts
 ``{"trunk": [...], "heads": [...]}`` in both packages (heads ``(S, k, ...)``)
 and carry over as dicts.  ``to_numpy`` is the inverse view used by the
 tests: plain dicts of numpy arrays in the port's layout.
+``fid_params_from_numpy`` carries the proxy evaluator's params (the
+random-conv extractor's or the probe's, ``cglgan_tpu/evalx/fid.py``),
+dicts of arrays that both packages lay out alike.
 
 Every leaf keeps its dtype both ways.  A bfloat16 leaf (``--dtype
 bfloat16``) crosses bit for bit through a 16-bit integer view: numpy has no
@@ -92,6 +95,14 @@ def from_jax_numpy(tree, cfg, device) -> FedState:
     return FedState(net(tree.g, False), net(tree.d, True),
                     torch.from_numpy(np.array(tree.lam, np.float32)).to(dev),
                     int(tree.t))
+
+
+def fid_params_from_numpy(tree, device) -> Dict[str, Any]:
+    """The reference's extractor or probe params (after
+    ``jax.tree.map(np.asarray, extractor.params)``) as the port's: the same
+    dicts, each array a tensor on ``device``, bit for bit."""
+    dev = torch.device(device)
+    return tree_map(lambda x: tensor_from_numpy(x, dev), dict(tree))
 
 
 def to_numpy(state: FedState, bf16: str = "keep") -> Dict[str, Any]:

@@ -46,6 +46,18 @@ Phases, each printing one JSON line:
             20 rounds through ``build_runner`` and ``train``; the kernel's
             launch count must rise by exactly 20 and every metric be finite;
   autograd  the same configuration at epoch=1 (the autograd D path);
+  eval_image
+            the proxy image evaluator (FID / Inception Score) on the main
+            path's config: threefry draws and the random-conv extractor's
+            weights card against CPU (equal); the probe's 300 Adam steps on
+            the card (seconds); a tick part by part (sample, features,
+            stats, sqrtm, IS, ms); features, mu / cov, FID and IS card
+            against CPU with the card's probe carried over; the card's
+            probe against one trained on the CPU; ``make_evaluator`` against
+            those parts; FID and IS with cuDNN TF32 on; then 4 rounds of
+            ``train`` with its default evaluator (``fused_dstep``'s count,
+            set to 0 just before, must rise by 4; every tick a finite FID
+            and IS);
   fedavg    16-worker FL-GAN and FeGAN (frac_workers=0.5) on 2DMG at
             epoch=5 through ``load_partition``, ``build_runner`` and
             ``train``, 20 rounds each with ``pallas_sweep=True`` (the sweep
@@ -96,7 +108,8 @@ busy share; ``cglgan_tpu_torch/utils/profiling.py``).
 Then the card line, the ``kernels`` line and, last, the ok line.  Any
 failure raises and exits non-zero; without a card it exits 2 and prints
 no result.  ``--phases a,b`` runs only the named phases (of ``dstep
-dstep_bf16 sweep adam reference main fedavg fedavg_image cgl mdgan bf16``)
+dstep_bf16 sweep adam reference main eval_image fedavg fedavg_image cgl
+mdgan bf16``)
 for a short first look at a new kernel; the
 ``kernels`` and ok lines are printed only by a full run.  Imports nothing
 of JAX.
@@ -1258,12 +1271,14 @@ def phase_rounds(phase, label, algo, base, epoch, part, **extra):
 
     cfg = FedGANConfig(algo=algo, epoch=epoch, **base, **extra)
     runner = build_runner(cfg, part)
-    state = train(runner, 2, eval_every=2)["state"]      # warm-up rounds
+    # rounds/s leaves evaluation out: the evaluator is timed in eval_image
+    state = train(runner, 2, eval_every=2,
+                  evaluator=False)["state"]                # warm-up rounds
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_dstep.launches = 0
     t0 = time.perf_counter()
-    out = train(runner, ROUNDS, eval_every=10, state=state)
+    out = train(runner, ROUNDS, eval_every=10, state=state, evaluator=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_dstep.launches
@@ -1381,12 +1396,13 @@ def phase_fedavg(algo, use_kernel, phase="fedavg", **extra):
     part = load_partition(cfg)
     runner = build_runner(cfg, part)
     setup_s = time.perf_counter() - t0
-    state = train(runner, 2, eval_every=2)["state"]      # warm-up rounds
+    state = train(runner, 2, eval_every=2,
+                  evaluator=False)["state"]                # warm-up rounds
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_sweep.launches = 0
     t0 = time.perf_counter()
-    out = train(runner, ROUNDS, eval_every=10, state=state)
+    out = train(runner, ROUNDS, eval_every=10, state=state, evaluator=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_sweep.launches
@@ -1513,15 +1529,16 @@ def phase_fedavg_image_run(algo, epoch, extra, rounds, part,
     runner = build_runner(cfg, part)
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    state = train(runner, 1, eval_every=1)["state"] if epoch == 1 \
-        else runner.init_state()                         # warm-up round
+    state = train(runner, 1, eval_every=1, evaluator=False)["state"] \
+        if epoch == 1 else runner.init_state()           # warm-up round
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     plan = step_plan(cfg, part, runner, range(state.t, state.t + rounds))
     torch.cuda.reset_peak_memory_stats()
     fused_sweep.launches = fused_dstep.launches = 0
     t0 = time.perf_counter()
-    out = train(runner, rounds, eval_every=rounds, state=state)
+    out = train(runner, rounds, eval_every=rounds, state=state,
+                evaluator=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"fused_sweep": fused_sweep.launches,
@@ -1634,11 +1651,268 @@ def phase_fedavg_image(part):
     return out
 
 
+# The proxy image evaluator (phase eval_image).  Card against CPU on the same
+# inputs: threefry's integer work is exact on both, and its float work is
+# IEEE-rounded float32 or float64 ops, so bits, uniforms and randints must be
+# equal.  Normals round a float64 log1p to float32; the card's and the CPU's
+# log1p may differ in their last float64 bit, and where that moves the
+# float32 rounding the polynomial after it carries one ulp to a few (on an
+# H100: 15 of a million normals, at most 2 ulps apart).  So normals are
+# held to TOL_NORMAL_ULPS, the bound the tests hold them to against JAX's.
+# Features are one float32 forward pass (cuDNN convs and cuBLAS against the
+# CPU's, TF32 off): 1e-5 of each feature set's largest entry, and the numpy
+# mean / covariance of them as much.  FID is a difference of traces over a
+# rank-deficient product (100 samples in 256-d) and is held relatively,
+# 1e-4; IS, from softmax posteriors, 1e-5 relative.
+TOL_NORMAL_ULPS = 3
+TOL_EVAL_FEATURES = 1e-5
+TOL_EVAL_FID = 1e-4
+TOL_EVAL_IS = 1e-5
+# Two probes trained 300 steps each, one on the card (cuDNN backward) and
+# one on the CPU, part where a pre-activation within float32 rounding of 0
+# flips a LeakyReLU slope, and Adam carries the flip on.  On an H100 (700 W)
+# the leaves were 1.1e-4 of their scale apart and the IS of the real images
+# equal; a flipped slope moves a leaf by up to ~1e-2 of its scale (the
+# kernel phases' limit for the same effect).  So each param leaf is held
+# to 1e-2 of its largest entry, and their IS of the same images to 1e-3
+# relative.
+TOL_TWO_PROBES = 1e-2
+TOL_TWO_PROBES_IS = 1e-3
+EVAL_TICKS = 5
+
+
+def _rel_err(got, ref):
+    import numpy as np
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def threefry_card_vs_cpu():
+    """threefry's draws on the card against the CPU's, at the evaluator's
+    shapes and a million elements: the largest |card - cpu| of each (0 is
+    equal) and, for normals, the number of elements that differ and the
+    largest difference in ulps."""
+    import torch
+    from cglgan_tpu_torch.core import prng, threefry
+
+    def draws(dev):
+        key = threefry.key(20211212, dev)
+        sub = threefry.split(key, 4)[3]
+        big = (1 << 20,)
+        return {"bits": threefry.random_bits(key, big),
+                "fold_in": threefry.fold_in(sub, 6),
+                "uniform": threefry.uniform(key, big),
+                "uniform_conv_bound": threefry.uniform(sub, big, -1 / 3,
+                                                       1 / 3),
+                "normal": threefry.normal(key, big),
+                "eval_z": prng.eval_z(20211212, (100, 100), dev, 0),
+                "randint_20000": threefry.randint(sub, (256,), 0, 20000),
+                "randint_int32": threefry.randint(key, big, 0, 2**31 - 1)}
+
+    card, cpu = draws("cuda"), draws("cpu")
+    res = {}
+    for name, x in card.items():
+        x = x.cpu()
+        res[name] = float((x.double() - cpu[name].double()).abs().max())
+        if x.dtype != cpu[name].dtype or x.shape != cpu[name].shape:
+            raise AssertionError(f"threefry {name}: {x.dtype} {x.shape}")
+    float_draws = ("normal", "eval_z")
+    differ = {k: int((card[k].cpu() != cpu[k]).sum()) for k in float_draws}
+    ulps = {k: int((card[k].cpu().view(torch.int32).long()
+                    - cpu[k].view(torch.int32).long()).abs().max())
+            for k in float_draws}
+    bad = [k for k, v in res.items() if k not in float_draws and v != 0] \
+        + [k for k in float_draws if ulps[k] > TOL_NORMAL_ULPS]
+    if bad:
+        raise AssertionError(f"threefry card and CPU draws differ: {bad} "
+                             f"{res} {ulps}")
+    return {"max_abs_err": res, "normal_elements_differing": differ,
+            "normal_max_ulps": ulps, "tol_normal_ulps": TOL_NORMAL_ULPS}
+
+
+def phase_eval_image(card, part):
+    """The proxy evaluator (FID / IS) on the main path's config (CAP-GAN,
+    synthetic-mnist, W=16, B=100, epoch=5): threefry and the extractor's
+    weights card against CPU; the probe's 300 steps on the card; each part
+    of a tick timed (sample, features, stats, sqrtm, IS); features, stats,
+    FID and IS card against CPU with the card's probe carried over; the
+    card probe against one trained on the CPU; FID and IS with cuDNN TF32
+    on; then ``train(runner, 4, eval_every=2)`` with the default evaluator
+    (``fused_dstep``'s count, set to 0 just before, must be 4).  Returns
+    that count."""
+    import numpy as np
+    import torch
+    from cglgan_tpu_torch.algos.registry import build_runner
+    from cglgan_tpu_torch.algos.runner import train
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.evalx import fid
+    from cglgan_tpu_torch.evalx.evaluator import make_evaluator
+    from cglgan_tpu_torch.ops import fused_dstep
+    from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    res = {"phase": "eval_image", "card": card,
+           "threefry": threefry_card_vs_cpu()}
+    cfg = FedGANConfig(algo="capgan", epoch=5, **MAIN)
+    side, n, steps = cfg.img_size, 100, 300
+
+    ext = fid.conv_feature_extractor(side, device="cuda")
+    ext_cpu = fid.conv_feature_extractor(side, device="cpu")
+    res["extractor_weights_max_abs_err"] = max(
+        float((a.cpu() - b).abs().max())
+        for a, b in zip(tree_leaves(ext.params), tree_leaves(ext_cpu.params)))
+    # normals at most TOL_NORMAL_ULPS apart, times a scale below 0.5
+    if res["extractor_weights_max_abs_err"] > 1e-6:
+        raise AssertionError(f"extractor weights differ: {res}")
+
+    runner = build_runner(cfg, part)
+    state = train(runner, 4, eval_every=4, evaluator=False)["state"]
+    # the evaluator's probe set, as make_evaluator draws it
+    data_all = part.data.reshape(-1, side, side)
+    labels_all = part.labels.reshape(-1)
+    sel = np.random.default_rng(cfg.seed).permutation(len(data_all))[:20000]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probe = fid.classifier_probe(data_all[sel], labels_all[sel],
+                                 cfg.num_class, steps=steps, device="cuda")
+    torch.cuda.synchronize()
+    res["probe_s"] = time.perf_counter() - t0
+    real = ((part.eval_pool[:n].astype(np.float32) / 255.0 - 0.5) / 0.5) \
+        .reshape(-1, 1, side, side)
+    mu_r, cov_r = fid.activation_stats(ext, real)
+
+    # a tick, part by part (mean of EVAL_TICKS after one warm-up)
+    parts = {k: 0.0 for k in ("sample", "features", "stats", "sqrtm", "is")}
+    for tick in range(EVAL_TICKS + 1):
+        keep = tick > 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = runner.sample(state, n).reshape(-1, 1, side, side)[:n]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        feats = fid._features(ext, gen)
+        t2 = time.perf_counter()
+        mu_g, cov_g = feats.mean(0), np.cov(feats, rowvar=False)
+        t3 = time.perf_counter()
+        fid_card = fid.frechet_distance(mu_g, cov_g, mu_r, cov_r)
+        t4 = time.perf_counter()
+        is_card = fid.inception_score(probe, gen, cfg.num_class)
+        t5 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                 t5 - t4)):
+            parts[k] += dt * 1e3 / EVAL_TICKS if keep else 0.0
+    res["tick_ms"] = {**parts, "total": sum(parts.values())}
+    res["fid"], res["inception_score"] = fid_card, is_card
+
+    # card against CPU, the card's probe carried over, the same samples
+    gen_cpu = gen.cpu()
+    probe_cpu = fid.Extractor(tree_map(lambda x: x.cpu(), probe.params),
+                              probe.apply)
+    mu_c, cov_c = fid.activation_stats(ext_cpu, gen_cpu)
+    mu_rc, cov_rc = fid.activation_stats(ext_cpu, real)
+    fid_cpu = fid.frechet_distance(mu_c, cov_c, mu_rc, cov_rc)
+    is_cpu = fid.inception_score(probe_cpu, gen_cpu, cfg.num_class)
+    errs = {"features": _rel_err(feats, fid._features(ext_cpu, gen_cpu)),
+            "probe_features": _rel_err(fid._features(probe, gen),
+                                       fid._features(probe_cpu, gen_cpu)),
+            "mu": _rel_err(mu_g, mu_c), "cov": _rel_err(cov_g, cov_c),
+            "real_mu": _rel_err(mu_r, mu_rc),
+            "real_cov": _rel_err(cov_r, cov_rc),
+            "fid": abs(fid_card - fid_cpu) / abs(fid_cpu),
+            "inception_score": abs(is_card - is_cpu) / is_cpu}
+    tols = {"fid": TOL_EVAL_FID, "inception_score": TOL_EVAL_IS}
+    res["card_vs_cpu"] = {"rel_err": errs, "fid_cpu": fid_cpu,
+                          "inception_score_cpu": is_cpu,
+                          "tol": {**tols, "others": TOL_EVAL_FEATURES}}
+    if any(v > tols.get(k, TOL_EVAL_FEATURES) for k, v in errs.items()):
+        raise AssertionError(f"evaluator card and CPU disagree: {res}")
+
+    # the same probe set trained on the CPU
+    t0 = time.perf_counter()
+    probe_host = fid.classifier_probe(data_all[sel], labels_all[sel],
+                                      cfg.num_class, steps=steps,
+                                      device="cpu")
+    host_s = time.perf_counter() - t0
+    leaf_gap = max(_rel_err(a.cpu(), b) for a, b in zip(
+        tree_leaves(probe.params), tree_leaves(probe_host.params)))
+    # IS of the samples, and of the real images (where the probe's classes
+    # are sharp and IS is far from 1)
+    scores = {k: (fid.inception_score(probe_cpu, x, cfg.num_class),
+                  fid.inception_score(probe_host, x, cfg.num_class))
+              for k, x in (("samples", gen_cpu), ("real", real))}
+    gaps = {k: abs(a - b) / b for k, (a, b) in scores.items()}
+    res["two_probes"] = {
+        "cpu_probe_s": host_s, "params_max_scaled_gap": leaf_gap,
+        "inception_score_rel_gap": gaps, "inception_scores": scores,
+        "tol": {"params": TOL_TWO_PROBES, "inception_score":
+                TOL_TWO_PROBES_IS}}
+    if leaf_gap > TOL_TWO_PROBES or max(gaps.values()) > TOL_TWO_PROBES_IS:
+        raise AssertionError(f"the card and CPU probes part: {res}")
+
+    # make_evaluator on the card: the same metrics as the parts above
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluate = make_evaluator(cfg, part)
+    torch.cuda.synchronize()
+    res["make_evaluator_s"] = time.perf_counter() - t0
+    got = evaluate(runner, state)
+    t0 = time.perf_counter()
+    for _ in range(EVAL_TICKS):
+        evaluate(runner, state)
+    res["evaluate_ms"] = (time.perf_counter() - t0) * 1e3 / EVAL_TICKS
+    # the same extractor and samples give the same FID; its own probe is a
+    # second card-trained one (cuDNN's weight gradients may sum in another
+    # order from one run to the next)
+    res["make_evaluator_vs_parts"] = {
+        "fid_rel": abs(got["fid"] - fid_card) / fid_card,
+        "inception_score_rel": abs(got["inception_score"] - is_card)
+        / is_card}
+    if got["fid"] != fid_card or \
+            res["make_evaluator_vs_parts"]["inception_score_rel"] \
+            > TOL_TWO_PROBES_IS:
+        raise AssertionError(f"make_evaluator {got} against its parts {res}")
+
+    # what the default cuDNN TF32 moves: the evaluator built and run with
+    # it on (the rest of this script turns it off), on a line of its own
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = make_evaluator(cfg, part)(runner, state)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "eval_image", "cudnn_tf32": True, "card": card, **tf32,
+          "fid_rel_moved": abs(tf32["fid"] - fid_card) / fid_card,
+          "inception_score_rel_moved":
+          abs(tf32["inception_score"] - is_card) / is_card})
+
+    # the main path with train's default evaluator
+    fused_dstep.launches = 0
+    t0 = time.perf_counter()
+    out = train(runner, 4, eval_every=2, state=state)
+    torch.cuda.synchronize()
+    res["train_s"] = time.perf_counter() - t0
+    launches = fused_dstep.launches
+    ticks = out["history"]
+    if launches != 4 or len(ticks) != 2 or not all(
+            math.isfinite(t["fid"]) and math.isfinite(t["inception_score"])
+            for t in ticks):
+        raise AssertionError(f"train with the default evaluator: "
+                             f"{launches} launches, ticks {ticks}")
+    res["train_ticks"] = [{k: t[k] for k in ("round", "fid",
+                                             "inception_score", "d_loss",
+                                             "g_loss")} for t in ticks]
+    res["fused_dstep_launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return launches
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     all_phases = ("dstep", "dstep_bf16", "sweep", "adam", "reference",
-                  "main", "fedavg", "fedavg_image", "cgl", "mdgan", "bf16")
+                  "main", "eval_image", "fedavg", "fedavg_image", "cgl",
+                  "mdgan", "bf16")
     ap.add_argument("--phases", default=",".join(all_phases),
                     help="comma-separated subset of: " + " ".join(all_phases))
     phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
@@ -1703,6 +1977,9 @@ def main(argv=None):
         _, done["dstep_launches"] = phase_rounds("main", "capgan", "capgan",
                                                  MAIN, 5, part)
         phase_rounds("autograd", "capgan", "capgan", MAIN, 1, part)
+    if "eval_image" in phases:
+        done["dstep_launches capgan eval"] = phase_eval_image(
+            card, part_of("capgan", MAIN))
     if "fedavg" in phases:
         _, done["sweep_launches"] = phase_fedavg("flgan", True)
         phase_fedavg("flgan", False)

@@ -165,22 +165,30 @@ def test_gen_and_sample_match_jax():
 
 
 def test_train_and_entry_point_contract():
-    """``train`` ticks and metric means; the default device is the card;
-    what the slice does not cover raises NotImplementedError naming its
-    ROADMAP item."""
+    """``train`` ticks and metric means; by default every tick carries the
+    image evaluator's FID and IS; the default device is the card; what the
+    slice does not cover raises NotImplementedError naming its ROADMAP
+    item."""
     from cglgan_tpu_torch.algos.runner import train
     _, part = _partition()
     cfg = FedGANConfig(algo="capgan", dataset="synthetic-mnist",
                        num_workers=NW, img_size=8, batch_size=B)
     run = build_runner(cfg, part, device="cpu")
-    out = train(run, rounds=3, eval_every=2)
+    out = train(run, rounds=3, eval_every=2, evaluator=False)
     assert [t["round"] for t in out["history"]] == [2, 3]
     for tick in out["history"]:
         assert all(np.isfinite(tick[k]) for k in ("d_loss", "g_loss",
                                                   "f_max", "lambda"))
     assert out["state"].t == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(run, rounds=1, evaluator=None)
+    # the default evaluator trains its probe (300 small steps) on one
+    # thread: a thread a core waits on the other test workers for minutes
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        tick = train(run, rounds=1, evaluator=None)["history"][0]
+    finally:
+        torch.set_num_threads(threads)
+    assert np.isfinite(tick["fid"]) and np.isfinite(tick["inception_score"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_runner(cfg, part)
@@ -190,5 +198,6 @@ def test_train_and_entry_point_contract():
             build_runner(cfg.replace(**kw), part, device="cpu")
     # bf16 mode is ported: it builds and trains
     bf16 = train(build_runner(cfg.replace(dtype="bfloat16"), part,
-                              device="cpu"), rounds=1, eval_every=1)
+                              device="cpu"), rounds=1, eval_every=1,
+                 evaluator=False)
     assert np.isfinite(bf16["history"][0]["g_loss"])

@@ -339,7 +339,8 @@ def test_port_imports_no_jax():
         for f in fs if f.endswith(".py"))
     for name in ("ops.fused_dstep", "ops.fused_sweep", "ops.fused_adam",
                  "algos.fedavg_family", "algos.mdgan_family", "data.gmm",
-                 "fed.sampling", "evalx.hist2d", "evalx.evaluator"):
+                 "fed.sampling", "evalx.hist2d", "evalx.evaluator",
+                 "core.threefry", "evalx.fid"):
         assert f"cglgan_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
