@@ -1,12 +1,13 @@
 """CGL-GAN, CAP-GAN and Mix-G: the 3-tier cloud/edge/client hierarchy with
 the Lambda game.
 
-Port of ``cglgan_tpu/algos/cgl_family.py`` (MLP models, float32 or
-bfloat16, one device).  Every round each edge server makes a detached fake
-batch Xd; every client runs ``epoch`` local D steps on (real window, Xd);
-the server's G takes one step on the per-client losses l through the
-UPDATED Ds; on each server's cadence the cloud averages the servers' G (or
-their trunks) and sigma-mixes the average back in.
+Port of ``cglgan_tpu/algos/cgl_family.py`` (MLP models in float32 or
+bfloat16, the conv LSGAN pair in float32, one device).  Every round each
+edge server makes a detached fake batch Xd; every client runs ``epoch``
+local D steps on (real window, Xd); the server's G takes one step on the
+per-client losses l through the UPDATED Ds; on each server's cadence the
+cloud averages the servers' G (or their trunks) and sigma-mixes the
+average back in.
 
 | algo   | generator            | D head (MNIST) | D x0.5 | cloud sync          | cadence          |
 |--------|----------------------|----------------|--------|---------------------|------------------|
@@ -30,6 +31,14 @@ and autograd otherwise.
 bfloat16 (``dtype="bfloat16"``): G and D params, BN state, latents, fakes
 and Adam moments are bfloat16; the per-client losses, the game (w, Lambda)
 and the metrics are float32, as in the reference.
+
+Conv (``conv=True``, ``cglgan_tpu/algos/cgl_family.py:63,93,133-170``): the
+D has one raw logit (BCE on logits), the local D step runs real and fake
+through separate forwards (the conv D's BatchNorm takes per-forward
+statistics), ``conv-multipath`` is a multipath G (trunk synced with its BN
+buffers), and the conv D's Dropout2d takes threefry keys: each server's
+``(k_d, k_drop)`` of the round's streams split k ways, one a client, for
+the local D steps and for the G step's D forwards.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ from cglgan_tpu_torch.algos.common import FedState, NetState
 from cglgan_tpu_torch.algos.game import game_step
 from cglgan_tpu_torch.algos.runner import Runner
 from cglgan_tpu_torch.core import device as device_mod
-from cglgan_tpu_torch.core import prng
+from cglgan_tpu_torch.core import prng, threefry
 from cglgan_tpu_torch.core.dtypes import torch_dtype
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.fed import collectives, topology
@@ -59,7 +68,7 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
     algo = cfg.algo
     g_model, d_model = models_for_config(cfg)
     multipath = g_model.multipath
-    adv = common.make_adv_loss(cfg.resolved_d_head)
+    adv = common.make_adv_loss("raw" if cfg.conv else cfg.resolved_d_head)
     weighting = cfg.resolved_weighting
     B, zdim = cfg.batch_size, cfg.latent_dim
     dtype = torch_dtype(cfg)
@@ -86,7 +95,7 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
         common.d_step_fn(d_model, adv, cfg.lr_d, cfg.b1, cfg.b2, B,
                          cfg.is_image,
                          d_loss_half=algo in ("capgan", "mixgan"),
-                         dtype=dtype),
+                         dtype=dtype, fuse_concat=not cfg.conv),
         cfg.epoch)
     use_kernel = fused_dstep.eligible(cfg)
 
@@ -116,17 +125,23 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
         return fake.reshape(S, 1, B, din).expand(S, k, B, din) \
             .reshape(W, B, din)
 
-    def g_update(g: NetState, gbn1, z_g, d_new: NetState, lam):
+    def client_keys(k_s):
+        """Servers' keys (S, 2) -> one a client (W, 2): ``split(k, k)``."""
+        return threefry.split(k_s, k).reshape(W, 2)
+
+    def g_update(g: NetState, gbn1, z_g, d_new: NetState, lam,
+                 drop_keys=None):
         """One G forward from gbn1; the per-client losses through the
         updated Ds are both the game's inputs and the primal of the
         backward: cotangent w for a single-path G; for a multipath G,
         cotangent ones for the heads and w for the trunk
-        (cglgan_tpu/algos/cgl_family.py:169-181)."""
+        (cglgan_tpu/algos/cgl_family.py:169-181).  ``drop_keys``: the conv
+        D's dropout keys (W, 2)."""
         gp, leaves = common.with_grad(g.params)
         with torch.enable_grad():
             fake, gbn2 = g_model.apply(gp, gbn1, z_g, train=True)
             out, _ = d_model.apply(d_new.params, d_new.bn, route(fake),
-                                   train=True)
+                                   train=True, rng=drop_keys)
             losses = adv(out, 1.0).reshape(S, k)
             game = game_step(weighting, losses.detach(), beta, lam,
                              cfg.lr_lambda)
@@ -184,13 +199,23 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
 
     def round_fn(state: FedState, streams=None):
         """One federated round.  ``streams``: optional injected
-        ``(starts (E,), z_d (S,B,zdim), z_g (S,B,zdim))``; by default they
-        are drawn from ``core.prng`` for round ``state.t``."""
+        ``(starts (E,), z_d (S,B,zdim), z_g (S,B,zdim))``, and with conv
+        each server's ``k_d, k_drop`` (S, 2) threefry key data after them;
+        by default they are drawn from ``core.prng`` for round
+        ``state.t``."""
         t = state.t
         g = cloud_sync(state.g, t) if cloud_enabled else state.g
         if streams is None:
             streams = prng.round_streams(cfg, t, max_len, dev)
-        starts, z_d, z_g = streams
+        starts, z_d, z_g = streams[:3]
+        d_keys = drop_keys = None
+        if cfg.conv:
+            if len(streams) != 5:
+                raise ValueError("conv rounds take the streams (starts, "
+                                 "z_d, z_g, k_d, k_drop)")
+            k_d, k_drop = (torch.as_tensor(x, device=dev).to(torch.int64)
+                           for x in streams[3:5])
+            d_keys, drop_keys = client_keys(k_d), client_keys(k_drop)
         # the latents in the run's dtype (the reference draws them so)
         z_d = torch.as_tensor(z_d, device=dev).to(dtype)
         z_g = torch.as_tensor(z_g, device=dev).to(dtype)
@@ -204,9 +229,10 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
                 xd, gbn1 = g_model.apply(g.params, g.bn, z_d, train=True)
             shared = S == 1 and not multipath
             fake = xd.reshape(B, din) if shared else route(xd)
-            new_d, d_loss = d_step(state.d, shards, starts, fake)
+            new_d, d_loss = d_step(state.d, shards, starts, fake, d_keys)
 
-        new_g, lam_new, gm = g_update(g, gbn1, z_g, new_d, state.lam)
+        new_g, lam_new, gm = g_update(g, gbn1, z_g, new_d, state.lam,
+                                      drop_keys)
         metrics = {"d_loss": d_loss.mean(), **gm}
 
         if cfg.E > 0 and (t + 1) % cfg.E == 0:

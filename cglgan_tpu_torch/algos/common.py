@@ -19,6 +19,7 @@ from typing import Any, Callable, List, NamedTuple
 
 import torch
 
+from cglgan_tpu_torch.core import threefry
 from cglgan_tpu_torch.core.dtypes import weak
 from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -27,13 +28,24 @@ from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 # what the port covers
 # ---------------------------------------------------------------------------
 
+CONV_ALGOS = ("capgan", "cglgan", "mixgan")
+
+
 def check_supported(cfg, mesh=None) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the
-    ported slices do not cover: conv models and meshes (every algorithm
-    runs on MLP models, on 2DMG and the image datasets)."""
-    if cfg.conv:
-        raise NotImplementedError("conv=True is not ported yet (ROADMAP "
-                                  "queue 1 item 12)")
+    ported slices do not cover: conv models outside the CGL family or in
+    bfloat16, and meshes (every algorithm runs on MLP models, on 2DMG and
+    the image datasets; CAP-GAN, CGL-GAN and Mix-G also on the conv
+    LSGAN pair in float32)."""
+    if cfg.conv and cfg.algo not in CONV_ALGOS:
+        raise NotImplementedError(
+            f"conv=True for {cfg.algo} is not ported yet (ROADMAP queue 1 "
+            "item 12: the MD-GAN and FedAvg families' conv branches); the "
+            "CGL family (capgan, cglgan, mixgan) runs conv")
+    if cfg.conv and cfg.dtype != "float32":
+        raise NotImplementedError(
+            "conv=True in bfloat16 is not ported yet (ROADMAP queue 1 item "
+            "12); the conv LSGAN pair runs in float32")
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unsupported dtype {cfg.dtype!r}")
     if mesh is not None or cfg.model_shards > 1:
@@ -221,27 +233,45 @@ def with_grad(tree):
 
 def d_step_fn(d_model, adv_loss, lr: float, b1: float, b2: float,
               batch_size: int, is_image: bool, d_loss_half: bool,
-              dtype=torch.float32):
-    """``step(d_net, shards, start, fake) -> (d_net, d_loss (W,))``: one
-    local D update of every client on (real window, fakes), real and fake
-    through ONE forward on the (2B, ...) concatenation (exact for the
-    BN-free MLP D).  D loss = real + fake, halved for CAP/Mix, in float32;
-    the forward, the gradients and Adam in ``dtype``."""
+              dtype=torch.float32, fuse_concat: bool = True):
+    """``step(d_net, shards, start, fake, key=None) -> (d_net, d_loss
+    (W,))``: one local D update of every client on (real window, fakes).
+    D loss = real + fake, halved for CAP/Mix, in float32; the forward, the
+    gradients and Adam in ``dtype``.
+
+    ``fuse_concat``: real and fake through ONE forward on the (2B, ...)
+    concatenation (exact for the BN-free MLP D).  Off for the conv D, whose
+    BatchNorm takes per-forward statistics (``cglgan_tpu/algos/common.py:
+    227-243``): ``key`` (W, 2), one threefry key a client, splits into
+    ``r1, r2``; real goes through the D with dropout keys ``r1``, then fake
+    with ``r2`` from the BN state the real forward left."""
     B = batch_size
 
-    def step(d_net: NetState, shards, start: int, fake):
+    def losses(params, bn, real, fake, key):
+        if fuse_concat:
+            both = torch.cat([real, fake], dim=1)
+            out, new_bn = d_model.apply(params, bn, both, train=True)
+            half = adv_loss(out[:, :B], 1.0) * 0.5 \
+                + adv_loss(out[:, B:], 0.0) * 0.5
+            return (half if d_loss_half else half * 2.0), new_bn
+        r = threefry.split(key)                                 # (W, 2, 2)
+        out_r, bn1 = d_model.apply(params, bn, real, train=True,
+                                   rng=r[:, 0])
+        out_f, new_bn = d_model.apply(params, bn1, fake, train=True,
+                                      rng=r[:, 1])
+        loss = adv_loss(out_r, 1.0) + adv_loss(out_f, 0.0)
+        return (loss * 0.5 if d_loss_half else loss), new_bn
+
+    def step(d_net: NetState, shards, start: int, fake, key=None):
         """``fake``: flat (W, B, din) per-client or (B, din) shared."""
         real = prepare_real(slice_batch(shards, start, B), is_image, dtype)
         fake = fake.detach()
         if fake.ndim == 2:
             fake = fake.unsqueeze(0).expand(real.shape[0], -1, -1)
-        both = torch.cat([real, fake.to(real.dtype)], dim=1)
         params, leaves = with_grad(d_net.params)
         with torch.enable_grad():
-            out, new_bn = d_model.apply(params, d_net.bn, both, train=True)
-            half = adv_loss(out[:, :B], 1.0) * 0.5 \
-                + adv_loss(out[:, B:], 0.0) * 0.5
-            loss = half if d_loss_half else half * 2.0
+            loss, new_bn = losses(params, d_net.bn, real,
+                                  fake.to(real.dtype), key)
             grads = torch.autograd.grad(loss.sum(), leaves)
         new_p, new_opt = adam_update(
             d_net.params, tree_unflatten(d_net.params, list(grads)),
@@ -253,10 +283,16 @@ def d_step_fn(d_model, adv_loss, lr: float, b1: float, b2: float,
 
 def d_epoch_steps(step, epoch: int):
     """Repeat ``step`` over the ``epoch`` shared window offsets; returns the
-    LAST step's loss (the reference inner loop, capgan.py:324-341)."""
-    def run(d_net: NetState, shards, starts: List[int], fake):
+    LAST step's loss (the reference inner loop, capgan.py:324-341).  With
+    threefry ``key`` (W, 2) (the conv D's dropout), step e takes
+    ``split(key, epoch)[:, e]``, or ``key`` itself at epoch 1, as the
+    reference's ``d_epoch_steps`` hands them out."""
+    def run(d_net: NetState, shards, starts: List[int], fake, key=None):
+        keys = threefry.split(key, epoch) \
+            if key is not None and epoch > 1 else None
         loss = None
         for e in range(epoch):
-            d_net, loss = step(d_net, shards, int(starts[e]), fake)
+            k_e = key if keys is None else keys[:, e]
+            d_net, loss = step(d_net, shards, int(starts[e]), fake, k_e)
         return d_net, loss
     return run

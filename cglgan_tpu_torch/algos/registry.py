@@ -3,12 +3,16 @@
 Port of ``cglgan_tpu/algos/registry.py`` for all seven algorithms on MLP
 models, on the image datasets and on 2DMG: the CGL family (CGL-GAN,
 CAP-GAN, Mix-G), the MD-GAN family (AC-GAN, MD-GAN) and the FedAvg family
-(FL-GAN, FeGAN; the ragged "epochs" sweep on image data).  Conv models and
-meshes raise ``NotImplementedError`` naming their ROADMAP item.
+(FL-GAN, FeGAN; the ragged "epochs" sweep on image data).  The conv LSGAN
+pair runs on the CGL family, on images zero-padded 28 -> 32.  What is not
+ported (conv on the other families, meshes) raises ``NotImplementedError``
+naming its ROADMAP item (``algos/common.py`` ``check_supported``).
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import numpy as np
 
 from cglgan_tpu_torch.algos.common import check_supported
 from cglgan_tpu_torch.core import device as device_mod
@@ -18,9 +22,6 @@ from cglgan_tpu_torch.data.partition import Partition, partition
 
 
 def load_partition(cfg) -> Partition:
-    if cfg.conv:
-        raise NotImplementedError("conv=True is not ported yet (ROADMAP "
-                                  "queue 1 item 12)")
     if cfg.dataset == "2dmg":
         data, labels = gmm_dataset(cfg.num_class, cfg.num_sample,
                                    seed=cfg.seed)
@@ -32,6 +33,10 @@ def load_partition(cfg) -> Partition:
     else:
         data, labels = load_image_dataset(cfg.dataset, cfg.data_dir,
                                           seed=cfg.seed)
+        if cfg.conv and data.shape[1] == 28:
+            # the conv LSGAN pair works at 32x32 (model/lsgan.py:7); a 2px
+            # zero pad keeps the content exactly
+            data = np.pad(data, ((0, 0), (2, 2), (2, 2)))
         # shards are stored flat (N, H*W): one contiguous window per client
         data = data.reshape(len(data), -1)
         num_sample = cfg.num_sample

@@ -70,16 +70,23 @@ def batch_starts(seed: int, t: int, epoch: int, max_len: int,
     return torch.randint(0, hi, (epoch,), generator=g).tolist()
 
 
-def round_streams(cfg, t: int, max_len: int, device
-                  ) -> Tuple[List[int], torch.Tensor, torch.Tensor]:
+def round_streams(cfg, t: int, max_len: int, device) -> tuple:
     """One round's draws: ``(starts (E,), z_d (S,B,zdim), z_g (S,B,zdim))``
-    — the same three streams ``cglgan_tpu``'s ``round_fn`` draws."""
+    — the same three streams ``cglgan_tpu``'s ``round_fn`` draws — and with
+    ``cfg.conv`` each server's dropout keys ``k_d, k_drop`` (S, 2) after
+    them, threefry key data drawn from the same generator (the reference
+    splits them from the round's key; inject its ``key_data`` to get its
+    masks)."""
     S, B, zdim = cfg.num_servers, cfg.batch_size, cfg.latent_dim
     starts = batch_starts(cfg.seed, t, cfg.epoch, max_len, B)
     g = generator(cfg.seed, ROLE_LOCAL, t, device=device)
     z_d = torch.randn((S, B, zdim), generator=g, device=device)
     z_g = torch.randn((S, B, zdim), generator=g, device=device)
-    return starts, z_d, z_g
+    if not cfg.conv:
+        return starts, z_d, z_g
+    keys = torch.randint(0, 1 << 32, (2, S, 2), generator=g, device=device,
+                         dtype=torch.int64)
+    return starts, z_d, z_g, keys[0], keys[1]
 
 
 def survival(cfg, t: int, n: int, device) -> torch.Tensor:

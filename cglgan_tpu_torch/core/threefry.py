@@ -9,17 +9,20 @@ the draws the reference makes with fixed seeds: the proxy evaluator's
 weights, its probe's batches and the eval noise.
 
 A key is an int64 tensor of shape ``(2,)`` holding the two uint32 words of
-``jax.random.key_data``; ``split`` returns ``(n, 2)``.  Every 32-bit word
+``jax.random.key_data``; ``split`` returns ``(n, 2)``.  Every function also
+takes a batch of keys ``(..., 2)`` and returns one result a key, leading
+axes first, as ``jax.vmap`` over the keys would.  Every 32-bit word
 is carried in int64 and masked with ``0xFFFFFFFF`` after each add, shift
 and multiply (torch's ``uint32`` lacks most arithmetic and shift ops).
 Work runs on the key's device.
 
-``key``, ``fold_in``, ``split``, ``random_bits``, ``uniform`` and
-``randint`` give the bits of JAX on the CPU, on every device.  ``normal``
-follows XLA's float32 ``erf_inv`` polynomial but rounds ``log1p`` from
-float64, so it agrees with JAX's to 3 ulps, not bits; on a GPU, where
-float64 ``log1p`` may differ in its last bit, a few normals in a million
-differ from the CPU's by as much.
+``key``, ``fold_in``, ``split``, ``random_bits``, ``uniform``,
+``bernoulli`` and ``randint`` give the bits of JAX on the CPU, on every
+device (``bernoulli_parts``: several ``bernoulli`` draws in one pass).
+``normal`` follows XLA's float32 ``erf_inv`` polynomial but rounds
+``log1p`` from float64, so it agrees with JAX's to 3 ulps, not bits; on a
+GPU, where float64 ``log1p`` may differ in its last bit, a few normals in
+a million differ from the CPU's by as much.
 """
 from __future__ import annotations
 
@@ -63,18 +66,21 @@ def key(seed: int, device="cpu") -> torch.Tensor:
                         device=device)
 
 
-def _words(k: torch.Tensor):
-    if tuple(k.shape) != (2,):
-        raise ValueError(f"a key has shape (2,), got {tuple(k.shape)}")
-    return k[0], k[1]
+def _words(k: torch.Tensor, ndim: int = 0):
+    """The key words of ``k`` (``(..., 2)``), each shaped to broadcast
+    against ``ndim`` trailing count axes."""
+    if k.ndim < 1 or k.shape[-1] != 2:
+        raise ValueError(f"a key has shape (..., 2), got {tuple(k.shape)}")
+    lead = tuple(k.shape[:-1]) + (1,) * ndim
+    return k[..., 0].reshape(lead), k[..., 1].reshape(lead)
 
 
 def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: the hash of the count ``(0, data)``."""
-    k1, k2 = _words(k)
+    k1, k2 = _words(k, 1)
     z = torch.zeros((1,), dtype=torch.int64, device=k.device)
     a, b = _hash2x32(k1, k2, z, z + (int(data) & MASK))
-    return torch.cat([a, b])
+    return torch.cat([a, b], dim=-1)
 
 
 def _iota_2x32(shape: Sequence[int], device) -> Tuple[torch.Tensor,
@@ -88,17 +94,18 @@ def _iota_2x32(shape: Sequence[int], device) -> Tuple[torch.Tensor,
 
 
 def split(k: torch.Tensor, n: int = 2) -> torch.Tensor:
-    """``jax.random.split`` (partitionable): ``(n, 2)`` keys."""
-    k1, k2 = _words(k)
+    """``jax.random.split`` (partitionable): ``(..., n, 2)`` keys."""
+    k1, k2 = _words(k, 1)
     hi, lo = _iota_2x32((n,), k.device)
     a, b = _hash2x32(k1, k2, hi, lo)
-    return torch.stack([a, b], dim=1)
+    return torch.stack([a, b], dim=-1)
 
 
 def random_bits(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32) as int64 in [0, 2**32)."""
-    k1, k2 = _words(k)
-    hi, lo = _iota_2x32(tuple(shape), k.device)
+    shape = tuple(shape)
+    k1, k2 = _words(k, len(shape))
+    hi, lo = _iota_2x32(shape, k.device)
     a, b = _hash2x32(k1, k2, hi, lo)
     return a ^ b
 
@@ -118,9 +125,60 @@ def uniform(k: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     of two float32s is exact, and rounds once to float32."""
     lo = _f32(minval)
     span = float(np.float32(maxval) - np.float32(lo))   # a float32 subtraction
-    bits = (random_bits(k, shape) >> 9) | 0x3F800000
-    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    floats = _unit_floats(random_bits(k, shape))
     return (floats.double() * span + lo).float().clamp_min(lo)
+
+
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """23 random mantissa bits under the exponent of 1.0, minus 1: float32
+    in [0, 1)."""
+    bits = (bits >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(k: torch.Tensor, p: float, shape: Sequence[int]
+              ) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: bool, ``uniform(key, shape)
+    < p`` with ``p`` a float32 (on ``[0, 1)`` the uniform is exact)."""
+    return _unit_floats(random_bits(k, shape)) < _f32(p)
+
+
+_PART_COUNTS = {}
+
+
+def _part_counts(shapes: Tuple[Tuple[int, ...], ...], device):
+    """For ``bernoulli_parts``: each element's part index and its count
+    (its row-major index within its part), over the parts laid end to end;
+    made once a device."""
+    cache_key = (shapes, str(device))
+    if cache_key not in _PART_COUNTS:
+        sizes = [math.prod(s) for s in shapes]
+        part = torch.repeat_interleave(
+            torch.arange(len(sizes)), torch.tensor(sizes))
+        count = torch.cat([torch.arange(n) for n in sizes])
+        _PART_COUNTS[cache_key] = (part.to(device), (count >> 32).to(device),
+                                   (count & MASK).to(device))
+    return _PART_COUNTS[cache_key]
+
+
+def bernoulli_parts(keys: torch.Tensor, p: float,
+                    shapes: Sequence[Sequence[int]]):
+    """``[bernoulli(keys[..., j, :], p, shapes[j]) for j]`` in one hash pass
+    over the parts' counts laid end to end (``keys``: ``(..., n, 2)``, one
+    key a part): the same bits, one threefry block's launches for all
+    ``n`` parts instead of one block a part."""
+    shapes = tuple(tuple(int(d) for d in s) for s in shapes)
+    if keys.ndim < 2 or keys.shape[-2] != len(shapes):
+        raise ValueError(f"{len(shapes)} parts need keys (..., "
+                         f"{len(shapes)}, 2), got {tuple(keys.shape)}")
+    part, hi, lo = _part_counts(shapes, keys.device)
+    k1, k2 = keys[..., 0][..., part], keys[..., 1][..., part]
+    a, b = _hash2x32(k1, k2, hi, lo)
+    keep = _unit_floats(a ^ b) < _f32(p)
+    lead = tuple(keys.shape[:-2])
+    sizes = [math.prod(s) for s in shapes]
+    return [x.reshape(lead + s)
+            for x, s in zip(torch.split(keep, sizes, dim=-1), shapes)]
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))

@@ -3,7 +3,7 @@
 Port of ``cglgan_tpu/evalx/fid.py``.  The reference protocol scores
 100-image subsamples with InceptionV3 features (FLGAN/MNIST/flgan.py:62-104);
 without Inception weights the reference uses a documented proxy, and so
-does this port (InceptionV3 pool3 is ROADMAP queue 1 entry 1 (b)):
+does this port (with weights, ``evalx/inception.py``'s pool3):
 
 * ``conv_feature_extractor``: a fixed-seed random convolutional embedding
   for FID; absolute values are not comparable to Inception FID.

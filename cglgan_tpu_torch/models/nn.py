@@ -11,9 +11,18 @@ Weights stay ``(din, dout)`` as in the reference.
   threefry key (``core/threefry.py``) with the reference's bits; conv
   weights OIHW, bound 1/sqrt(cin k k) (``nn.Conv2d``'s default).
 * ``conv2d``: NCHW / OIHW, the bias added after the convolution.
+* ``stacked_conv_init``, ``group_conv2d``: N stacked conv layers (weights
+  ``(N, O, I, k, k)``) on the grouped image layout ``(B, N*C, H, W)``,
+  member n's channels ``[n*C, (n+1)*C)``: one ``F.conv2d(..., groups=N)``
+  runs every member's convolution.  ``to_groups`` / ``from_groups`` move
+  stacked images ``(N, B, C, H, W)`` into that layout and back.
+* ``upsample2x``: nearest 2x (``nn.Upsample``'s default).
+* ``dropout2d``: channel dropout (``nn.Dropout2d``) from a threefry key,
+  the reference's draw bit for bit.
 * ``batchnorm``: the reference's ``BatchNorm1d(out, 0.8)`` — eps 0.8,
   momentum 0.1, running variance unbiased, normalisation by the biased
-  batch variance.
+  batch variance; on the grouped image layout ``BatchNorm2d(out, 0.8)``,
+  each member's channel over (B, H, W).
 * ``leaky_relu``: ``where(x >= 0, x, 0.2x)`` — gradient 1 at 0, as in JAX
   (``F.leaky_relu`` gives 0.2 there).
 * ``dcgan_reinit``: the reference ``weights_init`` DCGAN re-draw (Mix-G's G
@@ -70,6 +79,18 @@ def conv_init(key: torch.Tensor, cin: int, cout: int, k: int
     bound = 1.0 / math.sqrt(cin * k * k)
     return {"w": threefry.uniform(kw, (cout, cin, k, k), -bound, bound),
             "b": threefry.uniform(kb, (cout,), -bound, bound)}
+
+
+def stacked_conv_init(gen: torch.Generator, n: int, cin: int, cout: int,
+                      k: int, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """``n`` stacked conv layers, OIHW, U(-1/sqrt(cin k k), +) drawn from
+    ``gen`` in float32 (``nn.Conv2d``'s default bound; not JAX's bits)."""
+    bound = 1.0 / math.sqrt(cin * k * k)
+
+    def u(shape):
+        return ((torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound) \
+            .to(dtype)
+    return {"w": u((n, cout, cin, k, k)), "b": u((n, cout))}
 
 
 def bn_init(n: int, dim: int, dtype=torch.float32
@@ -133,6 +154,56 @@ def conv2d(p: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
     return y + p["b"][None, :, None, None]
 
 
+def to_groups(x: torch.Tensor) -> torch.Tensor:
+    """Stacked images ``(N, B, C, H, W)`` -> the grouped layout
+    ``(B, N*C, H, W)``."""
+    n, b, c, h, w = x.shape
+    return x.transpose(0, 1).reshape(b, n * c, h, w)
+
+
+def from_groups(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The grouped layout ``(B, N*C, H, W)`` -> ``(N, B, C, H, W)``."""
+    b, nc, h, w = x.shape
+    return x.reshape(b, n, nc // n, h, w).transpose(0, 1)
+
+
+def group_conv2d(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                 stride: int = 1, padding: int = 1) -> torch.Tensor:
+    """N stacked convolutions (``p["w"]`` ``(N, O, I, k, k)``, ``p["b"]``
+    ``(N, O)``) on the grouped layout ``(B, N*I, H, W)`` as one grouped
+    ``F.conv2d``; each member's bias added after, as ``conv2d`` does."""
+    w = p["w"]
+    n = w.shape[0]
+    y = F.conv2d(x, w.reshape((-1,) + tuple(w.shape[2:])), stride=stride,
+                 padding=padding, groups=n)
+    return y + p["b"].reshape(1, -1, 1, 1)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample of the last two axes (``nn.Upsample``'s
+    default; the reference's ``jnp.repeat`` twice): every value copied."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def scale_kept(x: torch.Tensor, keep: torch.Tensor, rate: float
+               ) -> torch.Tensor:
+    """``x * keep / (1 - rate)``, the reference's dropout arithmetic."""
+    return x * keep / (1.0 - rate)
+
+
+def dropout2d(key: torch.Tensor, x: torch.Tensor, rate: float,
+              train: bool) -> torch.Tensor:
+    """Channel dropout (``nn.Dropout2d``) of ``x`` ``(..., B, C, H, W)``
+    with threefry keys ``(..., 2)``, one a member: the keep mask
+    ``bernoulli(key, 1 - rate, (B, C, 1, 1))`` as the reference draws it
+    (``cglgan_tpu/models/nn.py:150``), then ``x * keep / (1 - rate)``."""
+    if not train or rate == 0.0:
+        return x
+    keep = threefry.bernoulli(key, 1.0 - rate,
+                              tuple(x.shape[-4:-2]) + (1, 1))
+    return scale_kept(x, keep, rate)
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid``: JAX lowers it as 1 / (1 + exp(-x)) op by op in
     ``x``'s dtype, so in bfloat16 each of the four steps rounds (a share of
@@ -152,7 +223,10 @@ def batchnorm(p, s, x: torch.Tensor, train: bool, eps: float = 0.8,
     """BatchNorm1d over the batch axis of stacked ``x`` (N, B, C).  The batch
     mean and the biased variance of bfloat16 ``x`` accumulate in float32
     and round once, as ``jnp.mean`` / ``jnp.var`` do; the rest runs in
-    ``x``'s dtype with weak constants."""
+    ``x``'s dtype with weak constants.  A 4-D ``x`` is the grouped image
+    layout (``batchnorm2d``)."""
+    if x.ndim == 4:
+        return batchnorm2d(p, s, x, train, eps, momentum)
     if train:
         mean = dtypes.mean(x, 1)
         var = dtypes.var(x, 1, mean)
@@ -169,3 +243,30 @@ def batchnorm(p, s, x: torch.Tensor, train: bool, eps: float = 0.8,
     inv = torch.rsqrt(var + weak(eps, var))
     y = (x - mean.unsqueeze(1)) * inv.unsqueeze(1)
     return y * p["scale"].unsqueeze(1) + p["bias"].unsqueeze(1), new_s
+
+
+def batchnorm2d(p, s, x: torch.Tensor, train: bool, eps: float = 0.8,
+                momentum: float = BN_MOMENTUM):
+    """BatchNorm2d of N stacked members on the grouped layout ``x``
+    ``(B, N*C, H, W)``, params and state ``(N, C)``: each member's channel
+    normalised over (B, H, W), as the reference's ``batchnorm`` does for a
+    4-D input (``cglgan_tpu/models/nn.py:120-147``): eps 0.8, momentum 0.1,
+    the running variance unbiased over the B*H*W count.  float32."""
+    axes, shape = (0, 2, 3), (1, -1, 1, 1)
+    flat = lambda t: t.reshape(-1)
+    if train:
+        mean = x.mean(dim=axes)
+        var = ((x - mean.reshape(shape)) ** 2).mean(dim=axes)
+        count = x.shape[0] * x.shape[2] * x.shape[3]
+        unbiased = var.detach() * count / max(count - 1, 1)
+        keep, take = 1 - momentum, momentum
+        like = lambda t: t.reshape(s["mean"].shape)
+        new_s = {"mean": keep * s["mean"] + take * like(mean.detach()),
+                 "var": keep * s["var"] + take * like(unbiased)}
+    else:
+        mean, var = flat(s["mean"]), flat(s["var"])
+        new_s = s
+    inv = torch.rsqrt(var + eps)
+    y = (x - mean.reshape(shape)) * inv.reshape(shape)
+    return y * flat(p["scale"]).reshape(shape) \
+        + flat(p["bias"]).reshape(shape), new_s

@@ -12,8 +12,12 @@ CAP-GAN, and the ``lam`` slot holds the delta gossip's anchors, a
 ``(params, bn)`` pair shaped like the D's (flattened the same way), or
 None.  A multipath G's trees are dicts
 ``{"trunk": [...], "heads": [...]}`` in both packages (heads ``(S, k, ...)``)
-and carry over as dicts.  ``to_numpy`` is the inverse view used by the
-tests: plain dicts of numpy arrays in the port's layout.
+and carry over as dicts; so do the conv family's trees (``conv=True``:
+G ``{"l1", "c1", "c2", "c3", "bn1", "bn2"}``, Mix-G ``{"trunk": {...},
+"heads": {"bn", "c"}}``, D ``{"c1".."c4", "adv", "bn2".."bn4"}``, conv
+weights OIHW behind the stacked axes), leaf for leaf in sorted-key order.
+``to_numpy`` is the inverse view used by the tests: plain dicts of numpy
+arrays in the port's layout.
 ``fid_params_from_numpy`` carries the proxy evaluator's params (the
 random-conv extractor's or the probe's, ``cglgan_tpu/evalx/fid.py``),
 dicts of arrays that both packages lay out alike.

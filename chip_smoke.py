@@ -95,6 +95,22 @@ Phases, each printing one JSON line:
             count must rise by exactly 20 where the kernel is engaged, and
             stay 0 elsewhere); the 2DMG runs print the evaluator's KL,
             Distribution Score and mode coverage;
+  conv      the conv LSGAN family (32x32, 28x28 images zero-padded): the
+            archived conv flagship ``mnist-iid1-cglgan-conv`` (CGL-GAN,
+            multipath conv G, 16 workers / 4 servers, B=100, iid=1, cloud
+            sync every round) card against CPU for 2 rounds at B=25 from
+            one init and one stream (dropout keys included), then at
+            epoch=1 and
+            epoch=5, and CAP-GAN conv (16 workers, 1 server) at epoch=5,
+            2 warm-up and 10 timed rounds each (``fused_dstep`` refuses a
+            conv D, as the reference's: its count must stay 0);
+  inception InceptionV3 pool3 with ``inception_init``'s random weights
+            written to an ``.npz`` and loaded back: pool3 ms for 100 images
+            at 299^2, ``preprocess`` ms, the host's ``sqrtm`` at 2048-d,
+            features and FID card against CPU, what cuDNN TF32 moves, a
+            ``fid_stats`` round trip at 32 px, and 4 rounds of conv
+            CGL-GAN ``train`` with ``make_evaluator(inception_weights=...,
+            fid_stats=...)`` at one tick;
   bf16      ``dtype="bfloat16"``: shrunk CAP-GAN (forced kernel and
             autograd), CGL-GAN (forced kernel) and FL-GAN on 2DMG, card
             against CPU at a bf16 tolerance; then the CAP-GAN main path at
@@ -105,11 +121,12 @@ Phases, each printing one JSON line:
             path), 20 rounds each.
 The round phases also profile a few further rounds (device time by kernel,
 busy share; ``cglgan_tpu_torch/utils/profiling.py``).
-Then the card line, the ``kernels`` line and, last, the ok line.  Any
-failure raises and exits non-zero; without a card it exits 2 and prints
-no result.  ``--phases a,b`` runs only the named phases (of ``dstep
-dstep_bf16 sweep adam reference main eval_image fedavg fedavg_image cgl
-mdgan bf16``)
+Each phase prints ``{"starting": name}`` before it runs.  Then the card
+line, the ``kernels`` line and, last, the ok line.  Any failure raises and
+exits non-zero; without a card it exits 2 and prints no result.
+``--phases a,b`` runs only the named phases (of ``dstep dstep_bf16 sweep
+adam reference main eval_image fedavg fedavg_image cgl mdgan bf16 conv
+inception``)
 for a short first look at a new kernel; the
 ``kernels`` and ok lines are printed only by a full run.  Imports nothing
 of JAX.
@@ -1252,14 +1269,15 @@ MDGAN_RUNS = (("mdgan", "mdgan", MDGAN_MNIST, 5, {}),
                dict(dropout_rate=0.2)))
 
 
-def phase_rounds(phase, label, algo, base, epoch, part, **extra):
+def phase_rounds(phase, label, algo, base, epoch, part, rounds=ROUNDS,
+                 **extra):
     """One CGL- or MD-GAN-family configuration at full width through
     ``build_runner``
-    and ``train``: 2 warm-up and ROUNDS timed rounds; ``fused_dstep``'s
-    count, set to 0 just before, must rise by ROUNDS where the config
+    and ``train``: 2 warm-up and ``rounds`` timed rounds; ``fused_dstep``'s
+    count, set to 0 just before, must rise by ``rounds`` where the config
     engages the kernel (epoch > 1 in float32, ``pallas_dstep=True``) and
-    stay 0 elsewhere; finite metrics and samples in [-1, 1].  ``extra``:
-    further config fields (``dtype``, ``pallas_dstep``)."""
+    stay 0 elsewhere (the conv D); finite metrics and samples in [-1, 1].
+    ``extra``: further config fields (``dtype``, ``pallas_dstep``)."""
     import torch
     from cglgan_tpu_torch.algos.registry import build_runner
     from cglgan_tpu_torch.algos.runner import train
@@ -1278,21 +1296,22 @@ def phase_rounds(phase, label, algo, base, epoch, part, **extra):
     torch.cuda.reset_peak_memory_stats()
     fused_dstep.launches = 0
     t0 = time.perf_counter()
-    out = train(runner, ROUNDS, eval_every=10, state=state, evaluator=False)
+    out = train(runner, rounds, eval_every=10, state=state, evaluator=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_dstep.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
     finite_metrics(out["history"])
     uses_kernel = fused_dstep.eligible(cfg)
-    expect = ROUNDS if uses_kernel else 0
+    expect = rounds if uses_kernel else 0
     if launches != expect:
         raise AssertionError(f"{label} epoch={epoch} {extra}: fused_dstep "
                              f"launches {launches}, expected {expect}")
     # painter semantics: n // S samples a server
     n = (16 if cfg.is_image else 10000) // cfg.num_servers * cfg.num_servers
     samples = runner.sample(out["state"], n)
-    shape = (n, 1, 28, 28) if cfg.is_image else (n, 2)
+    side = cfg.img_size + 4 if cfg.conv else cfg.img_size   # 28 -> 32 conv
+    shape = (n, 1, side, side) if cfg.is_image else (n, 2)
     if tuple(samples.shape) != shape or \
             not bool(torch.isfinite(samples).all()) or \
             float(samples.abs().max()) > 1.0:
@@ -1300,8 +1319,8 @@ def phase_rounds(phase, label, algo, base, epoch, part, **extra):
     res = {"phase": phase, "path": "kernel" if uses_kernel else "autograd",
            "config": {"algo": algo, **base, "epoch": epoch, **extra},
            "multipath": models_for_config(cfg)[0].multipath,
-           "shards": list(part.data.shape), "rounds": ROUNDS,
-           "wall_s": wall, "rounds_per_s": ROUNDS / wall,
+           "shards": list(part.data.shape), "rounds": rounds,
+           "wall_s": wall, "rounds_per_s": rounds / wall,
            "fused_dstep_launches": launches, "uses_kernel": uses_kernel,
            "last_tick": out["history"][-1], "peak_mem_gb": peak}
     if not cfg.is_image:
@@ -1906,13 +1925,216 @@ def phase_eval_image(card, part):
     emit(res)
     return launches
 
+# ---------------------------------------------------------------------------
+# The conv LSGAN family on the CGL family (phase conv): the study's conv
+# flagship, results/runs/mnist-iid1-cglgan-conv/config.json (CGL-GAN, W=16,
+# S=4, B=100, iid=1, cloud sync every round, segema 0), at epoch 1 and 5,
+# and CAP-GAN conv on the main path's layout (W=16, S=1).  No TPU kernel
+# runs here, as in the reference (its fused_dstep refuses a conv D):
+# fused_dstep's count must stay 0.
+# ---------------------------------------------------------------------------
+
+CGL_CONV = dict(dataset="synthetic-mnist", num_workers=16, num_servers=4,
+                iid=1, batch_size=100, cloud_epoch=1, segema=0.0,
+                num_communication=20000, conv=True)
+CAP_CONV = dict(MAIN, conv=True)
+CONV_RUNS = (("cglgan conv", "cglgan", CGL_CONV, 1),
+             ("cglgan conv", "cglgan", CGL_CONV, 5),
+             ("capgan conv", "capgan", CAP_CONV, 5))
+CONV_ROUNDS = 10
+# the card-against-CPU rounds at batch 25 (the CPU takes ~15 s a round at
+# B=100): the same widths, workers and servers
+CONV_REF_BATCH = 25
+# Card against CPU, 2 conv rounds from one init and one stream (the dropout
+# keys included): cuDNN and the CPU's convolutions sum in other orders, and
+# Adam turns the rounding of a near-zero gradient (the conv biases before a
+# BatchNorm, the D's BN shifts) into a full step of either sign, up to lr
+# (2e-4) a step on a few elements (tests/test_torch_port_conv.py measures
+# the same against JAX on the CPU).  Held to the kernel phases' 1e-2 of a
+# group's largest entry, metrics (losses ~0.7) to 1e-4 absolute.
+TOL_CONV_SCALED = 1e-2
+
+
+def phase_conv(parts_of):
+    """The conv CGL-GAN flagship card against CPU for 2 rounds (batch
+    CONV_REF_BATCH), then each of CONV_RUNS at full width: 2 warm-up and
+    CONV_ROUNDS timed rounds (rounds/s, device ms and launches a round from
+    the profile, peak memory); ``fused_dstep`` never launches."""
+    from cglgan_tpu_torch.core.config import FedGANConfig
+
+    t0 = time.perf_counter()
+    part = parts_of("cglgan", CGL_CONV)
+    if part.data.shape[2] != 32 * 32:
+        raise AssertionError(f"conv shards are not 32x32: {part.data.shape}")
+    reference_rounds("cglgan conv", FedGANConfig(
+        algo="cglgan", epoch=1, **dict(CGL_CONV, batch_size=CONV_REF_BATCH)),
+        part, 2, tol=TOL_CONV_SCALED)
+    launches = {}
+    for label, algo, base, epoch in CONV_RUNS:
+        # one partition for all: 16 workers at iid=1 hold the same shards
+        # whatever the servers
+        _, n = phase_rounds("conv", label, algo, base, epoch, part,
+                            rounds=CONV_ROUNDS)
+        launches[f"{label} e{epoch}"] = n
+    emit({"phase": "conv", "fused_dstep_launches": launches,
+          "seconds": time.perf_counter() - t0})
+
+
+# ---------------------------------------------------------------------------
+# InceptionV3 pool3 (phase inception): random weights from inception_init
+# (no pretrained weights exist offline), written to an .npz and loaded back
+# through the evaluator's entry point.  pool3 is F.conv2d / pools on cuDNN,
+# as the reference's is XLA: no TPU kernel.
+# ---------------------------------------------------------------------------
+
+# card against CPU on the same weights and samples: 94 convs in float32, sums
+# in another order; features held to 1e-4 of their largest entry, FID of
+# rank-99 covariances in 2048-d to 1e-3 relative (the CPU tests' limits
+# against the reference).  The CPU's pool3 takes ~17 s a 100 images and
+# each 2048-d sqrtm ~20 s on the card machine's host: the CPU scores the
+# samples against the card's real statistics, and TF32's move is read off
+# the features.
+TOL_POOL3 = 1e-4
+TOL_POOL3_FID = 1e-3
+POOL3_REPS = 5
+
+
+def phase_inception(card, part_main, part_conv):
+    """pool3 on the main config's samples: ms for 100 images at 299^2 and
+    for ``preprocess``; the host's ``sqrtm`` at 2048-d (s, once); features
+    and FID card against CPU; what cuDNN TF32 moves (features, stats,
+    pool3 ms); a ``fid_stats`` round trip; then 4 rounds of conv CGL-GAN
+    ``train`` with ``make_evaluator(inception_weights=..., fid_stats=...)``
+    at one tick."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from cglgan_tpu_torch.algos.registry import build_runner
+    from cglgan_tpu_torch.algos.runner import train
+    from cglgan_tpu_torch.core import threefry
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.evalx import fid, inception
+    from cglgan_tpu_torch.evalx.evaluator import make_evaluator
+    from cglgan_tpu_torch.ops import fused_dstep
+
+    t_phase = time.perf_counter()
+    res = {"phase": "inception", "card": card}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        t0 = time.perf_counter()
+        params = inception.inception_init(threefry.key(0, "cuda"))
+        torch.cuda.synchronize()
+        res["init_s"] = time.perf_counter() - t0
+        path = os.path.join(tmp.name, "pool3.npz")
+        np.savez(path, **{k: v.cpu().numpy() for k, v in params.items()})
+        ext = inception.inception_extractor(
+            inception.load_inception_weights(path))
+        ext_cpu = inception.inception_extractor(
+            inception.load_inception_weights(path, device="cpu"))
+        if any(not torch.equal(ext.params[k].cpu(), v)
+               for k, v in ext_cpu.params.items()):
+            raise AssertionError("pool3 weights changed in the .npz trip")
+
+        # the main config's samples after 4 rounds
+        cfg = FedGANConfig(algo="capgan", epoch=5, **MAIN)
+        side, n = cfg.img_size, 100
+        runner = build_runner(cfg, part_main)
+        state = train(runner, 4, eval_every=4, evaluator=False)["state"]
+        gen = runner.sample(state, n).reshape(-1, 1, side, side)[:n]
+        real = ((part_main.eval_pool[:n].astype(np.float32) / 255.0 - 0.5)
+                / 0.5).reshape(-1, 1, side, side)
+        x = inception.preprocess(gen)
+        res["preprocess_ms"] = cuda_ms(lambda: inception.preprocess(gen),
+                                       POOL3_REPS)
+        res["pool3_ms_100"] = cuda_ms(
+            lambda: inception.inception_pool3(ext.params, x), POOL3_REPS)
+        feats = fid._features(ext, gen)
+        mu_g, cov_g = feats.mean(0), np.cov(feats, rowvar=False)
+        mu_r, cov_r = fid.activation_stats(ext, real)
+        t0 = time.perf_counter()
+        fid_card = fid.frechet_distance(mu_g, cov_g, mu_r, cov_r)
+        res["sqrtm_s_2048"] = time.perf_counter() - t0
+        res["fid"] = fid_card
+
+        # card against CPU: the same weights, the same samples
+        gen_cpu = gen.cpu()
+        t0 = time.perf_counter()
+        feats_cpu = fid._features(ext_cpu, gen_cpu)
+        res["pool3_cpu_s_100"] = time.perf_counter() - t0
+        mu_c, cov_c = feats_cpu.mean(0), np.cov(feats_cpu, rowvar=False)
+        fid_cpu = fid.frechet_distance(mu_c, cov_c, mu_r, cov_r)
+        errs = {"features": _rel_err(feats, feats_cpu),
+                "mu": _rel_err(mu_g, mu_c), "cov": _rel_err(cov_g, cov_c),
+                "fid": abs(fid_card - fid_cpu) / abs(fid_cpu)}
+        res["card_vs_cpu"] = {"rel_err": errs, "fid_cpu": fid_cpu,
+                              "tol": {"others": TOL_POOL3,
+                                      "fid": TOL_POOL3_FID}}
+        if errs["fid"] > TOL_POOL3_FID or max(
+                v for k, v in errs.items() if k != "fid") > TOL_POOL3:
+            raise AssertionError(f"pool3 card and CPU disagree: {res}")
+
+        # what cuDNN's default TF32 moves (the script runs with it off)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            feats_tf32 = fid._features(ext, gen)
+            pool3_tf32_ms = cuda_ms(
+                lambda: inception.inception_pool3(ext.params, x), POOL3_REPS)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        res["cudnn_tf32"] = {
+            "features_rel_moved": _rel_err(feats_tf32, feats),
+            "mu_rel_moved": _rel_err(feats_tf32.mean(0), mu_g),
+            "cov_rel_moved": _rel_err(np.cov(feats_tf32, rowvar=False),
+                                      cov_g),
+            "pool3_ms_100": pool3_tf32_ms}
+
+        # fid_stats round trip at the conv config's 32 px, then conv
+        # CGL-GAN train with the pool3 evaluator at one tick
+        cfg_conv = FedGANConfig(algo="cglgan", epoch=1, **CGL_CONV)
+        side_c = cfg_conv.img_size + 4
+        real_c = ((part_conv.eval_pool[:n].astype(np.float32) / 255.0 - 0.5)
+                  / 0.5).reshape(-1, 1, side_c, side_c)
+        mu_s, cov_s = fid.activation_stats(ext, real_c)
+        stats = os.path.join(tmp.name, "pool3_stats_32.npz")
+        inception.save_fid_stats(stats, mu_s, cov_s, side=side_c)
+        mu_l, cov_l = inception.load_fid_stats(stats, expect_side=side_c)
+        if not (np.array_equal(mu_l, mu_s) and np.array_equal(cov_l, cov_s)):
+            raise AssertionError("fid_stats changed in the .npz trip")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate = make_evaluator(cfg_conv, part_conv,
+                                  inception_weights=path, fid_stats=stats)
+        torch.cuda.synchronize()
+        res["make_evaluator_s"] = time.perf_counter() - t0
+        runner_c = build_runner(cfg_conv, part_conv)
+        fused_dstep.launches = 0
+        t0 = time.perf_counter()
+        out = train(runner_c, 4, eval_every=4, evaluator=evaluate)
+        torch.cuda.synchronize()
+        res["train_s"] = time.perf_counter() - t0
+        ticks = out["history"]
+        if fused_dstep.launches != 0 or len(ticks) != 1 or not all(
+                math.isfinite(t["fid"]) and math.isfinite(
+                    t["inception_score"]) for t in ticks):
+            raise AssertionError(f"conv train with the pool3 evaluator: "
+                                 f"{fused_dstep.launches} launches, "
+                                 f"ticks {ticks}")
+        res["train_tick"] = {k: ticks[0][k] for k in (
+            "round", "fid", "inception_score", "d_loss", "g_loss")}
+        res["fused_dstep_launches"] = fused_dstep.launches
+    finally:
+        tmp.cleanup()
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+
 
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     all_phases = ("dstep", "dstep_bf16", "sweep", "adam", "reference",
                   "main", "eval_image", "fedavg", "fedavg_image", "cgl",
-                  "mdgan", "bf16")
+                  "mdgan", "bf16", "conv", "inception")
     ap.add_argument("--phases", default=",".join(all_phases),
                     help="comma-separated subset of: " + " ".join(all_phases))
     phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
@@ -1945,16 +2167,23 @@ def main(argv=None):
           "ptxas": {k: _build.ptxas_report(k).splitlines()
                     for k in _build.KERNELS}})
 
+    def run(phase):
+        """Whether ``phase`` runs; prints its name first, so that a
+        failure's traceback follows the name of the phase it stopped."""
+        if phase in phases:
+            emit({"starting": phase})
+        return phase in phases
+
     done = {}
-    if "dstep" in phases:
+    if run("dstep"):
         done["dstep"] = phase_kernel(name)
-    if "dstep_bf16" in phases:
+    if run("dstep_bf16"):
         done["dstep_bf16"] = phase_kernel_bf16(name)
-    if "sweep" in phases:
+    if run("sweep"):
         done["sweep"] = phase_kernel_sweep(name)
-    if "adam" in phases:
+    if run("adam"):
         done["adam"], done["adam_launches"] = phase_kernel_adam(name)
-    if "reference" in phases:
+    if run("reference"):
         phase_reference()
         phase_reference_fedavg()
     parts = {}
@@ -1972,34 +2201,39 @@ def main(argv=None):
                   else "numpy", "shards": list(parts[key].data.shape)})
         return parts[key]
 
-    if "main" in phases:
+    if run("main"):
         part = part_of("capgan", MAIN)
         _, done["dstep_launches"] = phase_rounds("main", "capgan", "capgan",
                                                  MAIN, 5, part)
         phase_rounds("autograd", "capgan", "capgan", MAIN, 1, part)
-    if "eval_image" in phases:
+    if run("eval_image"):
         done["dstep_launches capgan eval"] = phase_eval_image(
             card, part_of("capgan", MAIN))
-    if "fedavg" in phases:
+    if run("fedavg"):
         _, done["sweep_launches"] = phase_fedavg("flgan", True)
         phase_fedavg("flgan", False)
         phase_fedavg("fegan", True)
         phase_fedavg("fegan", False)
-    if "fedavg_image" in phases:
+    if run("fedavg_image"):
         phase_fedavg_image(part_of("flgan", FEDAVG_MNIST))
-    if "cgl" in phases:
+    if run("cgl"):
         for label, algo, base, epoch in CGL_RUNS:
             _, n = phase_rounds("cgl", label, algo, base, epoch,
                                 part_of(algo, base))
             if epoch > 1:
                 done[f"dstep_launches {label}"] = n
-    if "mdgan" in phases:
+    if run("mdgan"):
         for label, algo, base, epoch, extra in MDGAN_RUNS:
             _, n = phase_rounds("mdgan", label, algo, base, epoch,
                                 part_of(algo, base), **extra)
             if epoch > 1:
                 done[f"dstep_launches {label}"] = n
-    if "bf16" in phases:
+    if run("conv"):
+        phase_conv(part_of)
+    if run("inception"):
+        phase_inception(card, part_of("capgan", MAIN),
+                        part_of("cglgan", CGL_CONV))
+    if run("bf16"):
         bf = dict(dtype="bfloat16")
         part = part_of("capgan", MAIN)
         # CAP-GAN main path: the forced bf16-state kernel, then what auto

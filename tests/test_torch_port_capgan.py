@@ -193,9 +193,11 @@ def test_train_and_entry_point_contract():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_runner(cfg, part)
     for kw in (dict(algo="mdgan", conv=True), dict(algo="acgan", conv=True),
-               dict(conv=True), dict(model_shards=2)):
+               dict(model_shards=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_runner(cfg.replace(**kw), part, device="cpu")
+    # conv CAP-GAN is ported: it builds
+    build_runner(cfg.replace(conv=True), part, device="cpu")
     # bf16 mode is ported: it builds and trains
     bf16 = train(build_runner(cfg.replace(dtype="bfloat16"), part,
                               device="cpu"), rounds=1, eval_every=1,

@@ -341,8 +341,8 @@ def test_gen_gen_client_and_sample_match_jax(algo, dataset):
 def test_train_and_entry_point_contract():
     """``build_runner`` builds cglgan (iid 0, 1, 2) and mixgan on both
     datasets on the CPU when asked, ``train`` runs them, Mix-G's init is
-    DCGAN's; conv and meshes still raise naming their ROADMAP item, and
-    bf16 builds."""
+    DCGAN's; meshes still raise naming their ROADMAP item, and bf16 and
+    conv build."""
     for dataset in ("synthetic-mnist", "2dmg"):
         _, part = _partition(dataset)
         for algo, iid in (("cglgan", 0), ("cglgan", 1), ("cglgan", 2),
@@ -360,9 +360,10 @@ def test_train_and_entry_point_contract():
             if not torch.cuda.is_available():
                 with pytest.raises(RuntimeError, match="device='cpu'"):
                     build_runner(cfg, part)
-            for bad in (dict(conv=True), dict(model_shards=2)):
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    build_runner(cfg.replace(**bad), part, device="cpu")
-            # bf16 mode is ported: it builds
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                build_runner(cfg.replace(model_shards=2), part,
+                             device="cpu")
+            # bf16 mode and conv are ported: they build
             build_runner(cfg.replace(dtype="bfloat16", force_dtype=True),
                          part, device="cpu")
+            build_runner(cfg.replace(conv=True), part, device="cpu")

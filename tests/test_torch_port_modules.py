@@ -231,7 +231,8 @@ def test_models_for_config_and_unported():
     g, d = zoo.models_for_config(cfg)
     assert d.out_dim == 2 and d.spec[0] == ("linear", 64, 512)
     assert g.spec[-2] == ("linear", 1024, 64)
-    # the 2DMG single-path pairs and the multipath Gs are ported; conv is not
+    # the 2DMG single-path pairs, the multipath Gs and the conv family are
+    # ported
     g2, d2 = zoo.models_for_config(cfg.replace(dataset="2dmg"))
     assert g2.spec[0] == ("linear", 100, 32) and d2.spec[0] == (
         "linear", 2, 128)
@@ -240,13 +241,14 @@ def test_models_for_config_and_unported():
                       (dict(algo="cglgan", dataset="2dmg", iid=1), True),
                       (dict(algo="cglgan", iid=0), False)):
         assert zoo.models_for_config(cfg.replace(**kw))[0].multipath == multi
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.models_for_config(cfg.replace(conv=True))
+    g3, d3 = zoo.models_for_config(cfg.replace(conv=True))
+    assert (g3.spec, g3.multipath, d3.spec, d3.out_dim) == ("conv", False,
+                                                            "conv", 1)
     for family in ("conv", "conv-multipath"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            zoo.build_generator(family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.build_discriminator("conv")
+        g4 = zoo.build_generator(family, 2)
+        assert g4.spec == family
+        assert g4.multipath == (family == "conv-multipath")
+    assert zoo.build_discriminator("conv").spec == "conv"
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +342,7 @@ def test_port_imports_no_jax():
     for name in ("ops.fused_dstep", "ops.fused_sweep", "ops.fused_adam",
                  "algos.fedavg_family", "algos.mdgan_family", "data.gmm",
                  "fed.sampling", "evalx.hist2d", "evalx.evaluator",
-                 "core.threefry", "evalx.fid"):
+                 "core.threefry", "evalx.fid", "evalx.inception"):
         assert f"cglgan_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
