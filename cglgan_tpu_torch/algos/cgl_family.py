@@ -37,8 +37,9 @@ D has one raw logit (BCE on logits), the local D step runs real and fake
 through separate forwards (the conv D's BatchNorm takes per-forward
 statistics), ``conv-multipath`` is a multipath G (trunk synced with its BN
 buffers), and the conv D's Dropout2d takes threefry keys: each server's
-``(k_d, k_drop)`` of the round's streams split k ways, one a client, for
-the local D steps and for the G step's D forwards.
+``(k_d, k_drop)`` of the round's streams split k ways, one a client
+(``common.client_keys``), for the local D steps and for the G step's D
+forwards.
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ from cglgan_tpu_torch.algos.common import FedState, NetState
 from cglgan_tpu_torch.algos.game import game_step
 from cglgan_tpu_torch.algos.runner import Runner
 from cglgan_tpu_torch.core import device as device_mod
-from cglgan_tpu_torch.core import prng, threefry
+from cglgan_tpu_torch.core import prng
 from cglgan_tpu_torch.core.dtypes import torch_dtype
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.fed import collectives, topology
@@ -124,10 +125,6 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
             return fake.reshape(W, B, din)
         return fake.reshape(S, 1, B, din).expand(S, k, B, din) \
             .reshape(W, B, din)
-
-    def client_keys(k_s):
-        """Servers' keys (S, 2) -> one a client (W, 2): ``split(k, k)``."""
-        return threefry.split(k_s, k).reshape(W, 2)
 
     def g_update(g: NetState, gbn1, z_g, d_new: NetState, lam,
                  drop_keys=None):
@@ -210,12 +207,10 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
         starts, z_d, z_g = streams[:3]
         d_keys = drop_keys = None
         if cfg.conv:
-            if len(streams) != 5:
-                raise ValueError("conv rounds take the streams (starts, "
-                                 "z_d, z_g, k_d, k_drop)")
-            k_d, k_drop = (torch.as_tensor(x, device=dev).to(torch.int64)
-                           for x in streams[3:5])
-            d_keys, drop_keys = client_keys(k_d), client_keys(k_drop)
+            k_d, k_drop = common.conv_stream_keys(
+                streams, dev, "starts, z_d, z_g, k_d, k_drop")
+            d_keys = common.client_keys(k_d, k)
+            drop_keys = common.client_keys(k_drop, k)
         # the latents in the run's dtype (the reference draws them so)
         z_d = torch.as_tensor(z_d, device=dev).to(dtype)
         z_g = torch.as_tensor(z_g, device=dev).to(dtype)

@@ -28,29 +28,43 @@ from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 # what the port covers
 # ---------------------------------------------------------------------------
 
-CONV_ALGOS = ("capgan", "cglgan", "mixgan")
-
-
 def check_supported(cfg, mesh=None) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the
-    ported slices do not cover: conv models outside the CGL family or in
-    bfloat16, and meshes (every algorithm runs on MLP models, on 2DMG and
-    the image datasets; CAP-GAN, CGL-GAN and Mix-G also on the conv
-    LSGAN pair in float32)."""
-    if cfg.conv and cfg.algo not in CONV_ALGOS:
-        raise NotImplementedError(
-            f"conv=True for {cfg.algo} is not ported yet (ROADMAP queue 1 "
-            "item 12: the MD-GAN and FedAvg families' conv branches); the "
-            "CGL family (capgan, cglgan, mixgan) runs conv")
+    ported slices do not cover: conv models in bfloat16, and meshes (every
+    algorithm runs on MLP models, on 2DMG and the image datasets, in
+    float32 and bfloat16, and on the conv LSGAN pair in float32).  A conv
+    config on 2DMG builds, as the reference's does; only its rounds need
+    image data (the conv D reads a row as a square image)."""
     if cfg.conv and cfg.dtype != "float32":
         raise NotImplementedError(
             "conv=True in bfloat16 is not ported yet (ROADMAP queue 1 item "
-            "12); the conv LSGAN pair runs in float32")
+            "12: conv in bfloat16); the conv LSGAN pair runs in float32")
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unsupported dtype {cfg.dtype!r}")
     if mesh is not None or cfg.model_shards > 1:
         raise NotImplementedError("meshes and model_shards > 1 are not "
                                   "ported yet (ROADMAP queue 1 item 17)")
+
+
+def client_keys(k_s: torch.Tensor, k: int) -> torch.Tensor:
+    """Servers' threefry keys (S, 2) -> one a client (S*k, 2), client i of
+    server s taking ``split(k_s[s], k)[i]``: the conv D's dropout keys of
+    a server's k clients, as the reference's ``jax.random.split(k_d, k)``
+    hands them out."""
+    return threefry.split(k_s, k).reshape(-1, 2)
+
+
+def conv_stream_keys(streams, device, names: str, extras: int = 0):
+    """The conv D's dropout keys of a round's injected ``streams``: slots 3
+    and 4, after the family's three draws, as int64 threefry key data on
+    ``device``.  ``extras``: how many of the family's own entries may
+    follow them (slots 5 on).  Raises ValueError where the keys are
+    missing or too much follows."""
+    if not 5 <= len(streams) <= 5 + extras:
+        tail = ", ..." if extras else ""
+        raise ValueError(f"conv rounds take the streams ({names}{tail})")
+    return tuple(torch.as_tensor(x, device=device).to(torch.int64)
+                 for x in streams[3:5])
 
 
 def participation_mask(alive: torch.Tensor,

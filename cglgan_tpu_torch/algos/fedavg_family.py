@@ -1,7 +1,8 @@
 """FL-GAN and FeGAN: FedAvg of whole G and D with local alternating training.
 
 Port of ``cglgan_tpu/algos/fedavg_family.py``: the 2DMG "batches" sweep and
-the image datasets' ragged "epochs" sweep, on MLP models.
+the image datasets' ragged "epochs" sweep, on MLP models and on the conv
+LSGAN pair (float32).
 
 FL-GAN (FLGAN/2DMG/flgan.py, FLGAN/MNIST/flgan.py): one server broadcasts
 (p_g, p_d); each worker loads them, trains locally (2DMG: ``epoch``
@@ -45,6 +46,15 @@ survivors (``participants``); FeGAN's drop mask multiplies its group
 schedule, so a dropped sampled worker is treated as unsampled, and a round
 whose every sampled worker dropped leaves the global params as they were.
 
+Conv (``conv=True``, ``cglgan_tpu/algos/fedavg_family.py:112-121,195,
+320-323``): both runners take the raw-logit head (BCE on logits; FeGAN
+keeps the conv D), and the conv D's Dropout2d takes threefry keys, one a
+lane and local step: ``kd1`` of the round's streams for the D step, split
+into the real and the fake forward's, and ``kd2`` for the G step's D
+forward.  FL-GAN averages the conv nets' BatchNorm buffers with their
+params; FeGAN keeps them per worker.  The keys of a lane's masked steps
+are drawn and unused, as in the reference.
+
 bfloat16 (``dtype="bfloat16"``; on 2DMG only with ``force_dtype``, as the
 reference's config demands): params, BN state, latents, fakes, real rows
 and Adam moments are bfloat16, the losses float32; the kernel stays
@@ -60,7 +70,7 @@ from cglgan_tpu_torch.algos import common
 from cglgan_tpu_torch.algos.common import FedState, NetState
 from cglgan_tpu_torch.algos.runner import Runner
 from cglgan_tpu_torch.core import device as device_mod
-from cglgan_tpu_torch.core import prng
+from cglgan_tpu_torch.core import prng, threefry
 from cglgan_tpu_torch.core.dtypes import torch_dtype
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.fed import collectives
@@ -138,12 +148,13 @@ def _local_sweep(cfg, g_model, d_model, adv):
     B = cfg.batch_size
     dtype = torch_dtype(cfg)
 
-    def g_step(g: NetState, gbn, d_params, dbn, z):
-        """One batched G Adam step on adv(D(G(z)), 1) through ``d_params``."""
+    def g_step(g: NetState, gbn, d_params, dbn, z, key=None):
+        """One batched G Adam step on adv(D(G(z)), 1) through ``d_params``;
+        ``key`` (n, 2): the conv D's dropout keys, one a lane."""
         gp, leaves = common.with_grad(g.params)
         with torch.enable_grad():
             fake, gbn2 = g_model.apply(gp, gbn, z, train=True)
-            out, _ = d_model.apply(d_params, dbn, fake, train=True)
+            out, _ = d_model.apply(d_params, dbn, fake, train=True, rng=key)
             loss = adv(out, 1.0)
             grads = torch.autograd.grad(loss.sum(), leaves)
         new_p, new_opt = common.adam_update(
@@ -151,11 +162,18 @@ def _local_sweep(cfg, g_model, d_model, adv):
             cfg.lr_g, cfg.b1, cfg.b2)
         return NetState(new_p, gbn2, new_opt), loss.detach()
 
-    def d_step(d: NetState, real, fake):
+    def d_step(d: NetState, real, fake, key=None):
+        """One batched D Adam step on real, then fake, through two
+        forwards; ``key`` (n, 2): the conv D's dropout keys, one a lane,
+        split into the real forward's and the fake forward's."""
+        r1 = r2 = None
+        if key is not None:
+            r = threefry.split(key)                             # (n, 2, 2)
+            r1, r2 = r[:, 0], r[:, 1]
         dp, leaves = common.with_grad(d.params)
         with torch.enable_grad():
-            out_r, bn1 = d_model.apply(dp, d.bn, real, train=True)
-            out_f, bn2 = d_model.apply(dp, bn1, fake, train=True)
+            out_r, bn1 = d_model.apply(dp, d.bn, real, train=True, rng=r1)
+            out_f, bn2 = d_model.apply(dp, bn1, fake, train=True, rng=r2)
             loss = adv(out_r, 1.0) + adv(out_f, 0.0)
             grads = torch.autograd.grad(loss.sum(), leaves)
         new_p, new_opt = common.adam_update(
@@ -164,11 +182,12 @@ def _local_sweep(cfg, g_model, d_model, adv):
         return NetState(new_p, bn2, new_opt), loss.detach()
 
     def sweep(g: NetState, d: NetState, shards, starts, z1, z2,
-              steps: np.ndarray, steps_dev=None):
+              steps: np.ndarray, steps_dev=None, keys=None):
         """g, d: (n, ...) stacked lane states (params already broadcast);
         shards (n, L, ...); z1, z2 (n, >= max(steps), B, zdim); ``steps``
         the lanes' step counts on the host, ``steps_dev`` the same on the
-        device (needed only where they differ)."""
+        device (needed only where they differ); ``keys``: the conv D's
+        ``(kd1, kd2)``, each (n, >= max(steps), 2), or None."""
         lo, hi = int(steps.min()), int(steps.max())
         d_sum = g_sum = 0.0
         for i in range(hi):
@@ -180,10 +199,12 @@ def _local_sweep(cfg, g_model, d_model, adv):
             with torch.no_grad():
                 fake, gbn_d = g_model.apply(g.params, g.bn, z1[:, i],
                                             train=True)
-            d_new, d_loss = d_step(d, real, fake)
+            kd1, kd2 = (None, None) if keys is None else \
+                (keys[0][:, i], keys[1][:, i])
+            d_new, d_loss = d_step(d, real, fake, kd1)
             # G step against the updated D, from the stats the D step left
             g_new, g_loss = g_step(g, gbn_d, d_new.params, d_new.bn,
-                                   z2[:, i])
+                                   z2[:, i], kd2)
             if i < lo:                   # every lane active: nothing to mask
                 g, d = g_new, d_new
             else:
@@ -245,14 +266,22 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None):
         return (gp, gbn, dp, dbn, common.adam_init(stacked(gp), W),
                 common.adam_init(stacked(dp), W))
 
+    # the injected streams: the three draws, with conv the dropout keys at
+    # slots 3 and 4, then the survival draw
+    first_extra = 5 if cfg.conv else 3
+
     def streams_for(t: int, streams):
-        """(starts, z1, z2, survival mask or None): ``streams`` may carry
-        the survival draw as a 4th entry; else it is drawn for round t."""
-        alive = streams[3] if streams is not None and len(streams) > 3 \
-            else None
+        """(starts, z1, z2, dropout keys or None, survival mask or None):
+        ``streams`` may carry the survival draw after its draws and keys;
+        else it is drawn for round t."""
+        alive = streams[first_extra] \
+            if streams is not None and len(streams) > first_extra else None
         if streams is None:
             streams = prng.sweep_streams(cfg, t, max_len, max_steps, dev)
         starts, z1, z2 = streams[:3]
+        keys = common.conv_stream_keys(
+            streams, dev, "starts, z1, z2, kd1, kd2", extras=1) \
+            if cfg.conv else None
         # the latents in the run's dtype (the reference draws them so)
         z1 = torch.as_tensor(z1, device=dev).to(dtype)
         z2 = torch.as_tensor(z2, device=dev).to(dtype)
@@ -262,19 +291,21 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None):
                 alive = prng.survival(cfg, t, W, dev)
             mask = common.participation_mask(
                 torch.as_tensor(alive, device=dev), cfg.dropout_rate)
-        return [int(s) for s in starts], z1, z2, mask
+        return [int(s) for s in starts], z1, z2, keys, mask
 
     def local_phase(g: NetState, d: NetState, lane_shards, starts, z1, z2,
-                    lanes=None, lanes_dev=None):
-        """g, d: lane-stacked states with params broadcast; ``lanes``: the
-        lanes' workers on the host and ``lanes_dev`` on the device (gather
-        mode), or None for all W workers in order."""
+                    keys, lanes=None, lanes_dev=None):
+        """g, d: lane-stacked states with params broadcast; ``keys``: the
+        lanes' conv dropout keys or None; ``lanes``: the lanes' workers on
+        the host and ``lanes_dev`` on the device (gather mode), or None for
+        all W workers in order."""
         if use_kernel:
             return _kernel_sweep_all(cfg, g, d, lane_shards, starts, z1, z2)
         if lanes is not None:
             return sweep(g, d, lane_shards, starts, z1, z2, steps_np[lanes],
-                         steps_dev[lanes_dev])
-        return sweep(g, d, lane_shards, starts, z1, z2, steps_np, steps_dev)
+                         steps_dev[lanes_dev], keys)
+        return sweep(g, d, lane_shards, starts, z1, z2, steps_np, steps_dev,
+                     keys)
 
     def make_gen(bn_of):
         @torch.no_grad()
@@ -296,7 +327,8 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None):
 def build_flgan(cfg, part: Partition, device=None) -> Runner:
     dev = device_mod.resolve(device)
     (W, shards, init_nets, streams_for, local_phase, make_gen,
-     _) = _family_parts(cfg, part, dev, cfg.resolved_d_head)
+     _) = _family_parts(cfg, part, dev,
+                        "raw" if cfg.conv else cfg.resolved_d_head)
 
     def init_state() -> FedState:
         gp, gbn, dp, dbn, gopt, dopt = init_nets()
@@ -306,14 +338,17 @@ def build_flgan(cfg, part: Partition, device=None) -> Runner:
     def round_fn(state: FedState, streams=None):
         """One federated round.  ``streams``: optional injected
         ``(starts (E,), z1 (W,E,B,zdim), z2 (W,E,B,zdim)[, alive (W,)])``
-        (``alive``: the survival draw, with dropout); by default they are
-        drawn from ``core.prng`` for round ``state.t``."""
-        starts, z1, z2, mask = streams_for(state.t, streams)
+        (``alive``: the survival draw, with dropout); with conv each lane's
+        dropout keys ``kd1, kd2`` (W, E, 2) threefry key data come at slots
+        3 and 4, before ``alive``, and a conv stream without them raises
+        ValueError.  By default they are drawn from ``core.prng`` for round
+        ``state.t``."""
+        starts, z1, z2, keys, mask = streams_for(state.t, streams)
         bcast = lambda tree: collectives.broadcast_tree(tree, W)
         g, d, d_loss, g_loss = local_phase(
             NetState(bcast(state.g.params), bcast(state.g.bn), state.g.opt),
             NetState(bcast(state.d.params), bcast(state.d.bn), state.d.opt),
-            shards, starts, z1, z2)
+            shards, starts, z1, z2, keys)
         if mask is None:
             # uniform FedAvg of params and BN buffers (state_dict transfer,
             # FLGAN/MNIST/flgan.py:148-162)
@@ -358,11 +393,14 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
     # fegan.py:224 uses BCELoss with a 2-logit D whose Sigmoid is commented
     # out — shape-incompatible in torch.  As the reference package does, the
     # intended semantics are implemented: sigmoid head + BCE, and on image
-    # data the 1-logit mnist D whatever d_head says.
+    # data the 1-logit mnist D whatever d_head says.  The conv D keeps its
+    # raw logit and BCE on logits (``cglgan_tpu/algos/fedavg_family.py:
+    # 320-323``).
     d_model = build_discriminator("mnist", 1) \
         if cfg.is_image and not cfg.conv else None
     (_, shards, init_nets, streams_for, local_phase, make_gen,
-     use_kernel) = _family_parts(cfg, part, dev, "sigmoid", d_model)
+     use_kernel) = _family_parts(cfg, part, dev,
+                                 "raw" if cfg.conv else "sigmoid", d_model)
 
     # first-occurrence lane mask: init_groups only repeats a member in the
     # degenerate group-smaller-than-gp_size fallback; duplicate lanes must
@@ -432,9 +470,10 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
 
     def round_fn(state: FedState, streams=None):
         """One federated round; ``streams`` as for FL-GAN, for all W
-        workers also in gather mode (the sampled lanes take ``z[group]``)."""
+        workers also in gather mode (the sampled lanes take ``z[group]``
+        and, with conv, ``kd1[group], kd2[group]``)."""
         t = state.t
-        starts, z1, z2, drop = streams_for(t, streams)
+        starts, z1, z2, keys, drop = streams_for(t, streams)
         m, w, alive, denom = round_weights(t, drop)
 
         if gather_mode:
@@ -448,8 +487,9 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
                          common.AdamState(*take(tuple(state.g.opt)))),
                 NetState(bcast(state.d.params), take(state.d.bn),
                          common.AdamState(*take(tuple(state.d.opt)))),
-                shards[idx], starts, z1[idx], z2[idx], lanes=schedule[t],
-                lanes_dev=idx)
+                shards[idx], starts, z1[idx], z2[idx],
+                None if keys is None else tuple(k[idx] for k in keys),
+                lanes=schedule[t], lanes_dev=idx)
             # scatter local state back; duplicate lanes (lane_valid == 0,
             # the degenerate schedule only) are dropped, so each worker is
             # written once; with dropout a dropped lane writes its old state
@@ -488,7 +528,7 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
         g, d, d_loss, g_loss = local_phase(
             NetState(bcast(state.g.params), state.g.bn, state.g.opt),
             NetState(bcast(state.d.params), state.d.bn, state.d.opt),
-            shards, starts, z1, z2)
+            shards, starts, z1, z2, keys)
         # local state (opt, BN) advances only for sampled workers —
         # unsampled workers stay blocked on their queue in the reference
         sel = lambda old, new: collectives.select_update_tree(old, new, m)

@@ -1,12 +1,13 @@
 """AC-GAN and MD-GAN: central generator(s), distributed discriminators,
 loss feedback.
 
-Port of ``cglgan_tpu/algos/mdgan_family.py`` (MLP models, float32 or
-bfloat16, one device).  Every round each server's G makes a detached fake
-batch Xd (train mode, so its BN buffers advance); every client trains its
-D ``epoch`` steps on (real window, Xd); the server's G then takes one Adam
-step on the mean of its clients' losses ``adv(D(G(z_g)), 1)`` through the
-UPDATED Ds (ACGAN/2DMG/acgan.py:102-257, MDGAN/MNIST/mdgan.py:107-297).
+Port of ``cglgan_tpu/algos/mdgan_family.py`` (MLP models in float32 or
+bfloat16, the conv LSGAN pair in float32, one device).  Every round each
+server's G makes a detached fake batch Xd (train mode, so its BN buffers
+advance); every client trains its D ``epoch`` steps on (real window,
+Xd); the server's G then takes one Adam step on the mean of its clients'
+losses ``adv(D(G(z_g)), 1)`` through the UPDATED Ds
+(ACGAN/2DMG/acgan.py:102-257, MDGAN/MNIST/mdgan.py:107-297).
 MD-GAN has one server (``num_servers=1``); AC-GAN S servers of k clients.
 
 Dropout (``dropout_rate > 0``): a dropped client keeps its D and its loss
@@ -31,6 +32,15 @@ reference's rule: auto at epoch > 1 in float32, forced by
 autograd otherwise.  The kernel path's G loss is the plain mean over the
 server's clients, as the reference's (equal to the masked mean when every
 client survives).
+
+Conv (``conv=True``, ``cglgan_tpu/algos/mdgan_family.py:51,65-68,97-124``):
+the D has one raw logit (BCE on logits), the local D step runs real and
+fake through separate forwards (the conv D's BatchNorm takes per-forward
+statistics), and the conv D's Dropout2d takes threefry keys: each server's
+``(k_d, k_drop)`` of the round's streams split k ways, one a client
+(``common.client_keys``), for the local D steps and for the G step's D
+forwards.  The exchanges move the conv D's BatchNorm buffers with its
+params; ``fused_dstep`` refuses a conv D, as the reference's does.
 """
 from __future__ import annotations
 
@@ -58,7 +68,7 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
     if cfg.algo == "mdgan" and S != 1:
         raise ValueError("mdgan has one central generator (num_servers=1)")
     g_model, d_model = models_for_config(cfg)
-    adv = common.make_adv_loss(cfg.resolved_d_head)
+    adv = common.make_adv_loss("raw" if cfg.conv else cfg.resolved_d_head)
     B, zdim = cfg.batch_size, cfg.latent_dim
     dtype = torch_dtype(cfg)
     max_len = part.data.shape[1]
@@ -68,7 +78,8 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
 
     d_step = common.d_epoch_steps(
         common.d_step_fn(d_model, adv, cfg.lr_d, cfg.b1, cfg.b2, B,
-                         cfg.is_image, d_loss_half=False, dtype=dtype),
+                         cfg.is_image, d_loss_half=False, dtype=dtype,
+                         fuse_concat=not cfg.conv),
         cfg.epoch)
     use_kernel = fused_dstep.eligible(cfg)
     dropout = cfg.dropout_rate > 0.0
@@ -104,15 +115,17 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
             return x.mean(dim=1)
         return (x * mask).sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1.0)
 
-    def g_update(g: NetState, gbn1, z_g, d_new: NetState, mask):
+    def g_update(g: NetState, gbn1, z_g, d_new: NetState, mask,
+                 drop_keys=None):
         """One G forward from gbn1 through each server's k updated Ds, one
         Adam step on each server's ``server_mean`` of its clients' losses.
-        Returns (new G, G loss (S,))."""
+        ``drop_keys``: the conv D's dropout keys (W, 2).  Returns (new G,
+        G loss (S,))."""
         gp, leaves = common.with_grad(g.params)
         with torch.enable_grad():
             fake, gbn2 = g_model.apply(gp, gbn1, z_g, train=True)
             out, _ = d_model.apply(d_new.params, d_new.bn, route(fake),
-                                   train=True)
+                                   train=True, rng=drop_keys)
             g_loss = server_mean(adv(out, 1.0), mask)
             grads = torch.autograd.grad(g_loss.sum(), leaves)
         new_p, new_opt = common.adam_update(
@@ -120,12 +133,17 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
             cfg.lr_g, cfg.b1, cfg.b2)
         return NetState(new_p, gbn2, new_opt), g_loss.detach()
 
+    # the injected streams: the three draws, with conv the dropout keys at
+    # slots 3 and 4, then the survival draw and the swap permutation
+    first_extra = 5 if cfg.conv else 3
+
     def extras_for(t: int, streams):
         """(survival draw or None, swap permutation or None): injected as
-        the 4th and 5th entries of ``streams`` (a missing 5th is None) or
-        drawn for round t."""
-        if streams is not None and len(streams) > 3:
-            return streams[3], (streams[4] if len(streams) > 4 else None)
+        the entries of ``streams`` after its draws and keys (a missing
+        permutation is None) or drawn for round t."""
+        if streams is not None and len(streams) > first_extra:
+            rest = list(streams[first_extra:]) + [None]
+            return rest[0], rest[1]
         alive = prng.survival(cfg, t, W, dev) if dropout else None
         perm = prng.swap_permutation(cfg, t, W, dev) if shuffle else None
         return alive, perm
@@ -134,13 +152,22 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
         """One federated round.  ``streams``: optional injected
         ``(starts (E,), z_d (S,B,zdim), z_g (S,B,zdim)[, alive (W,),
         perm (W,)])`` (``alive`` the survival draw, ``perm`` MD-GAN's
-        shuffle; either may be None where the config uses none); by default
-        they are drawn from ``core.prng`` for round ``state.t``."""
+        shuffle; either may be None where the config uses none); with conv
+        each server's dropout keys ``k_d, k_drop`` (S, 2) threefry key data
+        come at slots 3 and 4, before ``alive`` and ``perm``, and a conv
+        stream without them raises ValueError.  By default they are drawn
+        from ``core.prng`` for round ``state.t``."""
         t = state.t
         alive, perm = extras_for(t, streams)
         if streams is None:
             streams = prng.round_streams(cfg, t, max_len, dev)
         starts, z_d, z_g = streams[:3]
+        d_keys = drop_keys = None
+        if cfg.conv:
+            k_d, k_drop = common.conv_stream_keys(
+                streams, dev, "starts, z_d, z_g, k_d, k_drop", extras=2)
+            d_keys = common.client_keys(k_d, k)
+            drop_keys = common.client_keys(k_drop, k)
         z_d = torch.as_tensor(z_d, device=dev).to(dtype)
         z_g = torch.as_tensor(z_g, device=dev).to(dtype)
         starts = [int(s) for s in starts]
@@ -155,7 +182,7 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
             with torch.no_grad():
                 xd, gbn1 = g_model.apply(g.params, g.bn, z_d, train=True)
             fake = xd.reshape(B, din) if S == 1 else route(xd)
-            new_d, d_loss = d_step(state.d, shards, starts, fake)
+            new_d, d_loss = d_step(state.d, shards, starts, fake, d_keys)
             mask = None
             if dropout:
                 m = common.participation_mask(
@@ -168,7 +195,7 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
                     common.AdamState(*collectives.select_update_tree(
                         tuple(old.opt), tuple(new_d.opt), m)))
                 mask = m.reshape(S, k)
-            new_g, g_loss = g_update(g, gbn1, z_g, new_d, mask)
+            new_g, g_loss = g_update(g, gbn1, z_g, new_d, mask, drop_keys)
             metrics = {"d_loss": server_mean(d_loss, mask).mean(),
                        "g_loss": g_loss.mean()}
 

@@ -4,8 +4,8 @@ Port of ``cglgan_tpu/algos/registry.py`` for all seven algorithms on MLP
 models, on the image datasets and on 2DMG: the CGL family (CGL-GAN,
 CAP-GAN, Mix-G), the MD-GAN family (AC-GAN, MD-GAN) and the FedAvg family
 (FL-GAN, FeGAN; the ragged "epochs" sweep on image data).  The conv LSGAN
-pair runs on the CGL family, on images zero-padded 28 -> 32.  What is not
-ported (conv on the other families, meshes) raises ``NotImplementedError``
+pair runs on all seven in float32, on images zero-padded 28 -> 32.  What
+is not ported (conv in bfloat16, meshes) raises ``NotImplementedError``
 naming its ROADMAP item (``algos/common.py`` ``check_supported``).
 """
 from __future__ import annotations

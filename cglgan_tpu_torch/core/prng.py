@@ -10,7 +10,7 @@ reference's, drawn through ``core/threefry.py``.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List
 
 import torch
 
@@ -74,9 +74,9 @@ def round_streams(cfg, t: int, max_len: int, device) -> tuple:
     """One round's draws: ``(starts (E,), z_d (S,B,zdim), z_g (S,B,zdim))``
     — the same three streams ``cglgan_tpu``'s ``round_fn`` draws — and with
     ``cfg.conv`` each server's dropout keys ``k_d, k_drop`` (S, 2) after
-    them, threefry key data drawn from the same generator (the reference
-    splits them from the round's key; inject its ``key_data`` to get its
-    masks)."""
+    them (the CGL and MD-GAN families), threefry key data drawn from the
+    same generator (the reference splits them from the round's key; inject
+    its ``key_data`` to get its masks)."""
     S, B, zdim = cfg.num_servers, cfg.batch_size, cfg.latent_dim
     starts = batch_starts(cfg.seed, t, cfg.epoch, max_len, B)
     g = generator(cfg.seed, ROLE_LOCAL, t, device=device)
@@ -105,13 +105,22 @@ def swap_permutation(cfg, t: int, n: int, device) -> torch.Tensor:
 
 
 def sweep_streams(cfg, t: int, max_len: int, steps: int, device
-                  ) -> Tuple[List[int], torch.Tensor, torch.Tensor]:
+                  ) -> tuple:
     """One FedAvg-family round's draws: ``(starts (steps,), z1, z2
     (W, steps, B, zdim))`` — z1 feeds each local D step's fake batch, z2
-    the G step, as ``cglgan_tpu``'s ``_local_sweep`` draws them."""
+    the G step, as ``cglgan_tpu``'s ``_local_sweep`` draws them — and with
+    ``cfg.conv`` each lane's dropout keys ``kd1, kd2`` (W, steps, 2) after
+    them, threefry key data drawn from the same generator: ``kd1`` the key
+    of a local step's D step (split into the real and the fake forward's),
+    ``kd2`` of its G step (the reference's ``kdrop1, kdrop2`` of each step
+    key; inject its ``key_data`` to get its masks)."""
     W, B, zdim = cfg.num_workers, cfg.batch_size, cfg.latent_dim
     starts = batch_starts(cfg.seed, t, steps, max_len, B)
     g = generator(cfg.seed, ROLE_LOCAL, t, device=device)
     z1 = torch.randn((W, steps, B, zdim), generator=g, device=device)
     z2 = torch.randn((W, steps, B, zdim), generator=g, device=device)
-    return starts, z1, z2
+    if not cfg.conv:
+        return starts, z1, z2
+    keys = torch.randint(0, 1 << 32, (2, W, steps, 2), generator=g,
+                         device=device, dtype=torch.int64)
+    return starts, z1, z2, keys[0], keys[1]

@@ -9,8 +9,8 @@ D state ``(S, k, ...)``; the port keeps it flat ``(W, ...)``.  FedAvg family
 state (fegan: the BN state too) stacked ``(W, ...)``, and ``lam`` is None,
 so every array carries over as it is.  AC-GAN and MD-GAN: D state as for
 CAP-GAN, and the ``lam`` slot holds the delta gossip's anchors, a
-``(params, bn)`` pair shaped like the D's (flattened the same way), or
-None.  A multipath G's trees are dicts
+``(params, bn)`` pair shaped like the D's (flattened the same way; lists
+for an MLP D, dicts for the conv D), or None.  A multipath G's trees are dicts
 ``{"trunk": [...], "heads": [...]}`` in both packages (heads ``(S, k, ...)``)
 and carry over as dicts; so do the conv family's trees (``conv=True``:
 G ``{"l1", "c1", "c2", "c3", "bn1", "bn2"}``, Mix-G ``{"trunk": {...},
@@ -93,7 +93,8 @@ def from_jax_numpy(tree, cfg, device) -> FedState:
         if tree.lam is not None:           # the delta anchors (params, bn)
             flat = lambda x: tensor_from_numpy(
                 np.asarray(x).reshape((W,) + np.shape(x)[2:]), dev)
-            lam = tuple(tree_map(flat, list(sub)) for sub in tree.lam)
+            lam = tuple(tree_map(flat, sub if isinstance(sub, dict)
+                                 else list(sub)) for sub in tree.lam)
         return FedState(net(tree.g, False), net(tree.d, True), lam,
                         int(tree.t))
     return FedState(net(tree.g, False), net(tree.d, True),

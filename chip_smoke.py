@@ -104,6 +104,21 @@ Phases, each printing one JSON line:
             epoch=5, and CAP-GAN conv (16 workers, 1 server) at epoch=5,
             2 warm-up and 10 timed rounds each (``fused_dstep`` refuses a
             conv D, as the reference's: its count must stay 0);
+  conv_baselines
+            the conv pair on the MD-GAN and FedAvg families: MD-GAN conv
+            (the archived ``mnist-iid1-mdgan-conv``, 16 workers, B=100)
+            card against CPU for 2 rounds at B=25, FL-GAN and FeGAN (gather
+            mode) conv on the shrunk image setup card against CPU for 2
+            rounds; then MD-GAN conv at epoch 1 and 5 and with the ring
+            D-swap (E=2), AC-GAN conv (16 workers / 4 servers) with the
+            delta gossip (E=2), 2 warm-up and 10 timed rounds each, and
+            ``mnist-iid1-flgan`` / ``-fegan`` with conv (16 workers, the
+            ragged sweep) 1 profiled round, as the warm-up, and 1 timed
+            round each, with the step
+            plan beside the reference's buckets; every run prints rounds/s,
+            device ms and launches a round from the profile and peak
+            memory, and ``fused_dstep`` and ``fused_sweep`` must not
+            launch;
   inception InceptionV3 pool3 with ``inception_init``'s random weights
             written to an ``.npz`` and loaded back: pool3 ms for 100 images
             at 299^2, ``preprocess`` ms, the host's ``sqrtm`` at 2048-d,
@@ -126,7 +141,7 @@ line, the ``kernels`` line and, last, the ok line.  Any failure raises and
 exits non-zero; without a card it exits 2 and prints no result.
 ``--phases a,b`` runs only the named phases (of ``dstep dstep_bf16 sweep
 adam reference main eval_image fedavg fedavg_image cgl mdgan bf16 conv
-inception``)
+conv_baselines inception``)
 for a short first look at a new kernel; the
 ``kernels`` and ok lines are printed only by a full run.  Imports nothing
 of JAX.
@@ -1276,15 +1291,16 @@ def phase_rounds(phase, label, algo, base, epoch, part, rounds=ROUNDS,
     and ``train``: 2 warm-up and ``rounds`` timed rounds; ``fused_dstep``'s
     count, set to 0 just before, must rise by ``rounds`` where the config
     engages the kernel (epoch > 1 in float32, ``pallas_dstep=True``) and
-    stay 0 elsewhere (the conv D); finite metrics and samples in [-1, 1].
-    ``extra``: further config fields (``dtype``, ``pallas_dstep``)."""
+    stay 0 elsewhere (the conv D), and ``fused_sweep``'s must stay 0;
+    finite metrics and samples in [-1, 1].  ``extra``: further config
+    fields (``dtype``, ``pallas_dstep``)."""
     import torch
     from cglgan_tpu_torch.algos.registry import build_runner
     from cglgan_tpu_torch.algos.runner import train
     from cglgan_tpu_torch.core.config import FedGANConfig
     from cglgan_tpu_torch.evalx.evaluator import make_evaluator
     from cglgan_tpu_torch.models.zoo import models_for_config
-    from cglgan_tpu_torch.ops import fused_dstep
+    from cglgan_tpu_torch.ops import fused_dstep, fused_sweep
     from cglgan_tpu_torch.utils.profiling import profile_rounds
 
     cfg = FedGANConfig(algo=algo, epoch=epoch, **base, **extra)
@@ -1294,7 +1310,7 @@ def phase_rounds(phase, label, algo, base, epoch, part, rounds=ROUNDS,
                   evaluator=False)["state"]                # warm-up rounds
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_dstep.launches = 0
+    fused_dstep.launches = fused_sweep.launches = 0
     t0 = time.perf_counter()
     out = train(runner, rounds, eval_every=10, state=state, evaluator=False)
     torch.cuda.synchronize()
@@ -1304,9 +1320,10 @@ def phase_rounds(phase, label, algo, base, epoch, part, rounds=ROUNDS,
     finite_metrics(out["history"])
     uses_kernel = fused_dstep.eligible(cfg)
     expect = rounds if uses_kernel else 0
-    if launches != expect:
+    if launches != expect or fused_sweep.launches:
         raise AssertionError(f"{label} epoch={epoch} {extra}: fused_dstep "
-                             f"launches {launches}, expected {expect}")
+                             f"launches {launches}, expected {expect}; "
+                             f"fused_sweep {fused_sweep.launches}")
     # painter semantics: n // S samples a server
     n = (16 if cfg.is_image else 10000) // cfg.num_servers * cfg.num_servers
     samples = runner.sample(out["state"], n)
@@ -1321,7 +1338,9 @@ def phase_rounds(phase, label, algo, base, epoch, part, rounds=ROUNDS,
            "multipath": models_for_config(cfg)[0].multipath,
            "shards": list(part.data.shape), "rounds": rounds,
            "wall_s": wall, "rounds_per_s": rounds / wall,
-           "fused_dstep_launches": launches, "uses_kernel": uses_kernel,
+           "fused_dstep_launches": launches,
+           "fused_sweep_launches": fused_sweep.launches,
+           "uses_kernel": uses_kernel,
            "last_tick": out["history"][-1], "peak_mem_gb": peak}
     if not cfg.is_image:
         # the evaluator's KL, DS and mode coverage (32 bins for MD-GAN)
@@ -1341,12 +1360,13 @@ def fedavg_shrunk(algo, **extra):
                         epoch=2, num_communication=8, **extra)
 
 
-def phase_reference_fedavg(cases=None, part=None):
+def phase_reference_fedavg(cases=None, part=None, rounds=3):
     """Shrunk FL-GAN and FeGAN: card vs CPU from one init and one stream
-    (by default on the kernel path, the CPU on its plain version).
-    ``cases``: (config, scaled tolerance, metric tolerance) triples;
-    ``part``: their partition (default: ``load_partition``).  The streams
-    cover the largest local step count (the ragged "epochs" sweep)."""
+    (by default on the kernel path, the CPU on its plain version) for
+    ``rounds`` rounds.  ``cases``: (config, scaled tolerance, metric
+    tolerance) triples; ``part``: their partition (default:
+    ``load_partition``).  The streams cover the largest local step count
+    (the ragged "epochs" sweep), and with conv the dropout keys."""
     from cglgan_tpu_torch.algos.fedavg_family import _local_steps
     from cglgan_tpu_torch.algos.registry import build_runner, load_partition
     from cglgan_tpu_torch.core import prng
@@ -1368,7 +1388,7 @@ def phase_reference_fedavg(cases=None, part=None):
         cpu = build_runner(cfg, cpart, device="cpu")
         sg, sc = gpu.init_state(), cpu.init_state()
         launched = fused_sweep.launches, fused_dstep.launches
-        for t in range(3):
+        for t in range(rounds):
             streams = prng.sweep_streams(cfg, t, cpart.data.shape[1], steps,
                                          "cpu")
             if cfg.dropout_rate > 0.0:          # one survival draw for both
@@ -1378,14 +1398,14 @@ def phase_reference_fedavg(cases=None, part=None):
             sc, mc = cpu.round_fn(sc, streams)
         launches = {"fused_sweep": fused_sweep.launches - launched[0],
                     "fused_dstep": fused_dstep.launches - launched[1]}
-        expect = 3 if fused_sweep.eligible(cfg) else 0
+        expect = rounds if fused_sweep.eligible(cfg) else 0
         errs = state_errs(sg, sc)
         merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
         res = {"phase": "reference", "algo": algo, "dtype": cfg.dtype,
                "dataset": cfg.dataset, "pallas_sweep": cfg.pallas_sweep,
-               "frac_workers": cfg.frac_workers,
+               "frac_workers": cfg.frac_workers, "conv": cfg.conv,
                "sweep": cfg.resolved_local_sweep, "steps": steps,
-               "rounds": 3, "launches": launches,
+               "rounds": rounds, "launches": launches,
                "max_scaled_err": errs, "tol_scaled": tol,
                "metrics_max_abs_err": merr, "tol_metrics": tol_metrics}
         emit(res)
@@ -1480,18 +1500,24 @@ FEDAVG_IMAGE_RUNS = (("flgan", 1, {}, 3), ("flgan", 5, {}, 1),
 TOL_IMAGE_FEDAVG = {"params": TOL_SCALED, "mu": 0.05, "nu": 0.05}
 
 
-def fedavg_image_shrunk():
+def fedavg_image_shrunk(conv=False):
     """The shrunk image setup of ``tests/test_torch_port_fedavg_image.py``
     (800 synthetic 28x28 images, 4 workers, B=32, the full-width MNIST G and
-    D) through the port's own ``synthetic_mnist`` and ``partition``."""
+    D) through the port's own ``synthetic_mnist`` and ``partition``; with
+    ``conv`` the images zero-padded to 32x32 and the conv pair, as
+    ``load_partition`` does."""
+    import numpy as np
     from cglgan_tpu_torch.core.config import FedGANConfig
     from cglgan_tpu_torch.data.mnist import synthetic_mnist
     from cglgan_tpu_torch.data.partition import partition
     imgs, labels = synthetic_mnist(n=800, seed=3)
+    if conv:
+        imgs = np.pad(imgs, ((0, 0), (2, 2), (2, 2)))
     part = partition(imgs.reshape(800, -1), labels, 4, 1, num_class=10,
                      num_sample=100, seed=FedGANConfig().seed)
     base = dict(dataset="synthetic-mnist", num_workers=4, num_class=10,
-                num_sample=100, iid=1, batch_size=32, num_communication=8)
+                num_sample=100, iid=1, batch_size=32, num_communication=8,
+                conv=conv)
     return base, part
 
 
@@ -1527,14 +1553,18 @@ def step_plan(cfg, part, runner, rounds):
 
 
 def phase_fedavg_image_run(algo, epoch, extra, rounds, part,
-                           check_sums=False):
-    """One archived configuration at full width through ``build_runner``
+                           check_sums=False, base=FEDAVG_MNIST,
+                           phase="fedavg_image", profile_first=False):
+    """One archived configuration (``base`` with ``extra``) at full width
+    through ``build_runner``
     and ``train``: at epoch=1 1 warm-up round (at epoch=5 none: the
     epoch=1 run before it has warmed the same kernels and shapes), then
     ``rounds`` timed rounds; no kernel may launch (``fused_sweep`` and
     ``fused_dstep`` counts, set to 0 just before, stay 0); finite metrics
     and samples in [-1, 1]; at epoch=1 a 1-round profile (launches a round
-    and a step, busy share), and with ``check_sums`` its sums held to
+    and a step, busy share) after the timed rounds, or with
+    ``profile_first`` in place of the warm-up round (rounds of seconds:
+    one round fewer), and with ``check_sums`` its sums held to
     ``key_averages()`` on one more round."""
     import torch
     from cglgan_tpu_torch.algos.registry import build_runner
@@ -1543,13 +1573,19 @@ def phase_fedavg_image_run(algo, epoch, extra, rounds, part,
     from cglgan_tpu_torch.ops import fused_dstep, fused_sweep
     from cglgan_tpu_torch.utils.profiling import profile_rounds
 
-    cfg = FedGANConfig(algo=algo, epoch=epoch, **FEDAVG_MNIST, **extra)
+    cfg = FedGANConfig(algo=algo, epoch=epoch, **base, **extra)
     t0 = time.perf_counter()
     runner = build_runner(cfg, part)
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    state = train(runner, 1, eval_every=1, evaluator=False)["state"] \
-        if epoch == 1 else runner.init_state()           # warm-up round
+    prof = None
+    if profile_first:          # the profiled round is the warm-up round
+        state = runner.init_state()
+        prof = profile_rounds(runner, state, 1)
+    elif epoch == 1:
+        state = train(runner, 1, eval_every=1, evaluator=False)["state"]
+    else:
+        state = runner.init_state()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     plan = step_plan(cfg, part, runner, range(state.t, state.t + rounds))
@@ -1568,23 +1604,25 @@ def phase_fedavg_image_run(algo, epoch, extra, rounds, part,
         raise AssertionError(f"{algo} epoch={epoch}: a kernel launched on "
                              f"the image FedAvg path: {launches}")
     samples = runner.sample(out["state"], 16)
-    if tuple(samples.shape) != (16, 1, 28, 28) or \
+    side = 32 if cfg.conv else 28                        # 28 -> 32 conv
+    if tuple(samples.shape) != (16, 1, side, side) or \
             not bool(torch.isfinite(samples).all()) or \
             float(samples.abs().max()) > 1.0:
         raise AssertionError(f"{algo}: bad samples {tuple(samples.shape)}")
-    res = {"phase": "fedavg_image", "path": "autograd",
-           "config": {"algo": algo, **FEDAVG_MNIST, "epoch": epoch,
-                      **extra},
+    res = {"phase": phase, "path": "autograd",
+           "config": {"algo": algo, **base, "epoch": epoch, **extra},
            "shards": list(part.data.shape), "setup_s": setup_s,
            "warmup_round_s": warm_s, "rounds": rounds, "wall_s": wall,
            "rounds_per_s": rounds / wall, "s_per_round": wall / rounds,
            "plan": plan, "launches": launches,
            "last_tick": out["history"][-1], "peak_mem_gb": peak}
     if epoch == 1:
-        t = out["state"].t
+        t = state.t if profile_first else out["state"].t
         t0 = time.perf_counter()
-        prof = profile_rounds(runner, out["state"], 1)
-        prof["profile_s"] = time.perf_counter() - t0
+        if prof is None:
+            prof = profile_rounds(runner, out["state"], 1)
+        prof["profile_s"] = warm_s if profile_first \
+            else time.perf_counter() - t0
         prof["sequential_steps"] = step_plan(
             cfg, part, runner, [t])["sequential_steps_per_round"]
         prof["launches_per_step"] = (prof["kernel_launches_per_round"]
@@ -1981,6 +2019,87 @@ def phase_conv(parts_of):
 
 
 # ---------------------------------------------------------------------------
+# The conv LSGAN pair on the MD-GAN and FedAvg families (phase
+# conv_baselines), float32.  MD-GAN: the archived
+# results/runs/mnist-iid1-mdgan-conv/config.json (W=16, S=1, B=100, iid=1,
+# E=0) at epoch 1 and 5, then at epoch 1 with the ring D-swap every 2
+# rounds; AC-GAN at W=16 / S=4 with the delta gossip every 2 rounds.
+# FL-GAN and FeGAN: results/runs/mnist-iid1-{flgan,fegan}/config.json (W=16,
+# B=100, iid=1, the ragged "epochs" sweep, FeGAN at frac 1.0) with
+# conv=True.  No TPU kernel runs here, as in the reference (its fused_dstep
+# refuses a conv D, its fused_sweep takes 2DMG MLPs only): both counts must
+# stay 0.
+# ---------------------------------------------------------------------------
+
+MDGAN_CONV = dict(dataset="synthetic-mnist", num_workers=16, num_servers=1,
+                  iid=1, batch_size=100, num_communication=20000, conv=True)
+ACGAN_CONV = dict(MDGAN_CONV, num_servers=4)
+MDGAN_CONV_RUNS = (("mdgan conv", "mdgan", MDGAN_CONV, 1, {}),
+                   ("mdgan conv", "mdgan", MDGAN_CONV, 5, {}),
+                   ("mdgan conv ring", "mdgan", MDGAN_CONV, 1,
+                    dict(E=2, d_swap="ring")),
+                   ("acgan conv delta", "acgan", ACGAN_CONV, 1,
+                    dict(E=2, gossip="delta")))
+FEDAVG_CONV = dict(FEDAVG_MNIST, num_workers=16, conv=True)
+# (algo, extra config, timed rounds): the profiled round first, as the
+# warm-up (a round is ~20 s on the card), then 1 timed round each
+FEDAVG_CONV_RUNS = (("flgan", {}, 1), ("fegan", {"frac_workers": 1.0}, 1))
+# Card against CPU on the shrunk image setup with the conv pair: FL-GAN and
+# FeGAN in gather mode.  Params are held to TOL_CONV_SCALED; the Adam
+# moments to TOL_IMAGE_FEDAVG's 0.05 of their group's largest entry: a G
+# BatchNorm output within float32 rounding of 0 takes another LeakyReLU
+# slope on each device, and the lanes' several G steps a round compound it
+# (tests/test_torch_port_conv_fedavg.py: the port and JAX on the CPU part so
+# by up to 0.034 of the G's mu scale in 2 rounds, and the port in float32
+# from itself in float64 as much).
+TOL_CONV_FEDAVG = {"params": TOL_CONV_SCALED, "mu": 0.05, "nu": 0.05}
+
+
+def phase_conv_baselines(parts_of):
+    """MD-GAN conv card against CPU for 2 rounds (batch CONV_REF_BATCH), then
+    each of MDGAN_CONV_RUNS at full width (2 warm-up and CONV_ROUNDS timed
+    rounds: rounds/s, device ms and launches a round from the profile, peak
+    memory); FL-GAN and FeGAN (gather mode) conv on the shrunk image setup
+    card against CPU for 2 rounds, then each of FEDAVG_CONV_RUNS at full
+    width with the sweep's sequential steps and lane-steps beside the
+    reference's bucket plan.  Neither ``fused_dstep`` nor ``fused_sweep``
+    launches."""
+    from cglgan_tpu_torch.core.config import FedGANConfig
+
+    t0 = time.perf_counter()
+    part = parts_of("mdgan", MDGAN_CONV)
+    if part.data.shape[2] != 32 * 32:
+        raise AssertionError(f"conv shards are not 32x32: {part.data.shape}")
+    reference_rounds("mdgan conv", FedGANConfig(
+        algo="mdgan", epoch=1, **dict(MDGAN_CONV, batch_size=CONV_REF_BATCH)),
+        part, 2, tol=TOL_CONV_SCALED)
+    base, small = fedavg_image_shrunk(conv=True)
+    phase_reference_fedavg([
+        (FedGANConfig(algo="flgan", **base), TOL_CONV_FEDAVG, 1e-4),
+        (FedGANConfig(algo="fegan", frac_workers=0.5, **base),
+         TOL_CONV_FEDAVG, 1e-4)], part=small, rounds=2)
+    launches = {}
+    for label, algo, cbase, epoch, extra in MDGAN_CONV_RUNS:
+        # one partition for both: 16 workers at iid=1 hold the same shards
+        # whatever the servers
+        res, _ = phase_rounds("conv_baselines", label, algo, cbase, epoch,
+                              part, rounds=CONV_ROUNDS, **extra)
+        launches[f"{label} e{epoch}"] = {
+            "fused_dstep": res["fused_dstep_launches"],
+            "fused_sweep": res["fused_sweep_launches"]}
+    fedavg_part = parts_of("flgan", FEDAVG_CONV)
+    for algo, extra, rounds in FEDAVG_CONV_RUNS:
+        res = phase_fedavg_image_run(algo, 1, extra, rounds, fedavg_part,
+                                     base=FEDAVG_CONV, phase="conv_baselines",
+                                     profile_first=True)
+        launches[algo] = res["launches"]
+    if any(n for run in launches.values() for n in run.values()):
+        raise AssertionError(f"a kernel launched on a conv path: {launches}")
+    emit({"phase": "conv_baselines", "launches": launches,
+          "seconds": time.perf_counter() - t0})
+
+
+# ---------------------------------------------------------------------------
 # InceptionV3 pool3 (phase inception): random weights from inception_init
 # (no pretrained weights exist offline), written to an .npz and loaded back
 # through the evaluator's entry point.  pool3 is F.conv2d / pools on cuDNN,
@@ -2134,7 +2253,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     all_phases = ("dstep", "dstep_bf16", "sweep", "adam", "reference",
                   "main", "eval_image", "fedavg", "fedavg_image", "cgl",
-                  "mdgan", "bf16", "conv", "inception")
+                  "mdgan", "bf16", "conv", "conv_baselines", "inception")
     ap.add_argument("--phases", default=",".join(all_phases),
                     help="comma-separated subset of: " + " ".join(all_phases))
     phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
@@ -2230,6 +2349,8 @@ def main(argv=None):
                 done[f"dstep_launches {label}"] = n
     if run("conv"):
         phase_conv(part_of)
+    if run("conv_baselines"):
+        phase_conv_baselines(part_of)
     if run("inception"):
         phase_inception(card, part_of("capgan", MAIN),
                         part_of("cglgan", CGL_CONV))

@@ -613,7 +613,9 @@ def test_gen_matches_jax(case):
 def test_entry_points():
     """Every image FedAvg variant builds on the CPU; the default device is
     the card; ``pallas_sweep=True`` on image data raises as the
-    reference's ``eligible`` does; conv still raises NotImplementedError."""
+    reference's ``eligible`` does; conv (on the 28x28 images zero-padded to
+    32x32) builds and runs a round in float32 and raises
+    NotImplementedError in bfloat16."""
     cfg = FedGANConfig(**dict(SHRUNK, algo="flgan"))
     part = Partition(*_fields(1))
     if not torch.cuda.is_available():
@@ -628,5 +630,20 @@ def test_entry_points():
         with pytest.raises(ValueError, match="pallas_sweep"):
             build_runner(cfg.replace(pallas_sweep=True, **kw), part,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_runner(cfg.replace(conv=True), part, device="cpu")
+    data, *rest = _fields(1)
+    padded = np.pad(data.reshape(data.shape[:2] + (28, 28)),
+                    ((0, 0), (0, 0), (2, 2), (2, 2)))
+    conv_part = Partition(padded.reshape(data.shape[:2] + (-1,)), *rest[:3],
+                          np.pad(rest[3].reshape(-1, 28, 28),
+                                 ((0, 0), (2, 2), (2, 2))).reshape(
+                                     len(rest[3]), -1))
+    for kw in (dict(), dict(algo="fegan", frac_workers=0.5)):
+        conv = cfg.replace(conv=True, local_sweep="batches", **kw)
+        run = build_runner(conv, conv_part, device="cpu")
+        state, m = run.round_fn(run.init_state())
+        assert state.t == 1 and all(np.isfinite(float(v))
+                                    for v in m.values())
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 "
+                                                      "item 12"):
+            build_runner(conv.replace(dtype="bfloat16"), conv_part,
+                         device="cpu")

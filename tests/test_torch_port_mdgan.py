@@ -521,8 +521,9 @@ def test_train_and_entry_point_contract():
     dropout, and ``train`` runs them (on 2DMG all of these, with the
     evaluator's metrics; on MNIST shapes, whose float32 rounds the round
     tests run, bf16 with an exchange and with the forced kernel, and the
-    default evaluator's FID and IS); conv still raises naming its ROADMAP
-    item, MD-GAN with more
+    default evaluator's FID and IS); conv builds in float32 (on 2DMG only
+    its rounds would need image data) and runs a round on 32x32 images,
+    conv in bfloat16 raises naming its ROADMAP item, MD-GAN with more
     than one server raises, and without ``device`` the card is asked
     for."""
     for dataset in ("synthetic-mnist", "2dmg"):
@@ -552,8 +553,24 @@ def test_train_and_entry_point_contract():
             if not torch.cuda.is_available():
                 with pytest.raises(RuntimeError, match="device='cpu'"):
                     build_runner(cfg, part)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                build_runner(cfg.replace(conv=True), part, device="cpu")
+            conv = cfg.replace(conv=True)
+            run = build_runner(conv, part, device="cpu")
+            if dataset != "2dmg":
+                # the conv pair works at 32x32: rows of 1024 pixels
+                rng = np.random.default_rng(2)
+                conv_part = Partition(
+                    rng.integers(0, 256, (4, L, 1024)).astype(np.uint8),
+                    part.labels, part.lengths, part.class_freq,
+                    np.zeros((10, 1024), np.uint8))
+                run = build_runner(conv, conv_part, device="cpu")
+                state, m = run.round_fn(run.init_state())
+                assert state.t == 1 and all(np.isfinite(float(v))
+                                            for v in m.values())
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 "
+                                                          "item 12"):
+                build_runner(conv.replace(dtype="bfloat16",
+                                          force_dtype=True), part,
+                             device="cpu")
             if dataset != "2dmg":
                 run = build_runner(cfg, part, device="cpu")
                 # the default evaluator trains its probe (300 small steps)
