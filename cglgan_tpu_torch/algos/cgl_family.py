@@ -1,9 +1,9 @@
 """CGL-GAN, CAP-GAN and Mix-G: the 3-tier cloud/edge/client hierarchy with
 the Lambda game.
 
-Port of ``cglgan_tpu/algos/cgl_family.py`` (MLP models in float32 or
-bfloat16, the conv LSGAN pair in float32, one device).  Every round each
-edge server makes a detached fake batch Xd; every client runs ``epoch``
+Port of ``cglgan_tpu/algos/cgl_family.py`` (the MLP models
+and the conv LSGAN pair, in float32 or bfloat16, one device).  Every round
+each edge server makes a detached fake batch Xd; every client runs ``epoch``
 local D steps on (real window, Xd); the server's G takes one step on the
 per-client losses l through the UPDATED Ds; on each server's cadence the
 cloud averages the servers' G (or their trunks) and sigma-mixes the

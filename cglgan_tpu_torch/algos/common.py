@@ -30,15 +30,11 @@ from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 def check_supported(cfg, mesh=None) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the
-    ported slices do not cover: conv models in bfloat16, and meshes (every
-    algorithm runs on MLP models, on 2DMG and the image datasets, in
-    float32 and bfloat16, and on the conv LSGAN pair in float32).  A conv
-    config on 2DMG builds, as the reference's does; only its rounds need
-    image data (the conv D reads a row as a square image)."""
-    if cfg.conv and cfg.dtype != "float32":
-        raise NotImplementedError(
-            "conv=True in bfloat16 is not ported yet (ROADMAP queue 1 item "
-            "12: conv in bfloat16); the conv LSGAN pair runs in float32")
+    ported slices do not cover: meshes and ``model_shards > 1`` (every
+    algorithm runs on the MLP models and on the conv LSGAN pair, on 2DMG
+    and the image datasets, in float32 and bfloat16).  A conv config on
+    2DMG builds, as the reference's does; only its rounds need image data
+    (the conv D reads a row as a square image)."""
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unsupported dtype {cfg.dtype!r}")
     if mesh is not None or cfg.model_shards > 1:

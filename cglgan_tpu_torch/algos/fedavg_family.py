@@ -2,7 +2,7 @@
 
 Port of ``cglgan_tpu/algos/fedavg_family.py``: the 2DMG "batches" sweep and
 the image datasets' ragged "epochs" sweep, on MLP models and on the conv
-LSGAN pair (float32).
+LSGAN pair (float32 or bfloat16).
 
 FL-GAN (FLGAN/2DMG/flgan.py, FLGAN/MNIST/flgan.py): one server broadcasts
 (p_g, p_d); each worker loads them, trains locally (2DMG: ``epoch``

@@ -1,9 +1,9 @@
 """AC-GAN and MD-GAN: central generator(s), distributed discriminators,
 loss feedback.
 
-Port of ``cglgan_tpu/algos/mdgan_family.py`` (MLP models in float32 or
-bfloat16, the conv LSGAN pair in float32, one device).  Every round each
-server's G makes a detached fake batch Xd (train mode, so its BN buffers
+Port of ``cglgan_tpu/algos/mdgan_family.py`` (the MLP models
+and the conv LSGAN pair, in float32 or bfloat16, one device).  Every round
+each server's G makes a detached fake batch Xd (train mode, so its BN buffers
 advance); every client trains its D ``epoch`` steps on (real window,
 Xd); the server's G then takes one Adam step on the mean of its clients'
 losses ``adv(D(G(z_g)), 1)`` through the UPDATED Ds

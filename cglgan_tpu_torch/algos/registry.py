@@ -4,8 +4,8 @@ Port of ``cglgan_tpu/algos/registry.py`` for all seven algorithms on MLP
 models, on the image datasets and on 2DMG: the CGL family (CGL-GAN,
 CAP-GAN, Mix-G), the MD-GAN family (AC-GAN, MD-GAN) and the FedAvg family
 (FL-GAN, FeGAN; the ragged "epochs" sweep on image data).  The conv LSGAN
-pair runs on all seven in float32, on images zero-padded 28 -> 32.  What
-is not ported (conv in bfloat16, meshes) raises ``NotImplementedError``
+pair runs on all seven in float32 and bfloat16, on images zero-padded
+28 -> 32.  What is not ported (meshes) raises ``NotImplementedError``
 naming its ROADMAP item (``algos/common.py`` ``check_supported``).
 """
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from cglgan_tpu_torch.algos.common import check_supported
 from cglgan_tpu_torch.core import device as device_mod
@@ -52,6 +53,12 @@ def build_runner(cfg, part: Optional[Partition] = None, device=None):
     """Runner for ``cfg`` on ``device`` (default ``cuda``; raises when no
     card is present unless ``device="cpu"`` is passed)."""
     dev = device_mod.resolve(device)
+    if cfg.dtype == "bfloat16" and dev.type == "cuda":
+        # bfloat16 products accumulate in float32 and round once, as XLA's
+        # do: cuBLAS may otherwise reduce partial sums in bfloat16 (the
+        # conv G's l1 and the D's adv products).  A process-wide setting.
+        torch.backends.cuda.matmul \
+            .allow_bf16_reduced_precision_reduction = False
     if cfg.pallas_sweep is True:
         # validate the forced flag for EVERY algo: eligible() raises for a
         # config that cannot take the kernel instead of running without it

@@ -54,28 +54,42 @@ def weak(c: float, like: Union[torch.Tensor, torch.dtype]) -> float:
     return _rounded(float(c), dtype)
 
 
-def _count(x: torch.Tensor, dim: Sequence[int]) -> int:
-    return math.prod(x.shape[d] for d in dim)
+def _dims(dim) -> tuple:
+    return (dim,) if isinstance(dim, int) else tuple(dim)
+
+
+def _count(x: torch.Tensor, dims: Sequence[int]) -> int:
+    return math.prod(x.shape[d] for d in dims)
+
+
+def _keep(t: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+    """``t`` reduced over ``dims`` without keepdim -> broadcastable again."""
+    for d in sorted(d % (t.ndim + len(dims)) for d in dims):
+        t = t.unsqueeze(d)
+    return t
 
 
 def mean(x: torch.Tensor, dim, keepdim: bool = False) -> torch.Tensor:
-    """``jnp.mean(x, dim)``: bfloat16 summed and divided in float32, rounded
-    once; other dtypes through ``torch.mean``."""
+    """``jnp.mean(x, dim)`` over one axis or a tuple of them: bfloat16
+    summed and divided in float32, rounded once; other dtypes through
+    ``torch.mean``."""
     if x.dtype != torch.bfloat16:
         return x.mean(dim=dim, keepdim=keepdim)
-    dims = (dim,) if isinstance(dim, int) else tuple(dim)
+    dims = _dims(dim)
     s = x.float().sum(dim=dims, keepdim=keepdim)
     return (s / _count(x, dims)).to(x.dtype)
 
 
-def var(x: torch.Tensor, dim: int, x_mean: torch.Tensor) -> torch.Tensor:
-    """``jnp.var(x, dim)`` (biased).  bfloat16: every step in float32 (its
-    own float32 mean, the squared deviations, their sum over the count),
-    rounded once, as JAX computes it.  Other dtypes: the squared deviations
-    from ``x_mean`` (``x``'s mean over ``dim``), averaged."""
+def var(x: torch.Tensor, dim, x_mean: torch.Tensor) -> torch.Tensor:
+    """``jnp.var(x, dim)`` (biased) over one axis or a tuple of them.
+    bfloat16: every step in float32 (its own float32 mean, the squared
+    deviations, their sum over the count), rounded once, as JAX computes
+    it.  Other dtypes: the squared deviations from ``x_mean`` (``x``'s
+    mean over ``dim``, without keepdim), averaged."""
+    dims = _dims(dim)
     if x.dtype != torch.bfloat16:
-        return ((x - x_mean.unsqueeze(dim)) ** 2).mean(dim=dim)
+        return ((x - _keep(x_mean, dims)) ** 2).mean(dim=dims)
     x32 = x.float()
-    n = x.shape[dim]
-    m = x32.sum(dim=dim, keepdim=True) / n
-    return (((x32 - m) ** 2).sum(dim=dim) / n).to(x.dtype)
+    n = _count(x, dims)
+    m = x32.sum(dim=dims, keepdim=True) / n
+    return (((x32 - m) ** 2).sum(dim=dims) / n).to(x.dtype)

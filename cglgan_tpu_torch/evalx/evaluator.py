@@ -104,7 +104,10 @@ def make_evaluator(cfg, part, eval_n: Optional[int] = None,
     def evaluate(runner, state, samples=None) -> Dict[str, float]:
         if samples is None:
             samples = runner.sample(state, n)
-        gen = samples.reshape(-1, 1, side, side)[:n]
+        # bfloat16 samples (a bfloat16 conv G) in float32, exactly: the
+        # extractor and the probe are float32 (the reference's refuse
+        # them, as XLA's conv wants one dtype)
+        gen = samples.reshape(-1, 1, side, side)[:n].float()
         mu_g, cov_g = activation_stats(extractor, gen)
         return {"fid": frechet_distance(mu_g, cov_g, mu_r, cov_r),
                 "inception_score": inception_score(probe, gen,

@@ -171,11 +171,18 @@ def group_conv2d(p: Dict[str, torch.Tensor], x: torch.Tensor,
                  stride: int = 1, padding: int = 1) -> torch.Tensor:
     """N stacked convolutions (``p["w"]`` ``(N, O, I, k, k)``, ``p["b"]``
     ``(N, O)``) on the grouped layout ``(B, N*I, H, W)`` as one grouped
-    ``F.conv2d``; each member's bias added after, as ``conv2d`` does."""
+    ``F.conv2d``; each member's bias added after, as ``conv2d`` does.
+
+    ``x`` takes the weights' dtype first.  Only the eval forwards of a
+    bfloat16 G feed it float32: a float32 latent promotes the ``l1``
+    product to float32 (``linear``), and FeGAN's float32 eval BatchNorm
+    promotes its output.  The reference hands those to its bfloat16 conv
+    as they are, and XLA refuses them (``lax.conv_general_dilated`` wants
+    one dtype); the rounds run in one dtype, where the cast is a no-op."""
     w = p["w"]
     n = w.shape[0]
-    y = F.conv2d(x, w.reshape((-1,) + tuple(w.shape[2:])), stride=stride,
-                 padding=padding, groups=n)
+    y = F.conv2d(x.to(w.dtype), w.reshape((-1,) + tuple(w.shape[2:])),
+                 stride=stride, padding=padding, groups=n)
     return y + p["b"].reshape(1, -1, 1, 1)
 
 
@@ -187,8 +194,9 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 def scale_kept(x: torch.Tensor, keep: torch.Tensor, rate: float
                ) -> torch.Tensor:
-    """``x * keep / (1 - rate)``, the reference's dropout arithmetic."""
-    return x * keep / (1.0 - rate)
+    """``x * keep / (1 - rate)``, the reference's dropout arithmetic, with
+    ``1 - rate`` a weak scalar."""
+    return x * keep / weak(1.0 - rate, x)
 
 
 def dropout2d(key: torch.Tensor, x: torch.Tensor, rate: float,
@@ -251,22 +259,26 @@ def batchnorm2d(p, s, x: torch.Tensor, train: bool, eps: float = 0.8,
     ``(B, N*C, H, W)``, params and state ``(N, C)``: each member's channel
     normalised over (B, H, W), as the reference's ``batchnorm`` does for a
     4-D input (``cglgan_tpu/models/nn.py:120-147``): eps 0.8, momentum 0.1,
-    the running variance unbiased over the B*H*W count.  float32."""
+    the running variance unbiased over the B*H*W count.  In bfloat16 the
+    rules of ``batchnorm``: batch mean and variance accumulated in float32
+    and rounded once, the rest in ``x``'s dtype with weak constants (the
+    count and count - 1 too: 6 399 rounds to 6 400)."""
     axes, shape = (0, 2, 3), (1, -1, 1, 1)
     flat = lambda t: t.reshape(-1)
     if train:
-        mean = x.mean(dim=axes)
-        var = ((x - mean.reshape(shape)) ** 2).mean(dim=axes)
+        mean = dtypes.mean(x, axes)
+        var = dtypes.var(x, axes, mean)
         count = x.shape[0] * x.shape[2] * x.shape[3]
-        unbiased = var.detach() * count / max(count - 1, 1)
-        keep, take = 1 - momentum, momentum
+        unbiased = var.detach() * weak(count, var) \
+            / weak(max(count - 1, 1), var)
+        keep, take = weak(1 - momentum, s["mean"]), weak(momentum, mean)
         like = lambda t: t.reshape(s["mean"].shape)
         new_s = {"mean": keep * s["mean"] + take * like(mean.detach()),
                  "var": keep * s["var"] + take * like(unbiased)}
     else:
         mean, var = flat(s["mean"]), flat(s["var"])
         new_s = s
-    inv = torch.rsqrt(var + eps)
+    inv = torch.rsqrt(var + weak(eps, var))
     y = (x - mean.reshape(shape)) * inv.reshape(shape)
     return y * flat(p["scale"]).reshape(shape) \
         + flat(p["bias"]).reshape(shape), new_s

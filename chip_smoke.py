@@ -119,6 +119,18 @@ Phases, each printing one JSON line:
             device ms and launches a round from the profile and peak
             memory, and ``fused_dstep`` and ``fused_sweep`` must not
             launch;
+  conv_bf16 the conv pair in bfloat16: the conv flagship and MD-GAN conv
+            card against CPU for 2 rounds at B=25, FL-GAN and FeGAN (gather
+            mode) conv on the shrunk image setup card against CPU for 2
+            rounds, and what cuBLAS's bf16 reduced-precision reduction
+            (off in ``build_runner``) would move; then the flagship at
+            epoch=1 in float32 and in bf16 in this one call, CAP-GAN conv
+            at epoch=5, MD-GAN conv at epoch=1, AC-GAN conv with the delta
+            gossip (E=2), 2 warm-up and 10 timed rounds each, and FL-GAN
+            conv (16 workers) 1 profiled and 1 timed round, in bf16, each
+            with rounds/s, device ms and launches a round, peak memory and
+            the top kernel; ``fused_dstep`` and ``fused_sweep`` must not
+            launch;
   inception InceptionV3 pool3 with ``inception_init``'s random weights
             written to an ``.npz`` and loaded back: pool3 ms for 100 images
             at 299^2, ``preprocess`` ms, the host's ``sqrtm`` at 2048-d,
@@ -141,7 +153,7 @@ line, the ``kernels`` line and, last, the ok line.  Any failure raises and
 exits non-zero; without a card it exits 2 and prints no result.
 ``--phases a,b`` runs only the named phases (of ``dstep dstep_bf16 sweep
 adam reference main eval_image fedavg fedavg_image cgl mdgan bf16 conv
-conv_baselines inception``)
+conv_baselines conv_bf16 inception``)
 for a short first look at a new kernel; the
 ``kernels`` and ok lines are printed only by a full run.  Imports nothing
 of JAX.
@@ -1090,12 +1102,36 @@ def finite_metrics(history):
                 raise AssertionError(f"metric {key} = {v}")
 
 
-def state_errs(card_state, cpu_state):
+def leaf_paths(tree, prefix=()):
+    """The key paths of a tree's leaves, in ``tree_leaves`` order (dict
+    keys sorted, list entries by index, ``None`` holes skipped)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k],
+                                                             prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree)
+                for p in leaf_paths(t, prefix + (i,))]
+    return [prefix]
+
+
+def is_sum_bias(path):
+    """A conv bias or the conv D's ``adv`` bias: every ``b`` of a conv
+    model's dict tree but the G's ``l1`` one.  Their gradients are sums over
+    the batch and every pixel, and behind a BatchNorm they nearly cancel."""
+    return len(path) > 1 and path[-1] == "b" and path[-2] != "l1"
+
+
+def state_errs(card_state, cpu_state, apart=False):
     """Card rounds against CPU rounds: per net and group (params, mu, nu)
     the largest |card - cpu| over the group's largest |cpu| entry (the G's
     pre-BN linear biases have an exactly-zero gradient, so their moments are
     rounding noise on both devices, as in the JAX reference; scaling by the
-    group keeps them from deciding).  Adam counts must be equal."""
+    group keeps them from deciding).  Adam counts must be equal.  With
+    ``apart`` the sum biases' moments (``is_sum_bias``) are reported on
+    their own, as ``{net}.bias_mu`` / ``{net}.bias_nu``, still over their
+    group's largest entry."""
     import numpy as np
     from cglgan_tpu_torch.utils.transplant import to_numpy
     from cglgan_tpu_torch.utils.tree import tree_leaves
@@ -1106,29 +1142,36 @@ def state_errs(card_state, cpu_state):
         if not np.array_equal(a[net]["count"], b[net]["count"]):
             raise AssertionError(f"{net} Adam counts differ")
         for group in ("params", "mu", "nu"):
-            pairs = list(zip(tree_leaves(a[net][group]),
-                             tree_leaves(b[net][group])))
-            errs[f"{net}.{group}"] = (
-                max(float(np.abs(x - y).max()) for x, y in pairs)
-                / max(float(np.abs(y).max()) for _, y in pairs))
+            mine, ref = tree_leaves(a[net][group]), tree_leaves(b[net][group])
+            scale = max(float(np.abs(y).max()) for y in ref)
+            own = [apart and group != "params" and is_sum_bias(p)
+                   for p in leaf_paths(b[net][group])]
+            for key, sel in ((f"{net}.{group}", False),
+                             (f"{net}.bias_{group}", True)):
+                diffs = [float(np.abs(x - y).max())
+                         for x, y, o in zip(mine, ref, own) if o == sel]
+                if diffs:
+                    errs[key] = max(diffs) / scale
     return errs
 
 
 def over_limit(errs, tol):
     """Whether a state_errs result exceeds ``tol``: one limit for every
-    group, or a limit by group kind (``params``, ``mu``, ``nu``)."""
-    limit = (lambda k: tol) if not isinstance(tol, dict) else \
-        (lambda k: tol[k.split(".", 1)[1]])
-    return any(v > limit(k) for k, v in errs.items())
+    group, or a limit by group kind (``params``, ``mu``, ``nu``); a kind
+    that ``tol`` does not name is reported, not held."""
+    kind = lambda k: k.split(".", 1)[1]
+    if not isinstance(tol, dict):
+        return any(v > tol for v in errs.values())
+    return any(v > tol[kind(k)] for k, v in errs.items() if kind(k) in tol)
 
 
 def reference_rounds(label, cfg, part, rounds, tol=TOL_SCALED,
-                     tol_metrics=1e-4):
+                     tol_metrics=1e-4, apart=False):
     """Card (kernel path) against CPU (plain path) from one init and one
     stream: ``rounds`` rounds of the CGL or MD-GAN family (with the latter's
     survival draw and swap permutation, drawn on the host, in the stream);
     the card must launch ``fused_dstep`` once a round where the config
-    engages it, else never."""
+    engages it, else never.  ``apart``: ``state_errs``'s."""
     from cglgan_tpu_torch.algos.registry import build_runner
     from cglgan_tpu_torch.core import prng
     from cglgan_tpu_torch.ops import fused_dstep
@@ -1148,7 +1191,7 @@ def reference_rounds(label, cfg, part, rounds, tol=TOL_SCALED,
         sc, mc = cpu.round_fn(sc, streams)
     launches = fused_dstep.launches - launched
     expect = rounds if fused_dstep.eligible(cfg) else 0
-    errs = state_errs(sg, sc)
+    errs = state_errs(sg, sc, apart)
     merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
     # same math on two devices, sums in another order: as in the kernel
     # phase, scaled by each tensor's max; float32 metrics 1e-4 absolute
@@ -1360,13 +1403,14 @@ def fedavg_shrunk(algo, **extra):
                         epoch=2, num_communication=8, **extra)
 
 
-def phase_reference_fedavg(cases=None, part=None, rounds=3):
+def phase_reference_fedavg(cases=None, part=None, rounds=3, apart=False):
     """Shrunk FL-GAN and FeGAN: card vs CPU from one init and one stream
     (by default on the kernel path, the CPU on its plain version) for
     ``rounds`` rounds.  ``cases``: (config, scaled tolerance, metric
     tolerance) triples; ``part``: their partition (default:
     ``load_partition``).  The streams cover the largest local step count
-    (the ragged "epochs" sweep), and with conv the dropout keys."""
+    (the ragged "epochs" sweep), and with conv the dropout keys.
+    ``apart``: ``state_errs``'s."""
     from cglgan_tpu_torch.algos.fedavg_family import _local_steps
     from cglgan_tpu_torch.algos.registry import build_runner, load_partition
     from cglgan_tpu_torch.core import prng
@@ -1399,7 +1443,7 @@ def phase_reference_fedavg(cases=None, part=None, rounds=3):
         launches = {"fused_sweep": fused_sweep.launches - launched[0],
                     "fused_dstep": fused_dstep.launches - launched[1]}
         expect = rounds if fused_sweep.eligible(cfg) else 0
-        errs = state_errs(sg, sc)
+        errs = state_errs(sg, sc, apart)
         merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
         res = {"phase": "reference", "algo": algo, "dtype": cfg.dtype,
                "dataset": cfg.dataset, "pallas_sweep": cfg.pallas_sweep,
@@ -2100,6 +2144,152 @@ def phase_conv_baselines(parts_of):
 
 
 # ---------------------------------------------------------------------------
+# The conv LSGAN pair in bfloat16 (phase conv_bf16), on the three families.
+# Card against CPU for 2 rounds from one init and one stream: the conv
+# flagship at B=25, MD-GAN conv at B=25, FL-GAN and FeGAN (gather mode) conv
+# on the shrunk image setup.  Then at full width: the conv flagship
+# results/runs/mnist-iid1-cglgan-conv/config.json at epoch 1 in float32 and
+# in bf16 in this one call (wall time moves up to 2.9x between calls),
+# CAP-GAN conv (W=16, S=1) at epoch 5, results/runs/mnist-iid1-mdgan-conv
+# at epoch 1, AC-GAN conv (W=16, S=4) with the delta gossip at E=2, 2
+# warm-up and CONV_ROUNDS timed rounds each, and FL-GAN conv
+# (results/runs/mnist-iid1-flgan with conv=True, W=16) 1 timed round after
+# a profiled one.  No TPU kernel runs on these paths, as in the reference
+# (fused_dstep refuses a conv D, fused_sweep takes 2DMG float32 MLPs only):
+# both counts must stay 0.  build_runner turns cuBLAS's bf16
+# reduced-precision reduction off (algos/registry.py); the phase measures
+# what turning it back on moves on the flagship's card rounds.
+# ---------------------------------------------------------------------------
+
+CONV_BF16_RUNS = (("capgan conv", "capgan", CAP_CONV, 5, {}),
+                  ("mdgan conv", "mdgan", MDGAN_CONV, 1, {}),
+                  ("acgan conv delta", "acgan", ACGAN_CONV, 1,
+                   dict(E=2, gossip="delta")))
+# Card against CPU in bf16: phase_reference_bf16's limits (params 2^-5 of a
+# group's largest entry, moments 0.2, metrics 1e-2), but for the moments of
+# the sum biases (``is_sum_bias``: the conv biases and the D's adv bias, 8
+# leaves of a conv G / D pair), which are reported apart and not held.
+# Their gradients are sums of up to 25 600 terms a member at B=25 (the
+# batch and every pixel), near-cancelling behind a BatchNorm, which cuDNN
+# and the CPU add in other orders; Adam turns the rounding into a step of
+# either sign.  Measured on an H100 after 2 rounds: the flagship's D
+# sum-bias mu 0.67 of its group's scale apart, MD-GAN conv's 0.47, FL-GAN
+# and FeGAN's at most 0.03; every held group within 0.091 of its scale.
+# Their params are held with the rest.
+TOL_CONV_BF16 = TOL_BF16_SCALED
+TOL_CONV_BF16_METRICS = TOL_BF16_METRICS
+
+
+def reduction_moves(cfg, part, rounds):
+    """The card's rounds of ``cfg`` with cuBLAS's bf16 reduced-precision
+    reduction allowed against the same rounds without it (what
+    ``build_runner`` sets), from one init and one stream: per group the
+    largest |on - off| over the group's largest entry, and the metrics'
+    largest difference.  Leaves the reduction off."""
+    import torch
+    from cglgan_tpu_torch.algos.registry import build_runner
+    from cglgan_tpu_torch.core import prng
+
+    runner = build_runner(cfg, part)
+    out = {}
+    for allowed in (False, True):
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = allowed
+        state = runner.init_state()
+        for t in range(rounds):
+            state, m = runner.round_fn(state, prng.round_streams(
+                cfg, t, part.data.shape[1], "cpu"))
+        out[allowed] = (state, m)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    (on, m_on), (off, m_off) = out[True], out[False]
+    return {"max_scaled_diff": state_errs(on, off, apart=True),
+            "metrics_max_abs_diff": max(abs(float(m_on[k]) - float(m_off[k]))
+                                        for k in m_on)}
+
+
+def run_summary(res):
+    """One full-width run's figures: rounds/s (seconds a round), device ms,
+    launches and busy share a round from its profile, peak memory and the
+    top kernel by device time."""
+    prof = res["profile"]
+    top = prof["top"][0]
+    out = {"config": res["config"], "rounds": res["rounds"],
+           "rounds_per_s": res["rounds_per_s"],
+           "device_ms_per_round": prof["device_ms_per_round"],
+           "launches_per_round": prof["kernel_launches_per_round"],
+           "busy_share": prof["device_busy_share"],
+           "peak_mem_gb": res["peak_mem_gb"],
+           "top_kernel": top["kernel"], "top_ms_per_round": top[
+               "ms_per_round"], "top_calls_per_round": top["calls_per_round"]}
+    if "s_per_round" in res:
+        out["s_per_round"] = res["s_per_round"]
+    return out
+
+
+def phase_conv_bf16(parts_of):
+    """Conv in bf16: card against CPU for 2 rounds (the flagship and MD-GAN
+    at batch CONV_REF_BATCH, FL-GAN and FeGAN gather on the shrunk image
+    setup) and what cuBLAS's reduced-precision reduction would move; then
+    the flagship at full width in float32 and bf16, and CONV_BF16_RUNS and
+    FL-GAN conv in bf16, each with rounds/s, device ms, launches, peak
+    memory and top kernel.  Neither ``fused_dstep`` nor ``fused_sweep``
+    launches."""
+    import torch
+    from cglgan_tpu_torch.core.config import FedGANConfig
+
+    t0 = time.perf_counter()
+    bf = dict(dtype="bfloat16")
+    part = parts_of("cglgan", CGL_CONV)
+    if part.data.shape[2] != 32 * 32:
+        raise AssertionError(f"conv shards are not 32x32: {part.data.shape}")
+    md_part = parts_of("mdgan", MDGAN_CONV)
+    tols = (TOL_CONV_BF16, TOL_CONV_BF16_METRICS)
+    flagship_ref = FedGANConfig(algo="cglgan", epoch=1, **bf, **dict(
+        CGL_CONV, batch_size=CONV_REF_BATCH))
+    reference_rounds("cglgan conv bf16", flagship_ref, part, 2, *tols,
+                     apart=True)
+    if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        raise AssertionError("build_runner left cuBLAS's bf16 reduced-"
+                             "precision reduction on")
+    reference_rounds("mdgan conv bf16", FedGANConfig(
+        algo="mdgan", epoch=1, **bf, **dict(
+            MDGAN_CONV, batch_size=CONV_REF_BATCH)), md_part, 2, *tols,
+        apart=True)
+    base, small = fedavg_image_shrunk(conv=True)
+    phase_reference_fedavg([
+        (FedGANConfig(algo="flgan", **bf, **base), *tols),
+        (FedGANConfig(algo="fegan", frac_workers=0.5, **bf, **base),
+         *tols)], part=small, rounds=2, apart=True)
+    emit({"phase": "conv_bf16", "algo": "cglgan conv bf16",
+          "cublas_bf16_reduced_precision_reduction": "off (build_runner)",
+          "if_on": reduction_moves(flagship_ref, part, 2)})
+    runs, launches = [], {}
+    for dtype in ("float32", "bfloat16"):
+        res, n = phase_rounds("conv_bf16", "cglgan conv", "cglgan", CGL_CONV,
+                              1, part, rounds=CONV_ROUNDS, dtype=dtype)
+        runs.append(run_summary(res))
+        launches[f"cglgan conv {dtype}"] = {
+            "fused_dstep": n, "fused_sweep": res["fused_sweep_launches"]}
+    for label, algo, cbase, epoch, extra in CONV_BF16_RUNS:
+        res, n = phase_rounds("conv_bf16", label, algo, cbase, epoch,
+                              parts_of(algo, cbase), rounds=CONV_ROUNDS,
+                              **bf, **extra)
+        runs.append(run_summary(res))
+        launches[f"{label} e{epoch} bf16"] = {
+            "fused_dstep": n, "fused_sweep": res["fused_sweep_launches"]}
+    res = phase_fedavg_image_run("flgan", 1, bf, 1,
+                                 parts_of("flgan", FEDAVG_CONV),
+                                 base=FEDAVG_CONV, phase="conv_bf16",
+                                 profile_first=True)
+    runs.append(run_summary(res))
+    launches["flgan conv bf16"] = res["launches"]
+    if any(n for run in launches.values() for n in run.values()):
+        raise AssertionError(f"a kernel launched on a conv path: {launches}")
+    emit({"phase": "conv_bf16", "runs": runs, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+
+
+# ---------------------------------------------------------------------------
 # InceptionV3 pool3 (phase inception): random weights from inception_init
 # (no pretrained weights exist offline), written to an .npz and loaded back
 # through the evaluator's entry point.  pool3 is F.conv2d / pools on cuDNN,
@@ -2253,7 +2443,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     all_phases = ("dstep", "dstep_bf16", "sweep", "adam", "reference",
                   "main", "eval_image", "fedavg", "fedavg_image", "cgl",
-                  "mdgan", "bf16", "conv", "conv_baselines", "inception")
+                  "mdgan", "bf16", "conv", "conv_baselines", "conv_bf16",
+                  "inception")
     ap.add_argument("--phases", default=",".join(all_phases),
                     help="comma-separated subset of: " + " ".join(all_phases))
     phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
@@ -2351,6 +2542,8 @@ def main(argv=None):
         phase_conv(part_of)
     if run("conv_baselines"):
         phase_conv_baselines(part_of)
+    if run("conv_bf16"):
+        phase_conv_bf16(part_of)
     if run("inception"):
         phase_inception(card, part_of("capgan", MAIN),
                         part_of("cglgan", CGL_CONV))

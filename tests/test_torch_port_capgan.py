@@ -168,7 +168,7 @@ def test_train_and_entry_point_contract():
     """``train`` ticks and metric means; by default every tick carries the
     image evaluator's FID and IS; the default device is the card; what the
     slice does not cover raises NotImplementedError naming its ROADMAP
-    item; conv runs a round in float32 and raises in bfloat16."""
+    item; conv runs a round in float32 and in bfloat16."""
     from cglgan_tpu_torch.algos.runner import train
     _, part = _partition()
     cfg = FedGANConfig(algo="capgan", dataset="synthetic-mnist",
@@ -194,8 +194,8 @@ def test_train_and_entry_point_contract():
             build_runner(cfg, part)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_runner(cfg.replace(model_shards=2), part, device="cpu")
-    # conv is ported in float32 (CAP-GAN, MD-GAN, AC-GAN): each builds and
-    # runs a round on 32x32 images; conv in bfloat16 raises
+    # conv is ported in float32 and bfloat16 (CAP-GAN, MD-GAN, AC-GAN):
+    # each builds and runs a round on 32x32 images
     rng = np.random.default_rng(1)
     conv_part = Partition(
         rng.integers(0, 256, (NW, L, 1024)).astype(np.uint8),
@@ -208,10 +208,12 @@ def test_train_and_entry_point_contract():
         state, m = run.round_fn(run.init_state())
         assert state.t == 1 and all(np.isfinite(float(v))
                                     for v in m.values())
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 "
-                                                      "item 12"):
-            build_runner(conv.replace(dtype="bfloat16"), conv_part,
-                         device="cpu")
+        run = build_runner(conv.replace(dtype="bfloat16"), conv_part,
+                           device="cpu")
+        state, m = run.round_fn(run.init_state())
+        assert state.t == 1 and all(np.isfinite(float(v))
+                                    for v in m.values())
+        assert state.g.opt.mu["c1"]["w"].dtype == torch.bfloat16
     # bf16 mode is ported: it builds and trains
     bf16 = train(build_runner(cfg.replace(dtype="bfloat16"), part,
                               device="cpu"), rounds=1, eval_every=1,

@@ -466,8 +466,10 @@ def test_conv_entry_points():
     iid 1: Mix-G's multipath) and Mix-G with ``conv=True`` on the CPU when
     asked, and they run a round from their own streams (dropout keys drawn
     from the round's generator); the card is the default device; MD-GAN,
-    AC-GAN, FL-GAN and FeGAN build and run a conv round too; conv in
-    bfloat16 raises for all seven, naming its ROADMAP item."""
+    AC-GAN, FL-GAN and FeGAN build and run a conv round too; in bfloat16
+    all seven (FeGAN in gather mode and at full width) build, run a conv
+    round and sample (4, 1, 32, 32) in bfloat16; a mesh still raises,
+    naming its ROADMAP item."""
     _, part = _partition()
     for algo, iid, multi in (("capgan", 1, False), ("cglgan", 0, False),
                              ("cglgan", 1, True), ("mixgan", 1, True)):
@@ -498,10 +500,21 @@ def test_conv_entry_points():
         assert state.t == 1 and all(np.isfinite(float(v))
                                     for v in m.values())
         assert tuple(run.sample(state, 4).shape) == (4, 1, 32, 32)
-    for algo in ("capgan", "cglgan", "mixgan", "mdgan", "acgan", "flgan",
-                 "fegan"):
+    for algo, frac in (("capgan", 1.0), ("cglgan", 1.0), ("mixgan", 1.0),
+                       ("mdgan", 1.0), ("acgan", 1.0), ("flgan", 1.0),
+                       ("fegan", 0.5), ("fegan", 1.0)):
         bf16 = cfg.replace(algo=algo, dtype="bfloat16",
-                           num_servers=1 if algo == "mdgan" else S)
+                           num_servers=1 if algo == "mdgan" else S,
+                           frac_workers=frac)
+        run = build_runner(bf16, part, device="cpu")
+        state, m = run.round_fn(run.init_state())
+        assert state.t == 1 and all(np.isfinite(float(v))
+                                    for v in m.values())
+        assert all(x.dtype == torch.bfloat16 for x in tree_leaves(
+            (state.g.params, state.d.params, state.d.opt.mu)))
+        out = run.sample(state, 4)
+        assert tuple(out.shape) == (4, 1, 32, 32)
+        assert out.dtype == torch.bfloat16
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 "
-                                                      "item 12"):
-            build_runner(bf16, part, device="cpu")
+                                                      "item 17"):
+            common.check_supported(bf16, mesh=object())

@@ -450,23 +450,26 @@ def test_train_ticks_finite(algo, kernel):
 
 
 def test_entry_point_contract():
-    """The default device is the card; what the port does not cover (conv
-    in bfloat16, model_shards > 1) raises NotImplementedError naming its
-    ROADMAP item; conv builds for every algorithm in float32 (on 2DMG only
-    its rounds would need image data, as the reference's)."""
+    """The default device is the card; what the port does not cover
+    (model_shards > 1) raises NotImplementedError naming its ROADMAP item;
+    conv builds for every algorithm in float32 and, under force_dtype, in
+    bfloat16 (on 2DMG only its rounds would need image data, as the
+    reference's)."""
     cfg = FedGANConfig(algo="flgan", epoch=2, **SHRUNK)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             registry.build_runner(cfg)
-    for kw in (dict(conv=True, dtype="bfloat16", force_dtype=True),
-               dict(algo="capgan", model_shards=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.build_runner(cfg.replace(**kw), device="cpu")
-    # conv is ported in float32: every algorithm builds (its rounds take
-    # image data)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        registry.build_runner(cfg.replace(algo="capgan", model_shards=2),
+                              device="cpu")
+    # conv is ported in float32 and bfloat16: every algorithm builds (its
+    # rounds take image data)
     for kw in (dict(), dict(algo="fegan"), dict(algo="mdgan"),
                dict(algo="acgan", num_servers=2), dict(algo="cglgan")):
         registry.build_runner(cfg.replace(conv=True, **kw), device="cpu")
+        registry.build_runner(cfg.replace(conv=True, dtype="bfloat16",
+                                          force_dtype=True, **kw),
+                              device="cpu")
     # bf16 on 2DMG under force_dtype, dropout, MD-GAN and AC-GAN, and the
     # ragged "epochs" sweep (on 2DMG by request; the image configs are
     # tests/test_torch_port_fedavg_image.py's) are ported: they build

@@ -614,8 +614,7 @@ def test_entry_points():
     """Every image FedAvg variant builds on the CPU; the default device is
     the card; ``pallas_sweep=True`` on image data raises as the
     reference's ``eligible`` does; conv (on the 28x28 images zero-padded to
-    32x32) builds and runs a round in float32 and raises
-    NotImplementedError in bfloat16."""
+    32x32) builds and runs a round in float32 and in bfloat16."""
     cfg = FedGANConfig(**dict(SHRUNK, algo="flgan"))
     part = Partition(*_fields(1))
     if not torch.cuda.is_available():
@@ -643,7 +642,9 @@ def test_entry_points():
         state, m = run.round_fn(run.init_state())
         assert state.t == 1 and all(np.isfinite(float(v))
                                     for v in m.values())
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 "
-                                                      "item 12"):
-            build_runner(conv.replace(dtype="bfloat16"), conv_part,
-                         device="cpu")
+        run = build_runner(conv.replace(dtype="bfloat16"), conv_part,
+                           device="cpu")
+        state, m = run.round_fn(run.init_state())
+        assert state.t == 1 and all(np.isfinite(float(v))
+                                    for v in m.values())
+        assert state.g.params["c1"]["w"].dtype == torch.bfloat16

@@ -41,6 +41,7 @@ from cglgan_tpu.fed import collectives as jcoll
 from cglgan_tpu_torch.algos import common
 from cglgan_tpu_torch.algos.registry import build_runner
 from cglgan_tpu_torch.algos.runner import train
+from cglgan_tpu_torch.core import dtypes
 from cglgan_tpu_torch.core.config import FedGANConfig
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.evalx import hist2d
@@ -521,11 +522,11 @@ def test_train_and_entry_point_contract():
     dropout, and ``train`` runs them (on 2DMG all of these, with the
     evaluator's metrics; on MNIST shapes, whose float32 rounds the round
     tests run, bf16 with an exchange and with the forced kernel, and the
-    default evaluator's FID and IS); conv builds in float32 (on 2DMG only
-    its rounds would need image data) and runs a round on 32x32 images,
-    conv in bfloat16 raises naming its ROADMAP item, MD-GAN with more
-    than one server raises, and without ``device`` the card is asked
-    for."""
+    default evaluator's FID and IS); conv builds on 2DMG in float32 and,
+    under force_dtype, in bfloat16 (only its rounds would need image data)
+    and runs a round on 32x32 images in float32 and in bfloat16, MD-GAN
+    with more than one server raises, and without ``device`` the card is
+    asked for."""
     for dataset in ("synthetic-mnist", "2dmg"):
         _, part = _partition(dataset)
         for algo, servers in (("mdgan", 1), ("acgan", 2)):
@@ -562,12 +563,14 @@ def test_train_and_entry_point_contract():
                     rng.integers(0, 256, (4, L, 1024)).astype(np.uint8),
                     part.labels, part.lengths, part.class_freq,
                     np.zeros((10, 1024), np.uint8))
-                run = build_runner(conv, conv_part, device="cpu")
-                state, m = run.round_fn(run.init_state())
-                assert state.t == 1 and all(np.isfinite(float(v))
-                                            for v in m.values())
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 "
-                                                          "item 12"):
+                for c in (conv, conv.replace(dtype="bfloat16")):
+                    run = build_runner(c, conv_part, device="cpu")
+                    state, m = run.round_fn(run.init_state())
+                    assert state.t == 1 and all(np.isfinite(float(v))
+                                                for v in m.values())
+                    assert state.d.params["c1"]["w"].dtype == \
+                        dtypes.torch_dtype(c)
+            else:
                 build_runner(conv.replace(dtype="bfloat16",
                                           force_dtype=True), part,
                              device="cpu")
