@@ -51,7 +51,7 @@ from cglgan_tpu_torch.algos.common import FedState, NetState
 from cglgan_tpu_torch.algos.game import game_step
 from cglgan_tpu_torch.algos.runner import Runner
 from cglgan_tpu_torch.core import device as device_mod
-from cglgan_tpu_torch.core import prng
+from cglgan_tpu_torch.core import prng, threefry
 from cglgan_tpu_torch.core.dtypes import torch_dtype
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.fed import collectives, topology
@@ -99,20 +99,21 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
                          dtype=dtype, fuse_concat=not cfg.conv),
         cfg.epoch)
     use_kernel = fused_dstep.eligible(cfg)
+    rounds = prng.RoundKeys(cfg, max_len, cfg.epoch, dev)
 
     def init_state() -> FedState:
-        gp, gbn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), S,
-                               dtype)
-        dp, dbn = d_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_D), W,
-                               dtype)
+        # a G a server and a D a client, each from its own key of the
+        # role's split (cglgan_tpu/algos/cgl_family.py:99-116)
+        kg = threefry.split(prng.role_key(cfg.seed, prng.ROLE_INIT_G, dev),
+                            S)
+        kd = threefry.split(prng.role_key(cfg.seed, prng.ROLE_INIT_D, dev),
+                            W)
+        gp, gbn = g_model.init(kg, dtype)
+        dp, dbn = d_model.init(kd, dtype)
         if algo == "mixgan":
             # net_g / net_d .apply(weights_init) (mixed-gan.py:181,348)
-            gp = nn.dcgan_reinit(
-                prng.generator(cfg.seed, prng.ROLE_INIT_G, 99), gp)
-            dp = nn.dcgan_reinit(
-                prng.generator(cfg.seed, prng.ROLE_INIT_D, 98), dp)
-        to = lambda tree: tree_map(lambda x: x.to(dev), tree)
-        gp, gbn, dp, dbn = to(gp), to(gbn), to(dp), to(dbn)
+            gp = nn.dcgan_reinit(threefry.fold_in(kg, prng.FOLD_REINIT_G), gp)
+            dp = nn.dcgan_reinit(threefry.fold_in(kd, prng.FOLD_REINIT_D), dp)
         return FedState(NetState(gp, gbn, common.adam_init(gp, S)),
                         NetState(dp, dbn, common.adam_init(dp, W)),
                         torch.zeros((S,), dtype=torch.float32, device=dev), 0)
@@ -198,12 +199,13 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
         """One federated round.  ``streams``: optional injected
         ``(starts (E,), z_d (S,B,zdim), z_g (S,B,zdim))``, and with conv
         each server's ``k_d, k_drop`` (S, 2) threefry key data after them;
-        by default they are drawn from ``core.prng`` for round
-        ``state.t``."""
+        by default they are the reference's draws for round ``state.t``
+        (``core/prng.py``)."""
         t = state.t
         g = cloud_sync(state.g, t) if cloud_enabled else state.g
         if streams is None:
-            streams = prng.round_streams(cfg, t, max_len, dev)
+            streams = (rounds.starts(t),
+                       *prng.server_draws(cfg, rounds.key(t)))
         starts, z_d, z_g = streams[:3]
         d_keys = drop_keys = None
         if cfg.conv:

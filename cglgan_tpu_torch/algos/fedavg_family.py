@@ -250,14 +250,16 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None):
     max_len = part.data.shape[1]
     sweep = _local_sweep(cfg, g_model, d_model, adv)
     use_kernel = fused_sweep.eligible(cfg)
+    rounds = prng.RoundKeys(cfg, max_len, max_steps, dev)
 
     def init_nets():
-        """Unstacked (gp, gbn, dp, dbn) and per-worker Adam states."""
-        gp, gbn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), 1,
-                               dtype)
-        dp, dbn = d_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_D), 1,
-                               dtype)
-        one = lambda tree: tree_map(lambda x: x[0].to(dev), tree)
+        """Unstacked (gp, gbn, dp, dbn) and per-worker Adam states: one
+        init on each role's key (cglgan_tpu/algos/fedavg_family.py:
+        216-219)."""
+        role = lambda r: prng.role_key(cfg.seed, r, dev).unsqueeze(0)
+        gp, gbn = g_model.init(role(prng.ROLE_INIT_G), dtype)
+        dp, dbn = d_model.init(role(prng.ROLE_INIT_D), dtype)
+        one = lambda tree: tree_map(lambda x: x[0], tree)
         gp, gbn, dp, dbn = one(gp), one(gbn), one(dp), one(dbn)
         stacked = lambda tree: tree_map(
             lambda x: x.unsqueeze(0).expand((W,) + tuple(x.shape)), tree)
@@ -277,7 +279,8 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None):
         alive = streams[first_extra] \
             if streams is not None and len(streams) > first_extra else None
         if streams is None:
-            streams = prng.sweep_streams(cfg, t, max_len, max_steps, dev)
+            streams = (rounds.starts(t),
+                       *prng.lane_draws(cfg, rounds.key(t), max_steps))
         starts, z1, z2 = streams[:3]
         keys = common.conv_stream_keys(
             streams, dev, "starts, z1, z2, kd1, kd2", extras=1) \
@@ -288,7 +291,7 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None):
         mask = None
         if cfg.dropout_rate > 0.0:
             if alive is None:
-                alive = prng.survival(cfg, t, W, dev)
+                alive = rounds.survival(t, W)
             mask = common.participation_mask(
                 torch.as_tensor(alive, device=dev), cfg.dropout_rate)
         return [int(s) for s in starts], z1, z2, keys, mask
@@ -546,8 +549,9 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
     # float32 whatever the run's dtype, as the reference makes it
     # (``g_model.init(key)``, ``cglgan_tpu/algos/fedavg_family.py:504``)
     g_model, _ = models_for_config(cfg)
-    _, eval_bn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), 1)
-    eval_bn = tree_map(lambda x: x[0].to(dev), eval_bn)
+    _, eval_bn = g_model.init(
+        prng.role_key(cfg.seed, prng.ROLE_INIT_G, dev).unsqueeze(0))
+    eval_bn = tree_map(lambda x: x[0], eval_bn)
     gen, sample = make_gen(lambda state: eval_bn)
     return Runner(cfg, part, init_state, round_fn, sample, gen=gen,
                   device=dev, extras={"sk": sk, "schedule": schedule})

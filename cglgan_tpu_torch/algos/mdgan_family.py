@@ -51,7 +51,7 @@ from cglgan_tpu_torch.algos import common
 from cglgan_tpu_torch.algos.common import FedState, NetState
 from cglgan_tpu_torch.algos.runner import Runner
 from cglgan_tpu_torch.core import device as device_mod
-from cglgan_tpu_torch.core import prng
+from cglgan_tpu_torch.core import prng, threefry
 from cglgan_tpu_torch.core.dtypes import torch_dtype
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.fed import collectives
@@ -87,14 +87,15 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
     swap = exchange and cfg.algo == "mdgan"
     shuffle = swap and cfg.d_swap == "shuffle"
     delta = exchange and cfg.algo == "acgan" and cfg.gossip == "delta"
+    rounds = prng.RoundKeys(cfg, max_len, cfg.epoch, dev)
 
     def init_state() -> FedState:
-        gp, gbn = g_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_G), S,
-                               dtype)
-        dp, dbn = d_model.init(prng.generator(cfg.seed, prng.ROLE_INIT_D), W,
-                               dtype)
-        to = lambda tree: tree_map(lambda x: x.to(dev), tree)
-        gp, gbn, dp, dbn = to(gp), to(gbn), to(dp), to(dbn)
+        # a G a server, a D a client (cglgan_tpu/algos/mdgan_family.py:
+        # 77-79, common.init_net_stacked)
+        gp, gbn = g_model.init(threefry.split(
+            prng.role_key(cfg.seed, prng.ROLE_INIT_G, dev), S), dtype)
+        dp, dbn = d_model.init(threefry.split(
+            prng.role_key(cfg.seed, prng.ROLE_INIT_D, dev), W), dtype)
         # the delta gossip's per-client anchors start at zero, as the
         # reference sketch's ``w[key] = 0`` (ACGAN/MNIST/acgan.py:235-237)
         aux = tree_map(torch.zeros_like, (dp, dbn)) if delta else None
@@ -144,8 +145,8 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
         if streams is not None and len(streams) > first_extra:
             rest = list(streams[first_extra:]) + [None]
             return rest[0], rest[1]
-        alive = prng.survival(cfg, t, W, dev) if dropout else None
-        perm = prng.swap_permutation(cfg, t, W, dev) if shuffle else None
+        alive = rounds.survival(t, W) if dropout else None
+        perm = rounds.permutation(t, W) if shuffle else None
         return alive, perm
 
     def round_fn(state: FedState, streams=None):
@@ -155,12 +156,13 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
         shuffle; either may be None where the config uses none); with conv
         each server's dropout keys ``k_d, k_drop`` (S, 2) threefry key data
         come at slots 3 and 4, before ``alive`` and ``perm``, and a conv
-        stream without them raises ValueError.  By default they are drawn
-        from ``core.prng`` for round ``state.t``."""
+        stream without them raises ValueError.  By default they are the
+        reference's draws for round ``state.t`` (``core/prng.py``)."""
         t = state.t
         alive, perm = extras_for(t, streams)
         if streams is None:
-            streams = prng.round_streams(cfg, t, max_len, dev)
+            streams = (rounds.starts(t),
+                       *prng.server_draws(cfg, rounds.key(t)))
         starts, z_d, z_g = streams[:3]
         d_keys = drop_keys = None
         if cfg.conv:

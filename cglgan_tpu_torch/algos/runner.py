@@ -34,6 +34,7 @@ def train(runner: Runner,
           rounds: Optional[int] = None,
           eval_every: Optional[int] = None,
           eval_n: Optional[int] = None,
+          on_tick: Optional[Callable[..., None]] = None,
           state=None,
           evaluator=None) -> Dict[str, Any]:
     """Run ``rounds`` rounds with a metrics tick every ``eval_every``.
@@ -45,7 +46,10 @@ def train(runner: Runner,
     ``evalx.evaluator.make_evaluator`` on the runner's device with
     ``eval_n`` samples a tick: KL / DS / mode coverage on 2DMG, FID /
     Inception Score on images (the probe trains here); False skips
-    evaluation; a callable ``(runner, state) -> dict`` adds its metrics."""
+    evaluation; a callable ``(runner, state) -> dict`` adds its metrics.
+    ``on_tick`` is called as ``on_tick(round, tick, state)`` after each
+    tick, ``round`` the absolute round counter, as the reference's
+    (``cglgan_tpu/algos/runner.py:147-148``)."""
     cfg = runner.cfg
     rounds = rounds if rounds is not None else cfg.num_communication
     eval_every = eval_every if eval_every is not None else cfg.num_plt
@@ -77,4 +81,6 @@ def train(runner: Runner,
         tick["wall_s"] = time.perf_counter() - t0
         tick["rounds_per_s"] = done / tick["wall_s"]
         history.append(tick)
+        if on_tick is not None:
+            on_tick(tick["round"], tick, state)
     return {"state": state, "history": history}

@@ -136,8 +136,8 @@ class FedGANConfig:
     pallas_sweep: Optional[bool] = None
     seed: int = 20211212
     # param/activation dtype; losses and the Lambda game stay float32.
-    # Default float32 matches the reference's torch numerics; "bfloat16" is
-    # not ported yet (``algos.common.check_supported``).
+    # Default float32 matches the reference's torch numerics; "bfloat16"
+    # runs every algorithm with JAX's bf16 rounding rules (``core/dtypes.py``).
     dtype: str = "float32"
     # bfloat16 + 2DMG is refused at construction, with the reference's
     # message: the JAX package measured the fidelity loss (bf16's ~3

@@ -1,12 +1,29 @@
-"""PRNG discipline: every draw comes from an explicit ``torch.Generator``
-seeded from (``cfg.seed``, role tag, index...), never from global state.
+"""PRNG discipline: the reference's threefry split tree.
 
-Same role tags as ``cglgan_tpu/core/prng.py``, so streams never collide and a
-run is reproducible from its seed.  The round draws differ from JAX's
-threefry (the algorithms' split tree is an open ROADMAP item); the parity
-tests therefore inject the reference's draws through
-``round_fn(state, streams=...)``.  The eval noise (``eval_z``) is the
-reference's, drawn through ``core/threefry.py``.
+Every draw derives from one root key ``threefry.key(cfg.seed)`` through
+``fold_in`` with the role tags of ``cglgan_tpu/core/prng.py`` (``for_role``,
+``for_round``, ``for_member`` are all ``fold_in``), so a port run from a
+seed is the reference's run from that seed: the same init, window starts,
+latents, dropout keys, survival draws and permutations (``core/threefry.py``
+gives JAX's bits; normals agree to 3 ulps).
+
+A round's tree (``cglgan_tpu/algos/*_family.py`` ``round_fn``):
+``key = fold_in(fold_in(root, ROLE_LOCAL), t)``; the window starts
+``randint(split(fold_in(key, ROLE_BATCH), steps), (), 0, max_len - B + 1)``
+(``common.batch_start``); the CGL and MD-GAN families ``split(key, S)``,
+then ``(k_zd, k_zg, k_d, k_drop) = split(k_s, 4)`` a server
+(``server_draws``); the FedAvg family ``split(key, W)``, a worker's
+``split(k_w, steps)`` and a step's ``(kzd, kzg, kdrop1, kdrop2) =
+split(k, 4)`` (``lane_draws``); survival ``bernoulli(fold_in(key, 7), 1 -
+rate)`` (FeGAN: ``fold_in(fold_in(root, t), 7)``); MD-GAN's shuffle
+``permutation(fold_in(key, ROLE_SWAP), W)``.
+
+``RoundKeys`` holds a runner's ``fold_in(root, ROLE_LOCAL)`` on its device
+and draws the round keys and window starts of a piece of upcoming rounds in
+one pass each, copying the starts to the host once a piece (the host
+indexes the shards with them).  ``round_streams``, ``sweep_streams``,
+``survival`` and ``swap_permutation`` give one round's draws as the round
+functions take them injected (``round_fn(state, streams=...)``).
 """
 from __future__ import annotations
 
@@ -15,6 +32,7 @@ from typing import List
 import torch
 
 from cglgan_tpu_torch.core import threefry
+from cglgan_tpu_torch.core.dtypes import torch_dtype
 
 ROLE_DATA = 0        # dataset synthesis / partition shuffles
 ROLE_INIT_G = 1      # generator init
@@ -26,101 +44,132 @@ ROLE_EVAL = 6        # fixed_z evaluation noise
 ROLE_LOCAL = 7       # local-loop noise
 ROLE_SWAP = 8        # MD-GAN D-swap shuffle permutation
 FOLD_SURVIVAL = 7    # a round's dropout draw (the reference's fold_in(key, 7))
-
-_MASK64 = (1 << 64) - 1
-
-
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
+FOLD_REINIT_G = 99   # Mix-G's DCGAN re-init of a G member's key
+FOLD_REINIT_D = 98   # ... and of a D member's
 
 
-def derive_seed(seed: int, *tags: int) -> int:
-    """Fold tags into a seed (the counterpart of ``jax.random.fold_in``)."""
-    s = _splitmix64(int(seed) & _MASK64)
-    for t in tags:
-        s = _splitmix64(s ^ (int(t) & _MASK64))
-    return s & ((1 << 63) - 1)
-
-
-def generator(seed: int, *tags: int, device="cpu") -> torch.Generator:
-    g = torch.Generator(device=device)
-    g.manual_seed(derive_seed(seed, *tags))
-    return g
+def role_key(seed: int, role: int, device) -> torch.Tensor:
+    """``for_role(root_key(seed), role)``."""
+    return threefry.fold_in(threefry.key(seed, device), role)
 
 
 def eval_z(seed: int, shape, device, member=None) -> torch.Tensor:
     """The fixed eval latents: float32 ``normal`` under
     ``fold_in(key(seed), ROLE_EVAL)``, folded with ``member`` (a server)
     where the family draws them a server, as the reference's ``sample``."""
-    key = threefry.fold_in(threefry.key(seed, device), ROLE_EVAL)
+    key = role_key(seed, ROLE_EVAL, device)
     if member is not None:
         key = threefry.fold_in(key, member)
     return threefry.normal(key, shape)
 
 
-def batch_starts(seed: int, t: int, epoch: int, max_len: int,
-                 batch_size: int) -> List[int]:
-    """(epoch,) shared window offsets for round ``t`` as host ints
-    (``common.batch_start``: uniform in [0, max_len - B])."""
-    g = generator(seed, ROLE_LOCAL, t, ROLE_BATCH)
+def window_starts(keys: torch.Tensor, steps: int, max_len: int,
+                  batch_size: int) -> torch.Tensor:
+    """Round keys ``(..., 2)`` -> int32 ``(..., steps)`` window offsets:
+    ``common.batch_start`` on ``split(fold_in(key, ROLE_BATCH), steps)``,
+    uniform in ``[0, max_len - B]``."""
     hi = max(max_len - batch_size + 1, 1)
-    return torch.randint(0, hi, (epoch,), generator=g).tolist()
+    return threefry.randint(
+        threefry.split(threefry.fold_in(keys, ROLE_BATCH), steps), (), 0, hi)
+
+
+class RoundKeys:
+    """A runner's round keys and window starts (module docstring).
+    ``steps``: window starts a round (the epoch, or the FedAvg sweep's
+    largest step count); a piece is ``min(cfg.num_plt, 10000 // steps)``
+    rounds, the reference's scan piece for a tick of ``num_plt`` rounds,
+    or ``piece``."""
+
+    def __init__(self, cfg, max_len: int, steps: int, device, piece=None):
+        self.cfg, self.steps, self.max_len = cfg, steps, max_len
+        self.root = threefry.key(cfg.seed, device)
+        self.local = threefry.fold_in(self.root, ROLE_LOCAL)
+        self.piece = piece or max(1, min(cfg.num_plt, 10000 // max(steps, 1)))
+        self.t0, self.keys, self.starts_of = None, None, None
+
+    def _fill(self, t: int) -> None:
+        self.keys = threefry.fold_in(self.local, range(t, t + self.piece))
+        self.starts_of = window_starts(self.keys, self.steps, self.max_len,
+                                       self.cfg.batch_size).tolist()
+        self.t0 = t
+
+    def _at(self, t: int) -> int:
+        if self.t0 is None or not self.t0 <= t < self.t0 + self.piece:
+            self._fill(t)
+        return t - self.t0
+
+    def key(self, t: int) -> torch.Tensor:
+        """``for_round(for_role(root, ROLE_LOCAL), t)``, (2,)."""
+        i = self._at(t)
+        return self.keys[i]
+
+    def starts(self, t: int) -> List[int]:
+        """Round t's ``steps`` window starts as host ints."""
+        i = self._at(t)
+        return self.starts_of[i]
+
+    def survival(self, t: int, n: int) -> torch.Tensor:
+        """Round t's dropout draw: bool (n,) Bernoulli(1 - dropout_rate),
+        the input of ``algos/common.py`` ``participation_mask``."""
+        base = threefry.fold_in(self.root, t) if self.cfg.algo == "fegan" \
+            else self.key(t)
+        return threefry.bernoulli(threefry.fold_in(base, FOLD_SURVIVAL),
+                                  1.0 - self.cfg.dropout_rate, (n,))
+
+    def permutation(self, t: int, n: int) -> torch.Tensor:
+        """Round t's MD-GAN shuffle D-swap: a permutation of the n clients
+        (int64 (n,))."""
+        return threefry.permutation(threefry.fold_in(self.key(t), ROLE_SWAP),
+                                    n)
+
+
+def server_draws(cfg, key: torch.Tensor) -> tuple:
+    """A CGL / MD-GAN round's draws from its key: ``(z_d, z_g)`` (S, B,
+    zdim) in the run's dtype, and with ``cfg.conv`` each server's dropout
+    keys ``k_d, k_drop`` (S, 2) after them."""
+    S, B, zdim = cfg.num_servers, cfg.batch_size, cfg.latent_dim
+    keys = threefry.split(threefry.split(key, S), 4)            # (S, 4, 2)
+    z_d, z_g = threefry.normal_parts(keys[:, :2], [(B, zdim)] * 2,
+                                     torch_dtype(cfg))
+    if not cfg.conv:
+        return z_d, z_g
+    return z_d, z_g, keys[:, 2], keys[:, 3]
+
+
+def lane_draws(cfg, key: torch.Tensor, steps: int) -> tuple:
+    """A FedAvg round's draws from its key: ``(z1, z2)`` (W, steps, B,
+    zdim) in the run's dtype — z1 feeds each local D step's fake batch, z2
+    the G step — and with ``cfg.conv`` each lane's dropout keys ``kd1,
+    kd2`` (W, steps, 2) after them: ``kd1`` the D step's (split into the
+    real and the fake forward's), ``kd2`` the G step's."""
+    W, B, zdim = cfg.num_workers, cfg.batch_size, cfg.latent_dim
+    keys = threefry.split(threefry.split(threefry.split(key, W), steps), 4)
+    z1, z2 = threefry.normal_parts(keys[..., :2, :], [(B, zdim)] * 2,
+                                   torch_dtype(cfg))
+    if not cfg.conv:
+        return z1, z2
+    return z1, z2, keys[..., 2, :], keys[..., 3, :]
 
 
 def round_streams(cfg, t: int, max_len: int, device) -> tuple:
-    """One round's draws: ``(starts (E,), z_d (S,B,zdim), z_g (S,B,zdim))``
-    — the same three streams ``cglgan_tpu``'s ``round_fn`` draws — and with
-    ``cfg.conv`` each server's dropout keys ``k_d, k_drop`` (S, 2) after
-    them (the CGL and MD-GAN families), threefry key data drawn from the
-    same generator (the reference splits them from the round's key; inject
-    its ``key_data`` to get its masks)."""
-    S, B, zdim = cfg.num_servers, cfg.batch_size, cfg.latent_dim
-    starts = batch_starts(cfg.seed, t, cfg.epoch, max_len, B)
-    g = generator(cfg.seed, ROLE_LOCAL, t, device=device)
-    z_d = torch.randn((S, B, zdim), generator=g, device=device)
-    z_g = torch.randn((S, B, zdim), generator=g, device=device)
-    if not cfg.conv:
-        return starts, z_d, z_g
-    keys = torch.randint(0, 1 << 32, (2, S, 2), generator=g, device=device,
-                         dtype=torch.int64)
-    return starts, z_d, z_g, keys[0], keys[1]
+    """Round t's CGL / MD-GAN draws: ``(starts (E,), z_d, z_g[, k_d,
+    k_drop])`` (``server_draws``)."""
+    rk = RoundKeys(cfg, max_len, cfg.epoch, device, piece=1)
+    return (rk.starts(t), *server_draws(cfg, rk.key(t)))
+
+
+def sweep_streams(cfg, t: int, max_len: int, steps: int, device) -> tuple:
+    """Round t's FedAvg draws: ``(starts (steps,), z1, z2[, kd1, kd2])``
+    (``lane_draws``)."""
+    rk = RoundKeys(cfg, max_len, steps, device, piece=1)
+    return (rk.starts(t), *lane_draws(cfg, rk.key(t), steps))
 
 
 def survival(cfg, t: int, n: int, device) -> torch.Tensor:
-    """Round ``t``'s dropout draw: bool (n,) Bernoulli(1 - dropout_rate),
-    the input of ``algos/common.py`` ``participation_mask``."""
-    g = generator(cfg.seed, ROLE_LOCAL, t, FOLD_SURVIVAL, device=device)
-    return torch.rand((n,), generator=g, device=device) \
-        < 1.0 - cfg.dropout_rate
+    """Round t's dropout draw (``RoundKeys.survival``)."""
+    return RoundKeys(cfg, 1, 1, device, piece=1).survival(t, n)
 
 
 def swap_permutation(cfg, t: int, n: int, device) -> torch.Tensor:
-    """Round ``t``'s MD-GAN shuffle D-swap: a permutation of the n clients
-    (int64 (n,))."""
-    g = generator(cfg.seed, ROLE_LOCAL, t, ROLE_SWAP, device=device)
-    return torch.randperm(n, generator=g, device=device)
-
-
-def sweep_streams(cfg, t: int, max_len: int, steps: int, device
-                  ) -> tuple:
-    """One FedAvg-family round's draws: ``(starts (steps,), z1, z2
-    (W, steps, B, zdim))`` — z1 feeds each local D step's fake batch, z2
-    the G step, as ``cglgan_tpu``'s ``_local_sweep`` draws them — and with
-    ``cfg.conv`` each lane's dropout keys ``kd1, kd2`` (W, steps, 2) after
-    them, threefry key data drawn from the same generator: ``kd1`` the key
-    of a local step's D step (split into the real and the fake forward's),
-    ``kd2`` of its G step (the reference's ``kdrop1, kdrop2`` of each step
-    key; inject its ``key_data`` to get its masks)."""
-    W, B, zdim = cfg.num_workers, cfg.batch_size, cfg.latent_dim
-    starts = batch_starts(cfg.seed, t, steps, max_len, B)
-    g = generator(cfg.seed, ROLE_LOCAL, t, device=device)
-    z1 = torch.randn((W, steps, B, zdim), generator=g, device=device)
-    z2 = torch.randn((W, steps, B, zdim), generator=g, device=device)
-    if not cfg.conv:
-        return starts, z1, z2
-    keys = torch.randint(0, 1 << 32, (2, W, steps, 2), generator=g,
-                         device=device, dtype=torch.int64)
-    return starts, z1, z2, keys[0], keys[1]
+    """Round t's MD-GAN shuffle permutation (``RoundKeys.permutation``)."""
+    return RoundKeys(cfg, 1, 1, device, piece=1).permutation(t, n)

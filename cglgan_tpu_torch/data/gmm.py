@@ -5,11 +5,11 @@ circle (radius 1, std 0.01), ``samples_per_class`` samples per class on
 average, returned label-sorted (reference ``gmm`` class,
 CGLGAN/2DMG/data.py:5-38).
 
-``gmm_modes`` is numpy and equals the reference bit for bit.  The draws of
-``gmm_dataset`` come from a ``torch.Generator`` seeded through
-``core/prng`` (role ``ROLE_DATA``), so their bits differ from the JAX
-package's threefry draws; what the function promises is the same:
-label-sorted rows, multinomial class counts, mode mean and std.
+``gmm_modes`` is numpy and equals the reference bit for bit; so does
+``gmm_dataset``'s draw: ``k_mode, k_noise = split(key(seed))``, labels
+``randint(k_mode, (n,), 0, n_class)`` (bit-equal), ``std * normal(k_noise,
+(n, 2))`` in float32 (within 3 ulps, as ``core/threefry.py``'s normals),
+then a stable sort by label, as ``jnp.argsort(labels, stable=True)``.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from cglgan_tpu_torch.core import prng
+from cglgan_tpu_torch.core import threefry
 
 
 def gmm_modes(n_class: int, radius: float = 1.0) -> np.ndarray:
@@ -37,10 +37,10 @@ def gmm_dataset(n_class: int = 5,
     reference draws ``randint(0, n_mixture)`` per sample, then sorts by
     label), so per-class counts are multinomial, not exactly equal."""
     n = n_class * samples_per_class
-    gen = prng.generator(seed, prng.ROLE_DATA)
-    labels = torch.randint(0, n_class, (n,), generator=gen)
+    k_mode, k_noise = threefry.split(threefry.key(seed))
+    labels = threefry.randint(k_mode, (n,), 0, n_class)
     centres = torch.from_numpy(gmm_modes(n_class).astype(np.float32))
-    noise = std * torch.randn((n, 2), generator=gen, dtype=torch.float32)
-    data = centres[labels] + noise
+    noise = std * threefry.normal(k_noise, (n, 2))
+    data = centres[labels.long()] + noise
     order = torch.argsort(labels, stable=True)
-    return data[order].numpy(), labels[order].to(torch.int32).numpy()
+    return data[order].numpy(), labels[order].numpy()

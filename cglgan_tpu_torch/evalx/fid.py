@@ -79,8 +79,8 @@ def probe_init(side: int, num_class: int = 10, seed: int = 0, device=None):
     flat = 64 * (side // 4) ** 2
     return {"c0": nn.conv_init(ks[0], 1, 32, 3),
             "c1": nn.conv_init(ks[1], 32, 64, 3),
-            "l0": nn.keyed_linear_init(ks[2], flat, 128),
-            "l1": nn.keyed_linear_init(ks[3], 128, num_class)}
+            "l0": nn.linear_init(ks[2], flat, 128),
+            "l1": nn.linear_init(ks[3], 128, num_class)}
 
 
 def _probe_net(params, x):

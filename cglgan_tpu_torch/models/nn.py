@@ -6,12 +6,12 @@ member axis (servers for G, clients for D) and every activation is
 Weights stay ``(din, dout)`` as in the reference.
 
 * ``linear_init``: weight & bias ~ U(-1/sqrt(din), +1/sqrt(din)) (torch
-  ``nn.Linear``'s default).
-* ``keyed_linear_init``, ``conv_init``: one unstacked layer drawn from a
-  threefry key (``core/threefry.py``) with the reference's bits; conv
-  weights OIHW, bound 1/sqrt(cin k k) (``nn.Conv2d``'s default).
+  ``nn.Linear``'s default); ``conv_init``: OIHW weights, bound
+  1/sqrt(cin k k) (``nn.Conv2d``'s default).  Both draw from threefry keys
+  ``(..., 2)`` (``core/threefry.py``), one layer a key, stacked over the
+  keys' leading axes, with the reference's bits in float32 and bfloat16.
 * ``conv2d``: NCHW / OIHW, the bias added after the convolution.
-* ``stacked_conv_init``, ``group_conv2d``: N stacked conv layers (weights
+* ``group_conv2d``: N stacked conv layers (weights
   ``(N, O, I, k, k)``) on the grouped image layout ``(B, N*C, H, W)``,
   member n's channels ``[n*C, (n+1)*C)``: one ``F.conv2d(..., groups=N)``
   runs every member's convolution.  ``to_groups`` / ``from_groups`` move
@@ -26,7 +26,7 @@ Weights stay ``(din, dout)`` as in the reference.
 * ``leaky_relu``: ``where(x >= 0, x, 0.2x)`` — gradient 1 at 0, as in JAX
   (``F.leaky_relu`` gives 0.2 there).
 * ``dcgan_reinit``: the reference ``weights_init`` DCGAN re-draw (Mix-G's G
-  and D, mixed-gan.py:181,348).
+  and D, mixed-gan.py:181,348), a member a threefry key.
 
 bfloat16 (``--dtype bfloat16``): every layer runs in its params' dtype and
 rounds as ``cglgan_tpu/models/nn.py`` does under JAX (``core/dtypes.py``):
@@ -45,92 +45,95 @@ import torch.nn.functional as F
 
 from cglgan_tpu_torch.core import dtypes, threefry
 from cglgan_tpu_torch.core.dtypes import weak
+from cglgan_tpu_torch.utils.tree import tree_leaves
 
 BN_MOMENTUM = 0.1
 
 
-def linear_init(gen: torch.Generator, n: int, din: int, dout: int,
+def linear_init(key: torch.Tensor, din: int, dout: int,
                 dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """U(-1/sqrt(din), 1/sqrt(din)) drawn in float32 and rounded to
-    ``dtype`` (the draws cannot equal JAX's bits in any dtype)."""
+    """U(-1/sqrt(din), 1/sqrt(din)) weight (din, dout) and bias (dout,)
+    drawn in ``dtype`` from threefry keys ``(..., 2)``, one layer a key
+    (leading axes first), as the reference's ``linear_init(key, din, dout,
+    dtype)`` under ``jax.vmap`` draws them: ``kw, kb = split(key)``."""
     bound = 1.0 / math.sqrt(din)
-
-    def u(shape):
-        return ((torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound) \
-            .to(dtype)
-    return {"w": u((n, din, dout)), "b": u((n, dout))}
+    w, b = threefry.uniform_parts(threefry.split(key), [(din, dout), (dout,)],
+                                  -bound, bound, dtype)
+    return {"w": w, "b": b}
 
 
-def keyed_linear_init(key: torch.Tensor, din: int, dout: int
-                      ) -> Dict[str, torch.Tensor]:
-    """One float32 linear layer from a threefry key, as the reference's
-    ``linear_init(key, din, dout)`` draws it."""
-    kw, kb = threefry.split(key)
-    bound = 1.0 / math.sqrt(din)
-    return {"w": threefry.uniform(kw, (din, dout), -bound, bound),
-            "b": threefry.uniform(kb, (dout,), -bound, bound)}
-
-
-def conv_init(key: torch.Tensor, cin: int, cout: int, k: int
-              ) -> Dict[str, torch.Tensor]:
-    """One float32 conv layer (OIHW) from a threefry key, as the
-    reference's ``conv_init`` draws it."""
-    kw, kb = threefry.split(key)
+def conv_init(key: torch.Tensor, cin: int, cout: int, k: int,
+              dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Conv layers (OIHW) from threefry keys ``(..., 2)``, one a key, as the
+    reference's ``conv_init`` draws them: bound 1/sqrt(cin k k)
+    (``nn.Conv2d``'s default), ``kw, kb = split(key)``."""
     bound = 1.0 / math.sqrt(cin * k * k)
-    return {"w": threefry.uniform(kw, (cout, cin, k, k), -bound, bound),
-            "b": threefry.uniform(kb, (cout,), -bound, bound)}
+    w, b = threefry.uniform_parts(threefry.split(key),
+                                  [(cout, cin, k, k), (cout,)], -bound,
+                                  bound, dtype)
+    return {"w": w, "b": b}
 
 
-def stacked_conv_init(gen: torch.Generator, n: int, cin: int, cout: int,
-                      k: int, dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """``n`` stacked conv layers, OIHW, U(-1/sqrt(cin k k), +) drawn from
-    ``gen`` in float32 (``nn.Conv2d``'s default bound; not JAX's bits)."""
-    bound = 1.0 / math.sqrt(cin * k * k)
-
-    def u(shape):
-        return ((torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound) \
-            .to(dtype)
-    return {"w": u((n, cout, cin, k, k)), "b": u((n, cout))}
-
-
-def bn_init(n: int, dim: int, dtype=torch.float32
+def bn_init(n: int, dim: int, dtype=torch.float32, device="cpu"
             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    params = {"scale": torch.ones((n, dim), dtype=dtype),
-              "bias": torch.zeros((n, dim), dtype=dtype)}
-    state = {"mean": torch.zeros((n, dim), dtype=dtype),
-             "var": torch.ones((n, dim), dtype=dtype)}
+    like = dict(dtype=dtype, device=device)
+    params = {"scale": torch.ones((n, dim), **like),
+              "bias": torch.zeros((n, dim), **like)}
+    state = {"mean": torch.zeros((n, dim), **like),
+             "var": torch.ones((n, dim), **like)}
     return params, state
 
 
-def dcgan_reinit(gen: torch.Generator, params):
-    """Re-draw a stacked param tree DCGAN-style (capgan.py:63-72): weights
-    ``w`` ~ N(0, 0.02); BatchNorm ``scale`` ~ N(1, 0.02); linear biases and
-    BatchNorm biases 0; conv biases left as they are.  A bias is a conv bias
-    when its sibling ``w`` has rank 4 per member (OIHW); the bias's own rank
-    minus 1 gives the number of leading member axes, so the rule holds for
-    ``(N, ...)`` and multipath ``(S, k, ...)`` leaves alike.  Leaves are
-    drawn in ``tree_leaves`` order, in the leaf's dtype (as the reference
-    draws them, ``cglgan_tpu/models/nn.py:83-86``), with the scale and
-    shift as weak scalars; the draws are not JAX's (the algorithms'
-    threefry split tree is ROADMAP queue 1 item 2)."""
+def dcgan_reinit(keys: torch.Tensor, params):
+    """Re-draw a stacked param tree DCGAN-style (capgan.py:63-72), member n
+    from threefry key ``keys[n]``, as the reference's ``dcgan_reinit(key,
+    params)`` draws each member's tree: a key a leaf of the member's tree
+    (``split(key, leaves)``, in ``tree_leaves`` order, which is
+    ``jax.tree``'s); weights ``w`` ~ N(0, 0.02) and BatchNorm ``scale`` ~
+    N(1, 0.02), drawn in the leaf's dtype with the scale and shift as weak
+    scalars; linear biases and BatchNorm biases 0; conv biases left as they
+    are.  A bias is a conv bias where its sibling ``w`` has rank 4 in a
+    member's tree (OIHW), the reference's rank rule: a Mix-G head's conv
+    weight is (k, O, I, kh, kw) there, so its bias is zeroed, as the
+    reference zeroes it."""
+    leaves = tree_leaves(params)
+    keys = threefry.split(keys, len(leaves))                    # (n, L, 2)
+    drawn = []                  # (leaf index, leaf) of every w and scale
+
+    def mark(tree):
+        if isinstance(tree, dict):
+            for name in sorted(tree):
+                x = tree[name]
+                if not isinstance(x, torch.Tensor):
+                    mark(x)
+                elif name in ("w", "scale"):
+                    drawn.append(x)
+        elif isinstance(tree, (list, tuple)):
+            for x in tree:
+                mark(x)
+    mark(params)
+    position = {id(x): i for i, x in enumerate(leaves)}
+    normals = threefry.normal_parts(
+        keys[:, [position[id(x)] for x in drawn]],
+        [tuple(x.shape[1:]) for x in drawn], leaves[0].dtype)
+    by_leaf = {id(x): z for x, z in zip(drawn, normals)}
+
     def walk(tree):
         if isinstance(tree, dict):
             w = tree.get("w")
             out = {}
-            for key in sorted(tree):
-                x = tree[key]
+            for name in sorted(tree):
+                x = tree[name]
                 if not isinstance(x, torch.Tensor):
-                    out[key] = walk(x)
-                elif key in ("w", "scale"):
-                    draw = torch.randn(x.shape, generator=gen,
-                                       dtype=x.dtype).to(x.device)
-                    shift = 1.0 if key == "scale" else 0.0
-                    out[key] = weak(0.02, draw) * draw + weak(shift, draw)
-                elif key == "b" and w is not None \
-                        and w.ndim - (x.ndim - 1) == 4:
-                    out[key] = x                     # conv bias: untouched
+                    out[name] = walk(x)
+                elif name in ("w", "scale"):
+                    draw = by_leaf[id(x)]
+                    shift = 1.0 if name == "scale" else 0.0
+                    out[name] = weak(0.02, draw) * draw + weak(shift, draw)
+                elif name == "b" and w is not None and w.ndim - 1 == 4:
+                    out[name] = x                    # conv bias: untouched
                 else:                                # linear / BN bias
-                    out[key] = torch.zeros_like(x)
+                    out[name] = torch.zeros_like(x)
             return out
         if isinstance(tree, (list, tuple)):
             return type(tree)(walk(x) for x in tree)

@@ -56,15 +56,20 @@ from cglgan_tpu_torch.utils.tree import tree_map
 #             | ("tanh",) | ("sigmoid",)
 
 
-def mlp_init(gen: torch.Generator, n: int, spec, dtype=torch.float32):
-    """Stacked init of ``n`` members: params/state lists aligned to spec."""
+def mlp_init(key: torch.Tensor, spec, dtype=torch.float32):
+    """Stacked init of a member a threefry key (``key`` (n, 2)):
+    params/state lists aligned to spec.  Each linear layer takes the next
+    ``key, sub = split(key)`` and draws from ``sub``, as the reference's
+    ``mlp_init``."""
     params, state = [], []
+    n = key.shape[0]
     for entry in spec:
         if entry[0] == "linear":
-            params.append(nn.linear_init(gen, n, entry[1], entry[2], dtype))
+            key, sub = threefry.split(key).unbind(1)
+            params.append(nn.linear_init(sub, entry[1], entry[2], dtype))
             state.append(None)
         elif entry[0] == "bn":
-            p, s = nn.bn_init(n, entry[1], dtype)
+            p, s = nn.bn_init(n, entry[1], dtype, key.device)
             params.append(p)
             state.append(s)
         else:
@@ -99,7 +104,9 @@ def _block(din, dout, bn=True):
 
 
 class Model(NamedTuple):
-    """``init(gen, n) -> (params, state)`` stacked over ``n`` members and
+    """``init(keys (n, 2), dtype) -> (params, state)`` stacked over the n
+    members, member i drawn from threefry key ``keys[i]`` as the
+    reference's ``init(key, dtype)`` draws it, and
     ``apply(params, state, x (N, B, ...), train, rng=None) -> (y,
     new_state)`` (``rng``: the conv D's dropout keys, ignored elsewhere);
     ``spec`` is the spec list, ``{"trunk", "heads"}`` lists for a
@@ -114,8 +121,8 @@ class Model(NamedTuple):
 def _mlp_model(spec, out_dim: int = 1, out_shape=None) -> Model:
     spec = tuple(spec)
 
-    def init(gen, n, dtype=torch.float32):
-        return mlp_init(gen, n, spec, dtype)
+    def init(keys, dtype=torch.float32):
+        return mlp_init(keys, spec, dtype)
 
     def apply(params, state, x, train=True, rng=None):
         if x.ndim > 3:           # (N, B, C, H, W) -> (N, B, C*H*W)
@@ -136,9 +143,12 @@ def _multipath_model(trunk_spec, head_spec, num_heads: int,
     trunk_spec, head_spec = tuple(trunk_spec), tuple(head_spec)
     k = num_heads
 
-    def init(gen, n, dtype=torch.float32):
-        tp, ts = mlp_init(gen, n, trunk_spec, dtype)
-        hp, hs = mlp_init(gen, n * k, head_spec, dtype)
+    def init(keys, dtype=torch.float32):
+        n = keys.shape[0]
+        kt, kh = threefry.split(keys).unbind(1)
+        tp, ts = mlp_init(kt, trunk_spec, dtype)
+        hp, hs = mlp_init(threefry.split(kh, k).reshape(n * k, 2), head_spec,
+                          dtype)
         split = lambda x: x.reshape((n, k) + tuple(x.shape[1:]))
         return ({"trunk": tp, "heads": tree_map(split, hp)},
                 {"trunk": ts, "heads": tree_map(split, hs)})
@@ -170,11 +180,13 @@ _D_CHANNELS = (16, 32, 64, 128)
 _D_DROPOUT = 0.25
 
 
-def _conv_trunk_init(gen, n, dtype):
-    p = {"l1": nn.linear_init(gen, n, 100, 128 * 8 * 8, dtype),
-         "c1": nn.stacked_conv_init(gen, n, 128, 128, 3, dtype),
-         "c2": nn.stacked_conv_init(gen, n, 128, 64, 3, dtype)}
-    p["bn1"], s1 = nn.bn_init(n, 128, dtype)
+def _conv_trunk_init(ks, dtype):
+    """The trunk from the first three of each member's ``split(key, 4)``
+    (``ks`` (n, 4, 2))."""
+    p = {"l1": nn.linear_init(ks[:, 0], 100, 128 * 8 * 8, dtype),
+         "c1": nn.conv_init(ks[:, 1], 128, 128, 3, dtype),
+         "c2": nn.conv_init(ks[:, 2], 128, 64, 3, dtype)}
+    p["bn1"], s1 = nn.bn_init(ks.shape[0], 128, dtype, ks.device)
     return p, {"bn1": s1}
 
 
@@ -190,10 +202,12 @@ def _conv_trunk_apply(p, s, z, train):
 
 
 def _conv_g_model() -> Model:
-    def init(gen, n, dtype=torch.float32):
-        p, s = _conv_trunk_init(gen, n, dtype)
-        p["c3"] = nn.stacked_conv_init(gen, n, 64, 1, 3, dtype)
-        p["bn2"], s["bn2"] = nn.bn_init(n, 64, dtype)
+    def init(keys, dtype=torch.float32):
+        ks = threefry.split(keys, 4)
+        p, s = _conv_trunk_init(ks, dtype)
+        p["c3"] = nn.conv_init(ks[:, 3], 64, 1, 3, dtype)
+        p["bn2"], s["bn2"] = nn.bn_init(keys.shape[0], 64, dtype,
+                                        keys.device)
         return p, s
 
     def apply(params, state, z, train=True, rng=None):
@@ -210,13 +224,17 @@ def _conv_mixg_model(num_heads: int) -> Model:
     server's k heads as k copies in the grouped layout, S*k groups."""
     k = num_heads
 
-    def init(gen, n, dtype=torch.float32):
-        tp, ts = _conv_trunk_init(gen, n, dtype)
-        hbn_p, hbn_s = nn.bn_init(n * k, 64, dtype)
-        hc = nn.stacked_conv_init(gen, n * k, 64, 1, 3, dtype)
+    def init(keys, dtype=torch.float32):
+        n = keys.shape[0]
+        ks = threefry.split(keys, 4)
+        tp, ts = _conv_trunk_init(ks, dtype)
+        hbn_p, hbn_s = nn.bn_init(n * k, 64, dtype, keys.device)
+        # a head's ``hk1, = split(k_head, 1)`` of ``split(kh, k)``
+        hkeys = threefry.split(threefry.split(ks[:, 3], k), 1)[..., 0, :]
+        hc = nn.conv_init(hkeys, 64, 1, 3, dtype)           # (n, k, ...)
         split = lambda x: x.reshape((n, k) + tuple(x.shape[1:]))
-        return ({"trunk": tp, "heads": tree_map(split, {"bn": hbn_p,
-                                                         "c": hc})},
+        return ({"trunk": tp, "heads": {"bn": tree_map(split, hbn_p),
+                                        "c": hc}},
                 {"trunk": ts, "heads": tree_map(split, {"bn": hbn_s})})
 
     def apply(params, state, z, train=True, rng=None):
@@ -251,15 +269,17 @@ def _conv_d_keeps(rng: torch.Tensor, batch: int):
 
 
 def _conv_d_model() -> Model:
-    def init(gen, n, dtype=torch.float32):
+    def init(keys, dtype=torch.float32):
+        ks = threefry.split(keys, 5)
         p, state = {}, {}
         cin = 1
         for i, ch in enumerate(_D_CHANNELS, start=1):
-            p[f"c{i}"] = nn.stacked_conv_init(gen, n, cin, ch, 3, dtype)
+            p[f"c{i}"] = nn.conv_init(ks[:, i - 1], cin, ch, 3, dtype)
             cin = ch
-        p["adv"] = nn.linear_init(gen, n, 128 * 2 * 2, 1, dtype)
+        p["adv"] = nn.linear_init(ks[:, 4], 128 * 2 * 2, 1, dtype)
         for i, ch in zip((2, 3, 4), (32, 64, 128)):
-            p[f"bn{i}"], state[f"bn{i}"] = nn.bn_init(n, ch, dtype)
+            p[f"bn{i}"], state[f"bn{i}"] = nn.bn_init(keys.shape[0], ch,
+                                                      dtype, keys.device)
         return p, state
 
     def apply(params, state, x, train=True, rng=None):

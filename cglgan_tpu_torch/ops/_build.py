@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(
         __file__)))), "build", "torch_kernels")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("fused_dstep", "fused_sweep", "fused_adam")
+KERNELS = ("fused_dstep", "fused_sweep", "fused_adam", "threefry")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -37,15 +37,31 @@ Phases, each printing one JSON line:
             784-512-256-1, a bf16 fake batch a client) and W=3, E=3, B=37,
             2-24-40 (float rows), held to the plain version with the state
             returned in bf16, timed beside the bf16 autograd D phase;
+  threefry  the threefry kernel against its plain version on the card, every
+            mode (split, fold_in over a key and over a range, 32-, 16- and
+            8-bit bits, uniform float32 / bfloat16, Bernoulli parts,
+            randint, the window starts, permutation) bit for bit, normals
+            float32 / bfloat16 within 3 ulps with the count that differ,
+            at the MNIST FedAvg sweep's z1 / z2 (W, steps, B, zdim), the
+            largest draw a phase makes; its time beside the plain
+            version's, ``torch.randn``'s at the same size and the bound;
   reference a shrunk CAP-GAN, CGL-GAN (multipath and iid=0), Mix-G, 2DMG
             CGL-GAN, MD-GAN (shuffle D-swap), AC-GAN (delta gossip; and
             dropout, autograd), FL-GAN and FeGAN on the card (kernel path)
             against the same rounds on the CPU (plain path) from one init
-            and one stream;
+            and one stream (the CGL and MD-GAN families held on the inputs
+            their limits were measured on, the same rounds from the seed
+            reported beside); then CAP-GAN from its seed with no stream
+            injected: the card's init equal to the CPU's, one round each;
   main      16-client CAP-GAN on MNIST shapes at epoch=5 (the kernel path),
             20 rounds through ``build_runner`` and ``train``; the kernel's
             launch count must rise by exactly 20 and every metric be finite;
   autograd  the same configuration at epoch=1 (the autograd D path);
+  draws     the CAP-GAN main path at epoch=5 and the FL-GAN 2DMG kernel
+            path, 20 rounds drawing their own streams against the same
+            rounds fed the same streams drawn beforehand, in turns: both
+            rounds/s, the launches a round the draws add (the CAP-GAN
+            path: at most 10), the end states held to each other;
   eval_image
             the proxy image evaluator (FID / Inception Score) on the main
             path's config: threefry draws and the random-conv extractor's
@@ -152,8 +168,8 @@ Each phase prints ``{"starting": name}`` before it runs.  Then the card
 line, the ``kernels`` line and, last, the ok line.  Any failure raises and
 exits non-zero; without a card it exits 2 and prints no result.
 ``--phases a,b`` runs only the named phases (of ``dstep dstep_bf16 sweep
-adam reference main eval_image fedavg fedavg_image cgl mdgan bf16 conv
-conv_baselines conv_bf16 inception``)
+adam threefry reference main draws eval_image fedavg fedavg_image cgl mdgan
+bf16 conv conv_baselines conv_bf16 inception``)
 for a short first look at a new kernel; the
 ``kernels`` and ok lines are printed only by a full run.  Imports nothing
 of JAX.
@@ -409,6 +425,34 @@ def dstep_inputs(gen, W, E, B, din, h1, h2, dout, six=None, max_len=1000,
     return six, mu6, nu6, count, shards, starts, fake.contiguous().to(dev)
 
 
+def seeded_init(model, gen, n):
+    """A kernel phase's test weights for ``n`` members of an MLP ``model``
+    (spec list): each linear layer's weight then bias U(-1/sqrt(din),
+    1/sqrt(din)) from the torch generator ``gen``, BatchNorm at its init;
+    the inputs the kernel phases' limits were measured on (the seeds that
+    flip no LeakyReLU slope)."""
+    import math
+    import torch
+    from cglgan_tpu_torch.models import nn
+    params, state = [], []
+    for entry in model.spec:
+        if entry[0] == "linear":
+            bound = 1.0 / math.sqrt(entry[1])
+            u = lambda shape: (torch.rand(shape, generator=gen) * 2.0
+                               - 1.0) * bound
+            params.append({"w": u((n, entry[1], entry[2])),
+                           "b": u((n, entry[2]))})
+            state.append(None)
+        elif entry[0] == "bn":
+            p, s = nn.bn_init(n, entry[1])
+            params.append(p)
+            state.append(s)
+        else:
+            params.append(None)
+            state.append(None)
+    return params, state
+
+
 def dstep_call(args, kw):
     """The wrapper on ``args``: uint8 shards are images, float32 rows are
     used as they are."""
@@ -488,7 +532,7 @@ def dstep_shape(card_name, label, gen, d_model, W, din, h1, h2, dout, head,
     from cglgan_tpu_torch.algos import common
     from cglgan_tpu_torch.ops import fused_dstep
 
-    params, bn = d_model.init(gen, W)
+    params, bn = seeded_init(d_model, gen, W)
     args = dstep_inputs(gen, W, E, B, din, h1, h2, dout,
                         six=[x for p in params if p is not None
                              for x in (p["w"], p["b"])],
@@ -634,7 +678,7 @@ def phase_kernel_bf16(card_name):
         d_model = None
         if timed:
             d_model = build_discriminator("mnist", dout, in_dim=din)
-            params, bn = d_model.init(gen, w)
+            params, bn = seeded_init(d_model, gen, w)
             six = [x for p in params if p is not None
                    for x in (p["w"], p["b"])]
         else:
@@ -744,7 +788,7 @@ def sweep_inputs(gen, g_model, d_model, W, E, B, gdims):
     dev = torch.device("cuda")
 
     def net(model, count):
-        params, bn = model.init(gen, W)
+        params, bn = seeded_init(model, gen, W)
         to = lambda fn: [None if p is None else
                          {k: fn(x).to(dev) for k, x in p.items()}
                          for p in params]
@@ -935,6 +979,324 @@ def library_adam_ms(ps, gs, ms, vs, kw):
     opt = torch.optim.Adam(ps, lr=kw["lr"], betas=(kw["b1"], kw["b2"]),
                            eps=kw["eps"], fused=True)
     return cuda_ms(opt.step, 20), "torch.optim.Adam(fused=True).step"
+
+
+# threefry on the card against its plain version (``ops/threefry.py``
+# ``draw_plain``: the same arithmetic as int64 torch ops, run on the card
+# on the same keys by routing ``draw`` to it).  Every mode but the normals
+# is integer work or exact float work: bits equal.  The normals: the kernel
+# rounds its erf_inv polynomial's multiply-adds once in float32 (fmaf)
+# where the plain version rounds them from float64, and float64 log1p may
+# differ in its last bit: within TOL_NORMAL_ULPS ulps of the dtype, with the
+# count of elements that differ at all printed.
+TOL_NORMAL_ULPS = 3
+# the hash's 32-bit integer operations against the H100 SXM's int32 rate:
+# 64 INT32 lanes an SM x 132 SMs x 1.98 GHz boost (NVIDIA Hopper white
+# paper); bytes against 3.35 TB/s
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
+THREEFRY_REPS = 20
+# the most launches the draws may add to a CAP-GAN main-path round
+MAX_DRAW_LAUNCHES = 10
+
+
+class plain_threefry:
+    """Inside the block every threefry draw runs ``draw_plain`` on the
+    keys' device, the card included (the comparison's reference)."""
+
+    def __enter__(self):
+        from cglgan_tpu_torch.ops import threefry as tk
+        self.saved = tk.draw
+        tk.draw = tk.draw_plain
+
+    def __exit__(self, *exc):
+        from cglgan_tpu_torch.ops import threefry as tk
+        tk.draw = self.saved
+
+
+def ulps_apart(a, b):
+    """Largest distance in units in the last place of a's dtype (float32
+    or bfloat16), and how many elements differ at all."""
+    import torch
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    d = (a.contiguous().view(view).long() - b.contiguous().view(view).long()
+         ).abs()
+    return int(d.max()), int((d != 0).sum())
+
+
+def phase_kernel_threefry(card_name, part):
+    """The kernel against its plain version on the card, every mode, at the
+    largest draw a phase makes: the MNIST FedAvg sweep's z1 / z2 (W, steps,
+    B, zdim) of ``mnist-ref-iid1-flgan``; its time beside the plain
+    version's, ``torch.randn``'s at the same size (a different function:
+    for scale, not a library yardstick) and the bound."""
+    import torch
+    from cglgan_tpu_torch.algos.fedavg_family import _local_steps
+    from cglgan_tpu_torch.core import prng, threefry
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.ops import _build
+    from cglgan_tpu_torch.ops import threefry as tk
+
+    t_phase = time.perf_counter()
+    cfg = FedGANConfig(algo="flgan", epoch=1, **FEDAVG_MNIST)
+    W, B, zdim = cfg.num_workers, cfg.batch_size, cfg.latent_dim
+    steps = int(_local_steps(cfg, part.lengths).max())
+    rk = prng.RoundKeys(cfg, part.data.shape[1], steps, "cuda", piece=1)
+    key = rk.key(0)
+    keys = threefry.split(threefry.split(threefry.split(key, W), steps), 4)
+    lane = keys[..., 0, :]                                  # (W, steps, 2)
+    bf = torch.bfloat16
+    draws = {
+        "normal_f32": lambda: threefry.normal_parts(
+            keys[..., :2, :], [(B, zdim)] * 2),
+        "normal_bf16": lambda: threefry.normal_parts(
+            keys[..., :2, :], [(B, zdim)] * 2, bf),
+        "split": lambda: threefry.split(keys, 7),
+        "fold_in": lambda: threefry.fold_in(keys, 123),
+        "fold_in_range": lambda: threefry.fold_in(rk.local, range(5, 2005)),
+        "bits32": lambda: threefry.random_bits(lane, (B, zdim)),
+        "bits16": lambda: threefry.random_bits(lane, (B,), 16),
+        "bits8": lambda: threefry.random_bits(lane, (B,), 8),
+        "uniform_f32": lambda: threefry.uniform(lane, (B, zdim), -1 / 3,
+                                                1 / 3),
+        "uniform_bf16": lambda: threefry.uniform(lane, (B, zdim), -1 / 3,
+                                                 1 / 3, bf),
+        "bernoulli_parts": lambda: threefry.bernoulli_parts(
+            keys, 0.75, [(B, c, 1, 1) for c in (16, 32, 64, 128)]),
+        "randint": lambda: threefry.randint(lane, (B,), 0, 20000),
+        "randint_int32": lambda: threefry.randint(lane, (B,), -2**31,
+                                                  2**31 - 1),
+        "window_starts": lambda: prng.window_starts(
+            threefry.fold_in(rk.local, range(0, 500)), steps,
+            part.data.shape[1], B),
+        "permutation_20": lambda: threefry.permutation(key, 20),
+        "permutation_1700": lambda: threefry.permutation(key, 1700)}
+    launched = tk.launches
+    got = {name: fn() for name, fn in draws.items()}
+    torch.cuda.synchronize()
+    kernel_launches = tk.launches - launched
+    with plain_threefry():
+        ref = {name: fn() for name, fn in draws.items()}
+    torch.cuda.synchronize()
+    if tk.launches != launched + kernel_launches:
+        raise AssertionError("the plain version launched the kernel")
+    errors, bad = {}, []
+    for name in draws:
+        a, b = got[name], ref[name]
+        a, b = (a, b) if isinstance(a, list) else ([a], [b])
+        err = {"max_abs_err": max(float((x.double() - y.double()).abs()
+                                        .max()) for x, y in zip(a, b)),
+               "elements": sum(x.numel() for x in a)}
+        if any(x.dtype != y.dtype or x.shape != y.shape
+               for x, y in zip(a, b)):
+            raise AssertionError(f"threefry {name}: dtype or shape differs")
+        if name.startswith("normal"):
+            apart = [ulps_apart(x, y) for x, y in zip(a, b)]
+            err["max_ulps"] = max(u for u, _ in apart)
+            err["elements_differing"] = sum(n for _, n in apart)
+            if err["max_ulps"] > TOL_NORMAL_ULPS:
+                bad.append(name)
+        elif err["max_abs_err"] != 0.0:
+            bad.append(name)
+        errors[name] = err
+    # card against the CPU's plain version: the permutation and starts
+    cpu_key = key.cpu()
+    if not torch.equal(threefry.permutation(cpu_key, 1700),
+                       got["permutation_1700"].cpu()):
+        bad.append("permutation_1700 vs cpu")
+
+    z_keys = keys[..., :2, :]
+    big = lambda: threefry.normal_parts(z_keys, [(B, zdim)] * 2)
+    n_elem = 2 * W * steps * B * zdim
+    ms = cuda_ms(big, THREEFRY_REPS)
+    with plain_threefry():
+        plain_ms = cuda_ms(big, 3)
+    randn_ms = cuda_ms(lambda: torch.randn((2, W, steps, B, zdim),
+                                           device="cuda"), THREEFRY_REPS)
+    ops_ms = n_elem * tk.HASH_OPS / INT32_OPS_PER_S * 1e3
+    bytes_ms = (n_elem * 4 + 2 * W * steps * 16) / HBM_BYTES_PER_S * 1e3
+    res = {"phase": "threefry", "card": card_name,
+           "shape": [2, W, steps, B, zdim], "elements": n_elem,
+           "errors": errors, "tol_normal_ulps": TOL_NORMAL_ULPS,
+           "kernel_launches_in_checks": kernel_launches,
+           "kernel_ms": ms, "plain_ms": plain_ms,
+           "torch_randn_ms_same_size": randn_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+           "hash_ops_per_element": tk.HASH_OPS,
+           "ptxas": [line for line in _build.ptxas_report(
+               "threefry").splitlines() if "Used" in line]}
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    if bad:
+        raise AssertionError(f"threefry kernel and plain version differ: "
+                             f"{bad}")
+    return res
+
+
+def launches_per_round(fn, rounds):
+    """Device kernel launches and copies a round of ``fn(i)`` (round i),
+    from the profiler's raw device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cglgan_tpu_torch.utils.profiling import device_kernel_sums
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(rounds):
+            fn(i)
+        torch.cuda.synchronize()
+    return sum(n for _, n in device_kernel_sums(prof).values()) / rounds
+
+
+def phase_draws(part_main):
+    """The CAP-GAN main path at epoch=5 and the FL-GAN 2DMG kernel path,
+    each from one state: ROUNDS rounds drawing their own streams against
+    the same rounds fed the same streams drawn beforehand on the card
+    (``prng.round_streams`` / ``sweep_streams``), in turns (own, injected,
+    injected, own); rounds/s of each, the launches a round that the draws
+    add (profiler), the kernel's own launches a round, and the two end
+    states held to each other."""
+    import torch
+    from cglgan_tpu_torch.algos.fedavg_family import _local_steps
+    from cglgan_tpu_torch.algos.registry import build_runner, load_partition
+    from cglgan_tpu_torch.algos.runner import train
+    from cglgan_tpu_torch.core import prng
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.ops import threefry as tk
+
+    out = {}
+    for label, cfg, part in (
+            ("capgan e5", FedGANConfig(algo="capgan", epoch=5, **MAIN),
+             part_main),
+            ("flgan 2dmg kernel", FedGANConfig(algo="flgan",
+                                               pallas_sweep=True, **FEDAVG),
+             None)):
+        part = part if part is not None else load_partition(cfg)
+        runner = build_runner(cfg, part)
+        L = part.data.shape[1]
+        state = train(runner, 2, eval_every=2, evaluator=False)["state"]
+        t0 = state.t
+        if cfg.algo == "flgan":
+            steps = int(_local_steps(cfg, part.lengths).max())
+            pre = [prng.sweep_streams(cfg, t0 + i, L, steps, "cuda")
+                   for i in range(ROUNDS)]
+        else:
+            pre = [prng.round_streams(cfg, t0 + i, L, "cuda")
+                   for i in range(ROUNDS)]
+
+        def run(injected, n=ROUNDS):
+            s = state
+            for i in range(n):
+                s, _ = runner.round_fn(s, pre[i] if injected else None)
+            return s
+
+        run(False, 2)
+        run(True, 2)
+        walls = {"own": [], "injected": []}
+        ends = {}
+        for name in ("own", "injected", "injected", "own"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ends[name] = run(name == "injected")
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t1)
+        errs = state_errs(ends["own"], ends["injected"])
+        launched = tk.launches
+        own = launches_per_round(lambda i: run(False, 1), 1)
+        own_tf = tk.launches - launched
+        injected = launches_per_round(lambda i: run(True, 1), 1)
+        res = {"phase": "draws", "path": label,
+               "config": {"algo": cfg.algo, "epoch": cfg.epoch,
+                          "num_workers": cfg.num_workers,
+                          "dataset": cfg.dataset},
+               "rounds": ROUNDS,
+               "rounds_per_s_own": [ROUNDS / w for w in walls["own"]],
+               "rounds_per_s_injected": [ROUNDS / w
+                                         for w in walls["injected"]],
+               "launches_per_round_own": own,
+               "launches_per_round_injected": injected,
+               "draw_launches_per_round": own - injected,
+               "threefry_launches_per_round": own_tf,
+               "own_vs_injected_max_scaled_err": errs}
+        emit(res)
+        if over_limit(errs, TOL_SCALED):
+            raise AssertionError(f"{label}: own draws and the same draws "
+                                 f"injected disagree: {errs}")
+        if label.startswith("capgan") and \
+                own - injected > MAX_DRAW_LAUNCHES:
+            raise AssertionError(f"{label}: the draws add "
+                                 f"{own - injected} launches a round")
+        out[label] = res
+    return out
+
+
+def seed_round():
+    """A shrunk CAP-GAN run from its seed, no streams injected: the card's
+    init against the CPU's (every leaf equal: the uniforms are JAX's bits
+    on both), the card's round-0 draws against the CPU's, then one round on
+    each within the reference phase's limits.  Where the normals' <= 3-ulp
+    gap moves the round beyond them, the gap is printed and the round is
+    held again with the CPU's streams injected on both sides."""
+    import numpy as np
+    import torch
+    from cglgan_tpu_torch.algos.registry import build_runner
+    from cglgan_tpu_torch.core import prng
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.data.partition import Partition
+    from cglgan_tpu_torch.utils.transplant import to_numpy
+    from cglgan_tpu_torch.utils.tree import tree_leaves
+
+    rng = np.random.default_rng(7)
+    nw, L, d = 4, 48, 64
+    part = Partition(rng.integers(0, 256, (nw, L, d)).astype(np.uint8),
+                     np.zeros((nw, L), np.int32),
+                     np.asarray([30, 48, 41, 36], np.int32),
+                     np.zeros((nw, 10), np.int64),
+                     np.zeros((10, d), np.uint8))
+    cfg = FedGANConfig(algo="capgan", dataset="synthetic-mnist",
+                       num_workers=nw, num_servers=2, img_size=8,
+                       batch_size=8, epoch=2, num_communication=12)
+    gpu = build_runner(cfg, part)
+    cpu = build_runner(cfg, part, device="cpu")
+    sg, sc = gpu.init_state(), cpu.init_state()
+    a = tree_leaves(to_numpy(sg, bf16="float32"))
+    b = tree_leaves(to_numpy(sc, bf16="float32"))
+    init_equal = len(a) == len(b) and all(
+        np.array_equal(x, y) for x, y in zip(a, b))
+    card_draws = prng.round_streams(cfg, 0, L, "cuda")
+    cpu_draws = prng.round_streams(cfg, 0, L, "cpu")
+    z_apart = [ulps_apart(a.cpu(), b)
+               for a, b in zip(card_draws[1:], cpu_draws[1:])]
+    g1, mg = gpu.round_fn(sg)
+    c1, mc = cpu.round_fn(sc)
+    errs = state_errs(g1, c1)
+    merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
+    res = {"phase": "reference", "algo": "capgan from its seed",
+           "init_equal": init_equal,
+           "starts_equal": list(card_draws[0]) == list(cpu_draws[0]),
+           "z_max_ulps": max(u for u, _ in z_apart),
+           "z_elements_differing": sum(n for _, n in z_apart),
+           "max_scaled_err": errs, "tol_scaled": TOL_SCALED,
+           "metrics_max_abs_err": merr, "tol_metrics": 1e-4}
+    held = not (over_limit(errs, TOL_SCALED) or merr > 1e-4)
+    if not held:
+        # the normals' gap moved the round: print it, hold the same round
+        # with one set of draws
+        g1, mg = gpu.round_fn(sg, cpu_draws)
+        c1, mc = cpu.round_fn(sc, cpu_draws)
+        res["injected_max_scaled_err"] = errs = state_errs(g1, c1)
+        res["injected_metrics_max_abs_err"] = merr = max(
+            abs(float(mg[k]) - float(mc[k])) for k in mg)
+    res["held_without_injection"] = held
+    emit(res)
+    if not (init_equal and res["starts_equal"]) or \
+            res["z_max_ulps"] > TOL_NORMAL_ULPS or \
+            over_limit(errs, TOL_SCALED) or merr > 1e-4:
+        raise AssertionError(f"the run from its seed: card and CPU "
+                             f"disagree: {res}")
+    return res
 
 
 def phase_kernel_adam(card_name):
@@ -1165,13 +1527,157 @@ def over_limit(errs, tol):
     return any(v > tol[kind(k)] for k, v in errs.items() if kind(k) in tol)
 
 
+# The reference phase's inputs as its limits were measured, before the
+# port drew the reference's threefry tree: a torch.Generator a role and
+# round, splitmix-seeded from cfg.seed, uniform U(-1/sqrt(fan_in), +)
+# layers, the latents ``randn``.  ``reference_rounds`` holds card against
+# CPU on them, and reports the same rounds from the seed (the runners' own
+# init and the tree's streams) beside: a near-zero gradient whose sign the
+# card's and the CPU's float32 sums set apart becomes a full Adam step, and
+# on some inputs that outgrows the limits within 5 rounds (from the seed,
+# the shrunk CGL-GAN's D moments part by 1.35e-2 of their group's scale).
+def legacy_generator(seed, *tags):
+    import torch
+    mask = (1 << 64) - 1
+
+    def mix(x):
+        x = (x + 0x9E3779B97F4A7C15) & mask
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & mask
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & mask
+        return x ^ (x >> 31)
+    s = mix(int(seed) & mask)
+    for t in tags:
+        s = mix(s ^ (int(t) & mask))
+    return torch.Generator().manual_seed(s & ((1 << 63) - 1))
+
+
+_LEGACY_CONV_ORDER = {"conv": ("l1", "c1", "c2", "c3"),
+                      "conv-multipath": (("trunk", "l1"), ("trunk", "c1"),
+                                         ("trunk", "c2"), ("heads", "c")),
+                      "conv-d": ("c1", "c2", "c3", "c4", "adv")}
+
+
+def legacy_layers(model, params, is_d):
+    """A model's layers ({"w", "b"} dicts) in the order the legacy init drew
+    them: spec order (a multipath G's trunk, then its heads), or the conv
+    families' construction order."""
+    if isinstance(model.spec, str):
+        order = _LEGACY_CONV_ORDER["conv-d" if is_d else model.spec]
+        get = lambda k: params[k] if isinstance(k, str) else \
+            params[k[0]][k[1]]
+        return [get(k) for k in order]
+    trees = [params["trunk"], params["heads"]] if model.multipath \
+        else [params]
+    return [p for tree in trees for p in tree
+            if isinstance(p, dict) and "w" in p]
+
+
+def legacy_params(model, params, gen, is_d):
+    """``params`` (the new init's tree) with every layer re-drawn from
+    ``gen`` as the legacy init drew it: weight, then bias, float32
+    U(-bound, bound) in the tensors' stacked shapes, bound 1/sqrt(fan_in),
+    cast to the leaves' dtype."""
+    import math
+    import torch
+    from cglgan_tpu_torch.utils.tree import tree_map
+    params = tree_map(lambda x: x, params)        # fresh containers
+    for layer in legacy_layers(model, params, is_d):
+        w = layer["w"]
+        conv = w.ndim - (layer["b"].ndim - 1) == 4
+        bound = 1.0 / math.sqrt(math.prod(w.shape[-3:]) if conv
+                                else w.shape[-2])
+        for name in ("w", "b"):
+            x = layer[name]
+            layer[name] = ((torch.rand(x.shape, generator=gen) * 2.0 - 1.0)
+                           * bound).to(x.dtype).to(x.device)
+    return params
+
+
+def legacy_dcgan(gen, params):
+    """The legacy DCGAN re-draw (Mix-G): ``randn`` a w / scale leaf in
+    ``tree_leaves`` order, in the leaf's dtype."""
+    import torch
+    from cglgan_tpu_torch.core.dtypes import weak
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            w = tree.get("w")
+            out = {}
+            for key in sorted(tree):
+                x = tree[key]
+                if not isinstance(x, torch.Tensor):
+                    out[key] = walk(x)
+                elif key in ("w", "scale"):
+                    draw = torch.randn(x.shape, generator=gen,
+                                       dtype=x.dtype).to(x.device)
+                    shift = 1.0 if key == "scale" else 0.0
+                    out[key] = weak(0.02, draw) * draw + weak(shift, draw)
+                elif key == "b" and w is not None \
+                        and w.ndim - (x.ndim - 1) == 4:
+                    out[key] = x
+                else:
+                    out[key] = torch.zeros_like(x)
+            return out
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(x) for x in tree)
+        return tree
+    return walk(params)
+
+
+def legacy_state(cfg, state):
+    """A CGL- or MD-GAN-family init state with the legacy params (BN
+    state, Adam state and the delta anchors are seed-free zeros / ones)."""
+    from cglgan_tpu_torch.core import prng
+    from cglgan_tpu_torch.models.zoo import models_for_config
+    g_model, d_model = models_for_config(cfg)
+    gp = legacy_params(g_model, state.g.params,
+                       legacy_generator(cfg.seed, prng.ROLE_INIT_G), False)
+    dp = legacy_params(d_model, state.d.params,
+                       legacy_generator(cfg.seed, prng.ROLE_INIT_D), True)
+    if cfg.algo == "mixgan":
+        gp = legacy_dcgan(legacy_generator(cfg.seed, prng.ROLE_INIT_G, 99),
+                          gp)
+        dp = legacy_dcgan(legacy_generator(cfg.seed, prng.ROLE_INIT_D, 98),
+                          dp)
+    return state._replace(g=state.g._replace(params=gp),
+                          d=state.d._replace(params=dp))
+
+
+def legacy_streams(cfg, t, max_len):
+    """Round t's legacy draws, as ``round_fn`` takes them injected:
+    ``(starts, z_d, z_g[, k_d, k_drop][, alive, perm])`` on the host."""
+    import torch
+    from cglgan_tpu_torch.core import prng
+    S, B, zdim, W = (cfg.num_servers, cfg.batch_size, cfg.latent_dim,
+                     cfg.num_workers)
+    hi = max(max_len - B + 1, 1)
+    starts = torch.randint(0, hi, (cfg.epoch,), generator=legacy_generator(
+        cfg.seed, prng.ROLE_LOCAL, t, prng.ROLE_BATCH)).tolist()
+    g = legacy_generator(cfg.seed, prng.ROLE_LOCAL, t)
+    out = [starts, torch.randn((S, B, zdim), generator=g),
+           torch.randn((S, B, zdim), generator=g)]
+    if cfg.conv:
+        keys = torch.randint(0, 1 << 32, (2, S, 2), generator=g,
+                             dtype=torch.int64)
+        out += [keys[0], keys[1]]
+    if cfg.algo in ("acgan", "mdgan"):
+        out.append(torch.rand((W,), generator=legacy_generator(
+            cfg.seed, prng.ROLE_LOCAL, t, prng.FOLD_SURVIVAL))
+            < 1.0 - cfg.dropout_rate)
+        out.append(torch.randperm(W, generator=legacy_generator(
+            cfg.seed, prng.ROLE_LOCAL, t, prng.ROLE_SWAP)))
+    return tuple(out)
+
+
 def reference_rounds(label, cfg, part, rounds, tol=TOL_SCALED,
                      tol_metrics=1e-4, apart=False):
     """Card (kernel path) against CPU (plain path) from one init and one
     stream: ``rounds`` rounds of the CGL or MD-GAN family (with the latter's
-    survival draw and swap permutation, drawn on the host, in the stream);
-    the card must launch ``fused_dstep`` once a round where the config
-    engages it, else never.  ``apart``: ``state_errs``'s."""
+    survival draw and swap permutation in the stream), held on the legacy
+    inputs (above); the same rounds from the seed (each runner's own init,
+    the tree's streams drawn on the host) are reported beside them.  The
+    card must launch ``fused_dstep`` once a round where the config engages
+    it, else never.  ``apart``: ``state_errs``'s."""
     from cglgan_tpu_torch.algos.registry import build_runner
     from cglgan_tpu_torch.core import prng
     from cglgan_tpu_torch.ops import fused_dstep
@@ -1180,25 +1686,39 @@ def reference_rounds(label, cfg, part, rounds, tol=TOL_SCALED,
     W = cfg.num_workers
     gpu = build_runner(cfg, part)
     cpu = build_runner(cfg, part, device="cpu")
-    sg, sc = gpu.init_state(), cpu.init_state()
-    launched = fused_dstep.launches
-    for t in range(rounds):
-        streams = prng.round_streams(cfg, t, L, "cpu")
-        if cfg.algo in ("acgan", "mdgan"):
-            streams = (*streams, prng.survival(cfg, t, W, "cpu"),
-                       prng.swap_permutation(cfg, t, W, "cpu"))
-        sg, mg = gpu.round_fn(sg, streams)
-        sc, mc = cpu.round_fn(sc, streams)
-    launches = fused_dstep.launches - launched
+
+    def run(legacy):
+        sg, sc = gpu.init_state(), cpu.init_state()
+        if legacy:
+            sg, sc = legacy_state(cfg, sg), legacy_state(cfg, sc)
+        launched = fused_dstep.launches
+        for t in range(rounds):
+            if legacy:
+                streams = legacy_streams(cfg, t, L)
+            else:
+                streams = prng.round_streams(cfg, t, L, "cpu")
+                if cfg.algo in ("acgan", "mdgan"):
+                    streams = (*streams, prng.survival(cfg, t, W, "cpu"),
+                               prng.swap_permutation(cfg, t, W, "cpu"))
+            sg, mg = gpu.round_fn(sg, streams)
+            sc, mc = cpu.round_fn(sc, streams)
+        merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
+        return (state_errs(sg, sc, apart), merr,
+                fused_dstep.launches - launched)
+
+    seed_errs, seed_merr, _ = run(False)
+    errs, merr, launches = run(True)
     expect = rounds if fused_dstep.eligible(cfg) else 0
-    errs = state_errs(sg, sc, apart)
-    merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
     # same math on two devices, sums in another order: as in the kernel
     # phase, scaled by each tensor's max; float32 metrics 1e-4 absolute
     res = {"phase": "reference", "algo": label, "dtype": cfg.dtype,
            "rounds": rounds, "fused_dstep_launches": launches,
            "max_scaled_err": errs, "tol_scaled": tol,
-           "metrics_max_abs_err": merr, "tol_metrics": tol_metrics}
+           "metrics_max_abs_err": merr, "tol_metrics": tol_metrics,
+           "from_seed": {"max_scaled_err": seed_errs,
+                         "metrics_max_abs_err": seed_merr,
+                         "within_tol": not (over_limit(seed_errs, tol)
+                                            or seed_merr > tol_metrics)}}
     emit(res)
     if over_limit(errs, tol) or merr > tol_metrics or launches != expect:
         raise AssertionError(f"card and CPU rounds disagree: {res}")
@@ -1344,6 +1864,7 @@ def phase_rounds(phase, label, algo, base, epoch, part, rounds=ROUNDS,
     from cglgan_tpu_torch.evalx.evaluator import make_evaluator
     from cglgan_tpu_torch.models.zoo import models_for_config
     from cglgan_tpu_torch.ops import fused_dstep, fused_sweep
+    from cglgan_tpu_torch.ops import threefry as tk
     from cglgan_tpu_torch.utils.profiling import profile_rounds
 
     cfg = FedGANConfig(algo=algo, epoch=epoch, **base, **extra)
@@ -1353,20 +1874,22 @@ def phase_rounds(phase, label, algo, base, epoch, part, rounds=ROUNDS,
                   evaluator=False)["state"]                # warm-up rounds
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_dstep.launches = fused_sweep.launches = 0
+    fused_dstep.launches = fused_sweep.launches = tk.launches = 0
     t0 = time.perf_counter()
     out = train(runner, rounds, eval_every=10, state=state, evaluator=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_dstep.launches
+    launches, threefry_launches = fused_dstep.launches, tk.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
     finite_metrics(out["history"])
     uses_kernel = fused_dstep.eligible(cfg)
     expect = rounds if uses_kernel else 0
-    if launches != expect or fused_sweep.launches:
+    if launches != expect or fused_sweep.launches or \
+            threefry_launches < rounds:
         raise AssertionError(f"{label} epoch={epoch} {extra}: fused_dstep "
                              f"launches {launches}, expected {expect}; "
-                             f"fused_sweep {fused_sweep.launches}")
+                             f"fused_sweep {fused_sweep.launches}; "
+                             f"threefry {threefry_launches}")
     # painter semantics: n // S samples a server
     n = (16 if cfg.is_image else 10000) // cfg.num_servers * cfg.num_servers
     samples = runner.sample(out["state"], n)
@@ -1383,6 +1906,7 @@ def phase_rounds(phase, label, algo, base, epoch, part, rounds=ROUNDS,
            "wall_s": wall, "rounds_per_s": rounds / wall,
            "fused_dstep_launches": launches,
            "fused_sweep_launches": fused_sweep.launches,
+           "threefry_launches": threefry_launches,
            "uses_kernel": uses_kernel,
            "last_tick": out["history"][-1], "peak_mem_gb": peak}
     if not cfg.is_image:
@@ -1470,6 +1994,7 @@ def phase_fedavg(algo, use_kernel, phase="fedavg", **extra):
     from cglgan_tpu_torch.core.config import FedGANConfig
     from cglgan_tpu_torch.evalx import hist2d
     from cglgan_tpu_torch.ops import fused_sweep
+    from cglgan_tpu_torch.ops import threefry as tk
     from cglgan_tpu_torch.utils.profiling import profile_rounds
 
     workers = {"frac_workers": 0.5} if algo == "fegan" else {}
@@ -1483,17 +2008,19 @@ def phase_fedavg(algo, use_kernel, phase="fedavg", **extra):
                   evaluator=False)["state"]                # warm-up rounds
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_sweep.launches = 0
+    fused_sweep.launches = tk.launches = 0
     t0 = time.perf_counter()
     out = train(runner, ROUNDS, eval_every=10, state=state, evaluator=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_sweep.launches
+    threefry_launches = tk.launches
     finite_metrics(out["history"])
     expect = ROUNDS if use_kernel else 0
-    if launches != expect:
+    if launches != expect or threefry_launches < ROUNDS:
         raise AssertionError(f"{algo}: fused_sweep launches {launches}, "
-                             f"expected {expect}")
+                             f"expected {expect}; threefry "
+                             f"{threefry_launches}")
     n = 10000
     pts = runner.sample(out["state"], n)
     if tuple(pts.shape) != (n, 2) or not bool(torch.isfinite(pts).all()) \
@@ -1513,6 +2040,7 @@ def phase_fedavg(algo, use_kernel, phase="fedavg", **extra):
            "shards": list(part.data.shape), "setup_s": setup_s,
            "rounds": ROUNDS, "wall_s": wall, "rounds_per_s": ROUNDS / wall,
            "fused_sweep_launches": launches,
+           "threefry_launches": threefry_launches,
            "uses_kernel": fused_sweep.eligible(cfg),
            "last_tick": out["history"][-1],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1765,7 +2293,6 @@ def phase_fedavg_image(part):
 # mean / covariance of them as much.  FID is a difference of traces over a
 # rank-deficient product (100 samples in 256-d) and is held relatively,
 # 1e-4; IS, from softmax posteriors, 1e-5 relative.
-TOL_NORMAL_ULPS = 3
 TOL_EVAL_FEATURES = 1e-5
 TOL_EVAL_FID = 1e-4
 TOL_EVAL_IS = 1e-5
@@ -2441,10 +2968,10 @@ def phase_inception(card, part_main, part_conv):
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    all_phases = ("dstep", "dstep_bf16", "sweep", "adam", "reference",
-                  "main", "eval_image", "fedavg", "fedavg_image", "cgl",
-                  "mdgan", "bf16", "conv", "conv_baselines", "conv_bf16",
-                  "inception")
+    all_phases = ("dstep", "dstep_bf16", "sweep", "adam", "threefry",
+                  "reference", "main", "draws", "eval_image", "fedavg",
+                  "fedavg_image", "cgl", "mdgan", "bf16", "conv",
+                  "conv_baselines", "conv_bf16", "inception")
     ap.add_argument("--phases", default=",".join(all_phases),
                     help="comma-separated subset of: " + " ".join(all_phases))
     phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
@@ -2461,6 +2988,7 @@ def main(argv=None):
     from cglgan_tpu_torch.data import native
     from cglgan_tpu_torch.ops import (_build, fused_adam, fused_dstep,
                                       fused_sweep)
+    from cglgan_tpu_torch.ops import threefry as tk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2493,9 +3021,6 @@ def main(argv=None):
         done["sweep"] = phase_kernel_sweep(name)
     if run("adam"):
         done["adam"], done["adam_launches"] = phase_kernel_adam(name)
-    if run("reference"):
-        phase_reference()
-        phase_reference_fedavg()
     parts = {}
 
     def part_of(algo, base):
@@ -2511,16 +3036,29 @@ def main(argv=None):
                   else "numpy", "shards": list(parts[key].data.shape)})
         return parts[key]
 
+    if run("threefry"):
+        done["threefry"] = phase_kernel_threefry(
+            name, part_of("flgan", FEDAVG_MNIST))
+    if run("reference"):
+        phase_reference()
+        phase_reference_fedavg()
+        seed_round()
     if run("main"):
         part = part_of("capgan", MAIN)
-        _, done["dstep_launches"] = phase_rounds("main", "capgan", "capgan",
-                                                 MAIN, 5, part)
-        phase_rounds("autograd", "capgan", "capgan", MAIN, 1, part)
+        res, done["dstep_launches"] = phase_rounds(
+            "main", "capgan", "capgan", MAIN, 5, part)
+        done["threefry_launches"] = res["threefry_launches"]
+        res, _ = phase_rounds("autograd", "capgan", "capgan", MAIN, 1, part)
+        done["threefry_launches capgan e1"] = res["threefry_launches"]
+    if run("draws"):
+        phase_draws(part_of("capgan", MAIN))
     if run("eval_image"):
         done["dstep_launches capgan eval"] = phase_eval_image(
             card, part_of("capgan", MAIN))
     if run("fedavg"):
-        _, done["sweep_launches"] = phase_fedavg("flgan", True)
+        res, done["sweep_launches"] = phase_fedavg("flgan", True)
+        done["threefry_launches flgan 2dmg kernel"] = \
+            res["threefry_launches"]
         phase_fedavg("flgan", False)
         phase_fedavg("fegan", True)
         phase_fedavg("fegan", False)
@@ -2607,6 +3145,21 @@ def main(argv=None):
         # the three init/step steps over a two-leaf tree (one launch a step)
         entry(fused_adam, done["adam_launches"], done["adam"], adam_f32,
               adam_f32["library_ms"])]
+    # threefry: launches from the CAP-GAN main path (its count set to 0
+    # just before), the largest draw's time; no PyTorch call computes
+    # JAX's threefry (torch.randn is Philox: printed for scale only)
+    tf = done["threefry"]
+    kernels.append({
+        "name": "threefry", "route": "cuda", "source": tk.SOURCE,
+        "replaces": tk.REPLACES, "launches": done["threefry_launches"],
+        "max_abs_err": max(v["max_abs_err"] for v in tf["errors"].values()),
+        "ms": tf["kernel_ms"], "plain_ms": tf["plain_ms"],
+        "bound_ms": tf["bound_ms"], "bound_by": tf["bound_by"],
+        "library_ms": None,
+        "launches_by_path": {
+            "capgan": done["threefry_launches"],
+            **{k.split(" ", 1)[1]: v for k, v in done.items()
+               if k.startswith("threefry_launches ")}}})
     if any(k["launches"] < 1 for k in kernels) or \
             min(dstep["launches_by_path"].values()) < 1 or \
             min(dstep_bf16["launches_by_path"].values()) < 1:

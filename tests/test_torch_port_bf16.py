@@ -34,7 +34,7 @@ from cglgan_tpu.models import nn as jnn
 from cglgan_tpu.ops.pallas import fused_dstep as jfused
 from cglgan_tpu_torch.algos import common
 from cglgan_tpu_torch.algos.registry import build_runner
-from cglgan_tpu_torch.core import dtypes
+from cglgan_tpu_torch.core import dtypes, threefry
 from cglgan_tpu_torch.core.config import FedGANConfig
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.models import nn
@@ -233,7 +233,7 @@ def test_dcgan_reinit_keeps_bf16():
              "b": torch.ones((3, 128), dtype=torch.bfloat16)},
             {"scale": torch.zeros((3, 128), dtype=torch.bfloat16),
              "bias": torch.ones((3, 128), dtype=torch.bfloat16)}]
-    out = nn.dcgan_reinit(torch.Generator().manual_seed(0), tree)
+    out = nn.dcgan_reinit(threefry.split(threefry.key(0), 3), tree)
     assert all(x.dtype == torch.bfloat16 for x in tree_leaves(out))
     assert abs(float(out[0]["w"].float().std()) - 0.02) < 2e-3
     assert abs(float(out[1]["scale"].float().mean()) - 1.0) < 2e-3

@@ -32,6 +32,7 @@ from cglgan_tpu.models import nn as jnn
 from cglgan_tpu.models import zoo as jzoo
 from cglgan_tpu_torch.algos.registry import build_runner
 from cglgan_tpu_torch.algos.runner import train
+from cglgan_tpu_torch.core import threefry
 from cglgan_tpu_torch.core.config import FedGANConfig
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.models import nn, zoo
@@ -126,18 +127,22 @@ def test_multipath_generator_matches(family, train):
     for a, b in zip(got_l, ref_l):
         np.testing.assert_allclose(a.numpy(), np.asarray(b),
                                    rtol=TOL_FWD[0], atol=TOL_FWD[1])
-    # the port's own init: trunk (S, ...), heads (S, k, ...)
-    gp, gbn = g.init(torch.Generator().manual_seed(0), S)
+    # the port's own init from the same keys: trunk (S, ...), heads (S, k,
+    # ...), the reference's uniform draws bit for bit
+    gp, gbn = g.init(threefry.split(threefry.key(0), S))
     assert all(x.shape[:2] == (S, k) for x in tree_leaves(gp["heads"]))
-    assert [tuple(x.shape) for x in tree_leaves(gp["trunk"])] == \
-        [tuple(np.shape(x)) for x in jax.tree.leaves(p["trunk"])]
+    for a, b in zip(tree_leaves(gp), jax.tree.leaves(p), strict=True):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_dcgan_reinit_statistics_and_rank_rule():
     """Weights ~ N(0, 0.02), BN scales ~ N(1, 0.02), linear and BN biases
-    0, conv biases (sibling weight of rank 4 a member) untouched; the same
-    leaves as the reference's, by path, on stacked (N, ...) and multipath
-    (S, k, ...) leaves."""
+    0, conv biases (sibling weight of rank 4 in a member's tree) untouched,
+    on stacked (N, ...) and multipath (S, k, ...) leaves; member n from key
+    n equals the reference's ``dcgan_reinit`` of that member's tree (the
+    normals within 3 ulps, every other leaf bit for bit), the heads' conv
+    bias, whose weight has rank 5 in a member's tree, zeroed as the
+    reference zeroes it."""
     n = 3
     rng = np.random.default_rng(0)
     f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)
@@ -147,11 +152,18 @@ def test_dcgan_reinit_statistics_and_rank_rule():
         None,
         {"w": f32(*lead, 16, 8, 3, 3), "b": f32(*lead, 16)}]      # conv
     tree = {"trunk": one((n,)), "heads": one((n, 2))}
-    port = nn.dcgan_reinit(torch.Generator().manual_seed(5),
+    port = nn.dcgan_reinit(threefry.split(threefry.key(5), n),
                            tree_map(_t, tree))
-    # the reference on one unstacked member
-    ref = jnn.dcgan_reinit(jax.random.key(5),
-                           jax.tree.map(lambda x: x[0], tree["trunk"]))
+    # the reference, a member a key
+    members = jax.vmap(jnn.dcgan_reinit)(
+        jax.random.split(jax.random.key(5), n), tree)
+    for a, b in zip(tree_leaves(port), jax.tree.leaves(members),
+                    strict=True):
+        a, b = a.numpy(), np.asarray(b)
+        ulps = np.abs(a.view(np.int32).astype(np.int64)
+                      - b.view(np.int32).astype(np.int64))
+        assert ulps.max() <= 3
+    ref = jax.tree.map(lambda x: x[0], members["trunk"])
     for lead, sub in (((n,), port["trunk"]), ((n, 2), port["heads"])):
         src = tree["trunk"] if len(lead) == 1 else tree["heads"]
         for w in (sub[0]["w"], sub[3]["w"]):
@@ -160,7 +172,10 @@ def test_dcgan_reinit_statistics_and_rank_rule():
         assert abs(float(sub[1]["scale"].mean()) - 1.0) < 2e-3
         assert abs(float(sub[1]["scale"].std()) - 0.02) < 2e-3
         assert not sub[0]["b"].any() and not sub[1]["bias"].any()
-        np.testing.assert_array_equal(sub[3]["b"].numpy(), src[3]["b"])
+        if len(lead) == 1:
+            np.testing.assert_array_equal(sub[3]["b"].numpy(), src[3]["b"])
+        else:
+            assert not sub[3]["b"].any()
         assert sub[2] is None
         assert all(tuple(a.shape) == np.shape(b) for a, b in
                    zip(tree_leaves(sub), jax.tree.leaves(src)))

@@ -213,10 +213,11 @@ def test_conv_generators_match(family, train):
     assert len(tree_leaves(new_s)) == len(ref_l)
     for i, (a, b) in enumerate(zip(tree_leaves(new_s), ref_l)):
         _close(a.numpy(), b, TOL_FWD, f"bn leaf {i}")
-    # the port's own init has the reference's tree, leaf for leaf
-    gp, gbn = g.init(torch.Generator().manual_seed(0), n)
-    assert [tuple(x.shape) for x in tree_leaves(gp)] == \
-        [tuple(np.shape(x)) for x in jax.tree.leaves(p)]
+    # the port's own init from the same keys is the reference's, bit for
+    # bit, leaf for leaf
+    gp, gbn = g.init(threefry.split(threefry.key(0), n))
+    for a, b in zip(tree_leaves(gp), jax.tree.leaves(p), strict=True):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert [tuple(x.shape) for x in tree_leaves(gbn)] == \
         [tuple(np.shape(x)) for x in jax.tree.leaves(s)]
 

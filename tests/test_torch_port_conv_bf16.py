@@ -37,7 +37,7 @@ from cglgan_tpu.models import nn as jnn
 from cglgan_tpu.models import zoo as jzoo
 from cglgan_tpu_torch.algos.registry import build_runner
 from cglgan_tpu_torch.algos.runner import train
-from cglgan_tpu_torch.core import dtypes
+from cglgan_tpu_torch.core import dtypes, threefry
 from cglgan_tpu_torch.core.config import FedGANConfig
 from cglgan_tpu_torch.evalx.evaluator import make_evaluator
 from cglgan_tpu_torch.models import nn, zoo
@@ -198,11 +198,13 @@ def test_conv_generators_bf16_match(family, train):
         assert a.dtype == torch.bfloat16
         worst = max(worst, _steps_apart(a, r))
     assert worst <= TOL_FWD_STEPS, worst
-    # the port's own bf16 init has the reference's tree and dtype
-    gp, _ = g.init(torch.Generator().manual_seed(0), n, torch.bfloat16)
-    assert [tuple(x.shape) for x in tree_leaves(gp)] == \
-        [tuple(np.shape(x)) for x in jax.tree.leaves(p)]
+    # the port's own bf16 init from the same keys is the reference's, bit
+    # for bit, in bf16
+    gp, _ = g.init(threefry.split(threefry.key(0), n), torch.bfloat16)
     assert all(x.dtype == torch.bfloat16 for x in tree_leaves(gp))
+    for a, b in zip(tree_leaves(gp), jax.tree.leaves(p), strict=True):
+        np.testing.assert_array_equal(a.float().numpy(),
+                                      np.asarray(b, np.float32))
 
 
 @pytest.mark.parametrize("train,flat", [(True, True), (True, False),

@@ -32,6 +32,7 @@ from cglgan_tpu.fed import sampling as jsampling
 from cglgan_tpu.models import zoo as jzoo
 from cglgan_tpu_torch.algos import registry
 from cglgan_tpu_torch.algos.runner import train
+from cglgan_tpu_torch.core import threefry
 from cglgan_tpu_torch.core.config import FedGANConfig
 from cglgan_tpu_torch.data import gmm
 from cglgan_tpu_torch.data.partition import Partition
@@ -84,8 +85,11 @@ def test_2dmg_models_match(kind, family, din):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
                                 atol=ATOL)
     assert all(entry is None for entry in state)          # no BatchNorm
-    # the port's own init has the reference's layout and bounds
-    ip, istate = m.init(torch.Generator().manual_seed(0), n)
+    # the port's own init from the same keys: the reference's layout,
+    # bounds and bits
+    ip, istate = m.init(threefry.split(threefry.key(4), n))
+    for a, b in zip(tree_leaves(ip), jax.tree.leaves(p), strict=True):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     for a, ref_p in zip(ip, p):
         assert (a is None) == (ref_p is None)
         if a is not None:
@@ -121,9 +125,10 @@ def test_gmm_modes_bit_equal(n_class):
 
 
 def test_gmm_dataset_statistics():
-    """What the function promises (its bits differ from threefry's):
-    label-sorted float32 rows, multinomial class counts, per-mode mean and
-    std; the same seed gives the same data, another seed other data."""
+    """What the function promises: label-sorted float32 rows, multinomial
+    class counts, per-mode mean and std; the same seed gives the same data,
+    another seed other data (its bits are the reference's draw:
+    ``tests/test_torch_port_prng_tree.py``)."""
     n_class, per = 8, 1000
     data, labels = gmm.gmm_dataset(n_class, per, seed=3)
     ref_data, ref_labels = jgmm.gmm_dataset(n_class, per, seed=3)

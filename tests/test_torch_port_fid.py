@@ -107,7 +107,7 @@ def test_keyed_inits_bit_equal():
         key, jkey = threefry.key(seed), jax.random.key(seed)
         for got, ref in ((nn.conv_init(key, 32, 64, 3),
                           jnn.conv_init(jkey, 32, 64, 3)),
-                         (nn.keyed_linear_init(key, 3136, 128),
+                         (nn.linear_init(key, 3136, 128),
                           jnn.linear_init(jkey, 3136, 128))):
             for name in ("w", "b"):
                 assert np.array_equal(got[name].numpy(),
