@@ -71,7 +71,7 @@ def train(runner: Runner,
             state, m = runner.round_fn(state)
             acc = dict(m) if acc is None else \
                 {key: acc[key] + m[key] for key in acc}
-        keys = list(acc)
+        keys = sorted(acc)      # the reference's order (jax.tree sorts keys)
         means = (torch.stack([acc[key] for key in keys]) / interval).tolist()
         done += interval
         tick: Dict[str, Any] = dict(zip(keys, means))

@@ -1,0 +1,660 @@
+"""tpufed-torch — the experiment harness CLI of the PyTorch/CUDA port.
+
+Port of ``cglgan_tpu/cli.py``, with the same knob names, run dirs and
+commands:
+
+    tpufed-torch run capgan --dataset synthetic-mnist --num-workers 16 \
+                            --iid 1 --epoch 5 --batch-size 100 --rounds 20000
+    tpufed-torch run flgan --dataset 2dmg --pallas-sweep on ...
+    tpufed-torch run capgan ... --resume logger/<run>/ckpt_10000
+
+``run`` builds the partition and the runner, trains with an eval tick
+every ``--num-plt`` rounds, and writes the reference's run dir:
+``config.json``, ``metrics.jsonl`` / ``.csv`` / ``.xlsx``, per-device
+previews, a sample artifact a tick, ``ckpt_<round>`` whenever a
+``--ckpt-every`` multiple is crossed and ``ckpt_final``; the same command
+with ``--resume`` continues a run bit for bit.  It runs on the card unless
+``--device cpu`` asks for the host, and raises without a card.  The
+reference's ``--platform`` is ``--device`` here, and ``--compile-cache``
+names the directory the CUDA kernels are built into.  Also ``sweep``,
+``eval``, ``compare``, ``doctor`` and ``fid-stats``; ``export``,
+``import-torch``, ``run --init-from-torch``, ``bench`` and ``plot`` are
+not ported yet.
+
+The top-level imports load no torch, so ``doctor`` can probe a card whose
+initialisation hangs.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from cglgan_tpu_torch.core.config import (ALGOS, DATASETS, FedGANConfig,
+                                          WEIGHTINGS)
+
+PREFIX = "[tpufed-torch]"
+
+
+def _add_run_args(p: argparse.ArgumentParser, with_algo: bool = True) -> None:
+    if with_algo:
+        p.add_argument("algo", choices=ALGOS)
+    p.add_argument("--dataset", default="2dmg", choices=DATASETS)
+    p.add_argument("--num-workers", type=int, default=10)
+    p.add_argument("--num-servers", type=int, default=1)
+    p.add_argument("--num-class", type=int, default=10)
+    p.add_argument("--num-sample", type=int, default=1000)
+    p.add_argument("--iid", type=int, default=1, choices=(0, 1, 2))
+    p.add_argument("--batch-size", type=int, default=100)
+    p.add_argument("--frac-workers", type=float, default=1.0)
+    p.add_argument("--epoch", type=int, default=1)
+    p.add_argument("-E", "--E", type=int, default=0, dest="E",
+                   help="gossip/D-share period in rounds (0 = off)")
+    p.add_argument("-c", "--cloud-epoch", type=int, default=1)
+    p.add_argument("-s", "--segema", type=float, default=0.0)
+    p.add_argument("--rounds", type=int, default=None,
+                   help="num_communication override (default: 10000 for 2dmg, "
+                        "20000 for images — the reference scales)")
+    p.add_argument("--num-plt", type=int, default=None,
+                   help="eval cadence (default: 100 for 2dmg, 500 for images)")
+    p.add_argument("--lr-g", type=float, default=2e-4)
+    p.add_argument("--lr-d", type=float, default=2e-4)
+    p.add_argument("--b1", type=float, default=0.5, help="Adam beta1")
+    p.add_argument("--b2", type=float, default=0.999, help="Adam beta2")
+    p.add_argument("--lr-lambda", type=float, default=0.1,
+                   help="SGD lr for the Lambda game variable")
+    p.add_argument("--img-size", type=int, default=28)
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "bfloat16"),
+                   help="param/activation dtype (JAX's bfloat16 rounding "
+                        "rules, core/dtypes.py)")
+    p.add_argument("--force-dtype", action="store_true",
+                   help="override the bfloat16+2dmg fidelity guard")
+    p.add_argument("--seed", type=int, default=20211212)
+    p.add_argument("--weighting", default=None, choices=WEIGHTINGS)
+    p.add_argument("--gossip", default="mean", choices=("mean", "delta"),
+                   help="AC-GAN every-E-rounds exchange: 'mean' = block "
+                        "average of client Ds; 'delta' = the reference "
+                        "sketch's delta-accumulating exchange "
+                        "(ACGAN/MNIST/acgan.py:240-263)")
+    p.add_argument("--d-swap", default="ring", choices=("ring", "shuffle"),
+                   help="MD-GAN E-round D-swap: deterministic ring permute "
+                        "or the reference's seeded random shuffle")
+    p.add_argument("--dropout-rate", type=float, default=0.0,
+                   help="P(client misses a round) — straggler simulation "
+                        "(flgan/mdgan/acgan/fegan)")
+    p.add_argument("--conv", action="store_true",
+                   help="use the conv LSGAN G/D pair (model/lsgan.py parity)")
+    p.add_argument("--data-dir", default=None,
+                   help="directory with MNIST IDX files (else synthetic)")
+    p.add_argument("--inception-weights", default=None,
+                   help="torchvision inception_v3 state dict (.npz or .pth) "
+                        "for reference-comparable FID (else: proxy features)")
+    p.add_argument("--fid-stats", default=None,
+                   help=".npz with precomputed real-image mu/sigma "
+                        "activation stats (pytorch-fid format)")
+    p.add_argument("--out", default="./logger", help="run-dir root")
+    p.add_argument("--name", default=None, help="run-dir name")
+    p.add_argument("--ckpt-every", type=int, default=5000,
+                   help="checkpoint cadence in rounds (reference: 5000)")
+    p.add_argument("--resume", default=None,
+                   help="path to a checkpoint to resume from")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; cpu runs on the host "
+                        "only when asked)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="shard clients over the first N devices "
+                        "(0 = single-device; not ported yet)")
+    p.add_argument("--model-shards", type=int, default=1,
+                   help="tensor-parallel generator shards (1 = off; not "
+                        "ported yet)")
+    p.add_argument("--pallas-dstep", default="auto",
+                   choices=("auto", "on", "off"),
+                   help="the fused local-D-epoch CUDA kernel "
+                        "(ops/csrc/fused_dstep.cu; auto = on when eligible "
+                        "and epoch>1)")
+    p.add_argument("--pallas-sweep", default="auto",
+                   choices=("auto", "on", "off"),
+                   help="the fused local D/G-sweep CUDA kernel for 2DMG "
+                        "flgan/fegan (ops/csrc/fused_sweep.cu; auto/off = "
+                        "autograd path, on = force the kernel)")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace of one tick's rounds "
+                        "under <run>/profile")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="also stream per-tick metrics as TensorBoard "
+                        "scalars under <run>/tb/")
+    p.add_argument("--from-config", default=None, metavar="CONFIG_JSON",
+                   help="load the full knob set verbatim from a run dir's "
+                        "config.json for an exact rerun (other knob flags "
+                        "are ignored; runtime flags --out/--name/--devices/"
+                        "--resume/... still apply)")
+    _add_cache_arg(p)
+
+
+def _add_cache_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--compile-cache", default="auto", metavar="DIR|off",
+                   help="directory the CUDA kernels are built into and "
+                        "loaded from (auto = build/torch_kernels under the "
+                        "repository; off = a fresh directory for this "
+                        "process, removed at exit)")
+
+
+def _enable_compile_cache(args) -> None:
+    """Point the kernel build at ``--compile-cache`` before any build."""
+    val = getattr(args, "compile_cache", "auto")
+    if val == "auto":
+        return
+    from cglgan_tpu_torch.ops import _build
+    if val.strip().lower() in ("off", "0", "none", ""):
+        import atexit
+        import shutil
+        import tempfile
+        path = tempfile.mkdtemp(prefix="torch_kernels-")
+        atexit.register(shutil.rmtree, path, True)
+        val = path
+    _build.set_build_dir(val)
+
+
+def cfg_from_args(args) -> FedGANConfig:
+    fc = getattr(args, "from_config", None)
+    if fc:
+        # exact rerun of an archived run: every run dir saves its frozen
+        # config as config.json
+        import json
+        with open(fc) as f:
+            d = json.load(f)
+        if args.algo != d.get("algo"):
+            raise SystemExit(f"{PREFIX} --from-config holds a "
+                             f"{d.get('algo')!r} config but the command "
+                             f"says {args.algo!r}")
+        print(f"{PREFIX} config loaded verbatim from {fc} "
+              f"(other knob flags ignored; runtime flags still apply)")
+        return FedGANConfig(**d)
+    is_image = args.dataset != "2dmg"
+    rounds = args.rounds if args.rounds is not None else (
+        20000 if is_image else 10000)
+    num_plt = args.num_plt if args.num_plt is not None else (
+        500 if is_image else 100)
+    return FedGANConfig(
+        algo=args.algo, dataset=args.dataset, num_workers=args.num_workers,
+        num_servers=args.num_servers, num_class=args.num_class,
+        num_sample=args.num_sample, iid=args.iid, batch_size=args.batch_size,
+        frac_workers=args.frac_workers, epoch=args.epoch,
+        E=args.E, cloud_epoch=args.cloud_epoch, segema=args.segema,
+        num_communication=rounds, num_plt=num_plt, lr_g=args.lr_g,
+        lr_d=args.lr_d, b1=args.b1, b2=args.b2, lr_lambda=args.lr_lambda,
+        img_size=args.img_size, seed=args.seed, weighting=args.weighting,
+        conv=args.conv, data_dir=args.data_dir,
+        dropout_rate=args.dropout_rate, dtype=args.dtype,
+        model_shards=getattr(args, "model_shards", 1),
+        d_swap=getattr(args, "d_swap", "ring"),
+        gossip=getattr(args, "gossip", "mean"),
+        force_dtype=getattr(args, "force_dtype", False),
+        pallas_dstep={"auto": None, "on": True, "off": False}[
+            getattr(args, "pallas_dstep", "auto")],
+        pallas_sweep={"auto": None, "on": True, "off": False}[
+            getattr(args, "pallas_sweep", "auto")])
+
+
+def _device_name(dev) -> str:
+    import torch
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _host_samples(samples):
+    """A sample tensor as float32 numpy (bfloat16 samples exactly)."""
+    return samples.detach().float().cpu().numpy()
+
+
+def cmd_run(args) -> int:
+    _execute_run(args)
+    return 0
+
+
+def _execute_run(args) -> dict:
+    """One training run; returns {"run_dir": path, "final": last tick dict}."""
+    import numpy as np
+
+    from cglgan_tpu_torch.algos.registry import build_runner, load_partition
+    from cglgan_tpu_torch.algos.runner import train
+    from cglgan_tpu_torch.core import device as device_mod
+    from cglgan_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+    from cglgan_tpu_torch.utils.imaging import save_image_grid, save_scatter_2d
+    from cglgan_tpu_torch.utils.logging import RunDir
+
+    dev = device_mod.resolve(args.device)     # raises without a card
+    cfg = cfg_from_args(args)
+    if args.devices or cfg.model_shards > 1:
+        from cglgan_tpu_torch.algos.common import check_supported
+        check_supported(cfg, mesh=args.devices)   # raises: item 17
+    synthetic = cfg.dataset in ("mnist", "fashion-mnist") and not cfg.data_dir
+    if synthetic:
+        print(f"{PREFIX} WARNING: no --data-dir given for {cfg.dataset}; "
+              "falling back to the deterministic synthetic glyph dataset "
+              "(same shapes/cardinality, not handwriting)")
+    if cfg.dtype == "bfloat16" and cfg.dataset == "2dmg":
+        # construction only succeeds here with force_dtype=True
+        print(f"{PREFIX} WARNING: --force-dtype bfloat16 on 2DMG; fidelity "
+              "results from this run are not reference-comparable")
+    part = load_partition(cfg)
+    runner = build_runner(cfg, part, device=dev)
+    state = runner.init_state()
+    if args.resume:
+        state = restore_checkpoint(args.resume, state)
+        print(f"{PREFIX} resumed from {args.resume} at round {state.t}")
+    # a resume into the same run dir drops the ticks it will log again
+    run_dir = RunDir(args.out, args.name, cfg,
+                     tensorboard=getattr(args, "tensorboard", False),
+                     resume_round=state.t if args.resume else None)
+    if synthetic:
+        # a permanent marker, so that a run dir on the glyph bank is never
+        # taken for a run on the real data
+        with open(run_dir.file("DATA_SOURCE.txt"), "w") as f:
+            f.write(
+                f"dataset={cfg.dataset} trained on the DETERMINISTIC "
+                "SYNTHETIC GLYPH BANK (cglgan_tpu_torch/data/mnist.py), not "
+                "the real dataset.  Shapes, cardinality, label structure "
+                "and Non-IID partitions match the real sets; pixel content "
+                "does not.  Metrics are comparable across runs on the glyph "
+                "bank, NOT to runs on the real data.  Pass --data-dir with "
+                "the IDX files to train on real data.\n")
+    print(f"{PREFIX} run dir: {run_dir.path}")
+    print(f"{PREFIX} device: {dev} ({_device_name(dev)})")
+    print(f"{PREFIX} shards: {part.lengths.tolist()}")
+
+    # per-device distribution previews (CGLGAN/MNIST/main.py:499-501)
+    img_side = cfg.img_size + 4 if cfg.conv else cfg.img_size
+    for i in range(min(cfg.num_workers, 32)):
+        L = int(part.lengths[i])
+        sel = part.data[i, :min(L, 100)]
+        if cfg.is_image:
+            save_image_grid(sel.reshape(-1, img_side, img_side).astype(
+                np.float32) / 255.0,
+                            run_dir.file(f"device_{i}.png"), normalize=False)
+        else:
+            save_scatter_2d(run_dir.file(f"device_{i}.png"), sel)
+
+    eval_pool = np.asarray(part.eval_pool)
+    last_ckpt = [state.t]
+
+    def on_tick(t, tick, cur_state):
+        msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(tick.items())
+                       if isinstance(v, float))
+        print(f"{PREFIX} round {t}: {msg}")
+        run_dir.log(tick)
+        samples = _host_samples(runner.sample(cur_state,
+                                              min(100, cfg.num_sample)))
+        if cfg.is_image:
+            save_image_grid(samples, run_dir.file(f"{t}.png"))
+        else:
+            save_scatter_2d(run_dir.file(f"{t}.png"), eval_pool[:2000],
+                            samples)
+        # checkpoint whenever a ckpt_every multiple is crossed (exact
+        # divisibility by the tick cadence not required)
+        if args.ckpt_every and t // args.ckpt_every > \
+                last_ckpt[0] // args.ckpt_every:
+            save_checkpoint(run_dir.file(f"ckpt_{t}"), cur_state)
+            last_ckpt[0] = t
+
+    remaining = cfg.num_communication - state.t
+    if remaining <= 0:
+        print(f"{PREFIX} nothing to do (state already past "
+              "num_communication)")
+        return {"run_dir": run_dir.path, "final": {}}
+
+    if args.profile:
+        from cglgan_tpu_torch.utils.profiling import trace
+        with trace(run_dir.file("profile"), dev):
+            train(runner, rounds=min(cfg.num_plt, remaining), state=state,
+                  evaluator=False)
+        print(f"{PREFIX} profile written to {run_dir.file('profile')}")
+        return {"run_dir": run_dir.path, "final": {}}
+
+    # the single source of eval truth: library callers get the same metrics
+    from cglgan_tpu_torch.evalx.evaluator import make_evaluator
+    evaluator = make_evaluator(cfg, part,
+                               fid_stats=args.fid_stats,
+                               inception_weights=args.inception_weights,
+                               device=dev)
+    if cfg.is_image:
+        space = "inception-pool3" if args.inception_weights else "proxy-conv"
+        print(f"{PREFIX} FID feature space: {space}"
+              + (f", real stats from {args.fid_stats}" if args.fid_stats
+                 else ""))
+
+    out = train(runner, rounds=remaining, state=state, on_tick=on_tick,
+                evaluator=evaluator)
+    state = out["state"]
+    save_checkpoint(run_dir.file("ckpt_final"), state)
+    run_dir.close()
+    hist = out["history"]
+    print(f"{PREFIX} done: {state.t} rounds in {hist[-1]['wall_s']:.1f}s"
+          if hist else f"{PREFIX} done")
+    return {"run_dir": run_dir.path, "final": hist[-1] if hist else {}}
+
+
+def cmd_sweep(args) -> int:
+    """Sweep algos x datasets x iid in one invocation — the reference's
+    ``__main__`` loops (CGLGAN/MNIST/main.py:459-535, fegan.py:454-554) —
+    and write one comparison table (sweep_summary.xlsx/csv) across all
+    runs, rewritten after every run."""
+    import copy
+    import time
+
+    from cglgan_tpu_torch.utils.xlsx import write_xlsx
+
+    if getattr(args, "from_config", None):
+        # a frozen config would silently override the swept dataset/iid
+        raise SystemExit(f"{PREFIX} --from-config is for single runs; "
+                         "sweep builds each sub-run's config itself")
+    algos = [a.strip() for a in args.algos.split(",") if a.strip()]
+    datasets = [d.strip() for d in args.datasets.split(",") if d.strip()]
+    iids = [int(x) for x in args.iids.split(",")]
+    for a in algos:
+        if a not in ALGOS:
+            raise SystemExit(f"unknown algo {a!r}")
+    root = os.path.join(
+        args.out, time.strftime("%Y-%m-%d_%H-%M-%S") + "-sweep")
+    os.makedirs(root, exist_ok=True)
+
+    summaries = []
+    for dataset in datasets:
+        for iid in iids:
+            for algo in algos:
+                sub = copy.copy(args)
+                sub.algo, sub.dataset, sub.iid = algo, dataset, iid
+                sub.out = root
+                sub.name = f"{algo}-{dataset}-iid{iid}"
+                if algo == "mdgan" and args.num_servers != 1:
+                    # mdgan has one central generator by definition
+                    sub.num_servers = 1
+                    print(f"{PREFIX} {sub.name}: num_servers forced to 1")
+                print(f"{PREFIX} === sweep {sub.name} ===")
+                res = _execute_run(sub)
+                row = {"algo": algo, "dataset": dataset, "iid": iid,
+                       "run_dir": res["run_dir"]}
+                row.update({k: v for k, v in res["final"].items()
+                            if isinstance(v, (int, float))})
+                summaries.append(row)
+                # partial table after every run: a crash loses nothing
+                write_xlsx(os.path.join(root, "sweep_summary.xlsx"),
+                           summaries)
+                _write_summary_csv(os.path.join(root, "sweep_summary.csv"),
+                                   summaries)
+
+    _print_summary_table(summaries, "sweep summary")
+    print(f"{PREFIX} table: {os.path.join(root, 'sweep_summary.xlsx')}")
+    return 0
+
+
+def _print_summary_table(rows, label: str) -> None:
+    cols = []           # union across rows, first-appearance order
+    for r in rows:
+        cols += [k for k in r if k != "run_dir" and k not in cols]
+    print(f"{PREFIX} {label}:")
+    print("  " + " | ".join(cols))
+    for row in rows:
+        print("  " + " | ".join(
+            f"{row.get(c):.4f}" if isinstance(row.get(c), float)
+            else str(row.get(c, "")) for c in cols))
+
+
+def cmd_compare(args) -> int:
+    """Tabulate run dirs (the port's or the reference's: the same files)
+    into one comparison table of each run's last tick, without retraining
+    anything."""
+    import json
+
+    from cglgan_tpu_torch.utils.xlsx import write_xlsx
+
+    rows = []
+    for d in args.run_dirs:
+        cfg_p = os.path.join(d, "config.json")
+        met_p = os.path.join(d, "metrics.jsonl")
+        if not (os.path.isfile(cfg_p) and os.path.isfile(met_p)):
+            print(f"{PREFIX} skipping {d}: no config.json + metrics.jsonl")
+            continue
+        with open(cfg_p) as f:
+            cfg = json.load(f)
+        last = None
+        with open(met_p) as f:
+            for line in f:
+                if line.strip():
+                    last = json.loads(line)
+        if last is None:
+            print(f"{PREFIX} skipping {d}: empty metrics.jsonl")
+            continue
+        # data provenance: image runs without --data-dir train on the
+        # glyph bank (the run dir carries DATA_SOURCE.txt)
+        ds = cfg.get("dataset")
+        if ds == "2dmg":
+            src = "gmm"
+        elif os.path.isfile(os.path.join(d, "DATA_SOURCE.txt")) \
+                or ds == "synthetic-mnist" or not cfg.get("data_dir"):
+            src = "glyphs"
+        else:
+            src = "idx"
+        row = {"algo": cfg.get("algo"), "dataset": ds, "data": src,
+               "iid": cfg.get("iid"), "run_dir": d}
+        row.update({k: v for k, v in last.items()
+                    if isinstance(v, (int, float))})
+        rows.append(row)
+    if not rows:
+        raise SystemExit(f"{PREFIX} no usable run dirs")
+    rows.sort(key=lambda r: (str(r["dataset"]), str(r["iid"]),
+                             str(r["algo"])))
+    _print_summary_table(rows, f"comparison ({len(rows)} runs)")
+    if args.out:
+        write_xlsx(args.out + ".xlsx", rows)
+        _write_summary_csv(args.out + ".csv", rows)
+        print(f"{PREFIX} table: {args.out}.xlsx / .csv")
+    return 0
+
+
+def _write_summary_csv(path: str, rows) -> None:
+    import csv
+    fields = []
+    for r in rows:
+        for k in r:
+            if k not in fields:
+                fields.append(k)
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=fields)
+        w.writeheader()
+        w.writerows(rows)
+
+
+def cmd_eval(args) -> int:
+    """Score a saved checkpoint: rebuild the runner from the run dir's
+    config.json, restore, sample, and report the workload's metrics."""
+    import json
+
+    from cglgan_tpu_torch.algos.registry import build_runner, load_partition
+    from cglgan_tpu_torch.core import device as device_mod
+    from cglgan_tpu_torch.evalx.evaluator import make_evaluator
+    from cglgan_tpu_torch.utils.checkpoint import restore_checkpoint
+    from cglgan_tpu_torch.utils.imaging import save_image_grid, save_scatter_2d
+
+    dev = device_mod.resolve(args.device)
+    run_dir = os.path.dirname(os.path.abspath(args.checkpoint))
+    with open(os.path.join(run_dir, "config.json")) as f:
+        cfg = FedGANConfig(**json.load(f))
+    part = load_partition(cfg)   # loaded once, shared with the runner
+    runner = build_runner(cfg, part, device=dev)
+    state = restore_checkpoint(args.checkpoint, runner.init_state())
+    print(f"{PREFIX} checkpoint at round {state.t}")
+    samples = runner.sample(state, args.n)
+    host = _host_samples(samples)
+    out = args.out or os.path.join(run_dir, f"eval_{state.t}")
+    report = {"round": state.t, "n": args.n}
+    if cfg.is_image:
+        side = cfg.img_size + 4 if cfg.conv else cfg.img_size
+        save_image_grid(host.reshape(-1, 1, side, side)[:100], out + ".png")
+    else:
+        save_scatter_2d(out + ".png", part.eval_pool[:2000], host)
+    evaluator = make_evaluator(
+        cfg, part, eval_n=args.n, fid_stats=args.fid_stats,
+        inception_weights=args.inception_weights, device=dev)
+    # reuse the samples already drawn for the artifact (same fixed-z draw)
+    report.update(evaluator(runner, state, samples=samples))
+    print(json.dumps(report))
+    return 0
+
+
+def cmd_doctor(args) -> int:
+    """Environment diagnosis: versions, a BOUNDED probe of the card (in a
+    killable subprocess: a hung initialisation never hangs this one), the
+    kernel build directory and the native dataplane.  Prints one JSON
+    object; exit 0 iff the device probed (the card, unless ``--device
+    cpu``) answered."""
+    import json
+    import sys as _sys
+
+    report = {"python": _sys.version.split()[0]}
+    import torch
+    report["torch"] = torch.__version__
+
+    from cglgan_tpu_torch.utils import backend_probe
+    status, info = backend_probe.probe(timeout=args.probe_timeout,
+                                       device=args.device)
+    if status == "ok":
+        report["backend"] = info
+    elif status == "timeout":
+        report["backend"] = {
+            "error": f"unresponsive (device init exceeded "
+                     f"{args.probe_timeout}s)"}
+    else:
+        report["backend"] = {"error": info}
+
+    from cglgan_tpu_torch.ops import _build
+    build_dir = _build.BUILD_DIR
+    entries = (sorted(os.listdir(build_dir)) if os.path.isdir(build_dir)
+               else [])
+    report["kernel_build"] = {"dir": build_dir, "entries": len(entries),
+                              "libraries": [e for e in entries
+                                            if e.endswith(".so")]}
+
+    from cglgan_tpu_torch.data import native
+    report["native_dataplane"] = native.load_library() is not None
+
+    print(json.dumps(report, indent=1))
+    return 0 if "error" not in report["backend"] else 1
+
+
+def cmd_fid_stats(args) -> int:
+    """Precompute real-image activation statistics for ``--fid-stats``:
+    the dataset (IDX files via --data-dir, else the synthetic glyph bank)
+    through the active feature extractor (InceptionV3 pool3 with
+    --inception-weights, else the proxy conv embedding the evaluator
+    defaults to) over --n images, written as pytorch-fid's ``.npz``
+    (mu, sigma)."""
+    import numpy as np
+
+    from cglgan_tpu_torch.core import device as device_mod
+    from cglgan_tpu_torch.data.mnist import load_image_dataset
+    from cglgan_tpu_torch.evalx.fid import (activation_stats,
+                                            conv_feature_extractor)
+    from cglgan_tpu_torch.evalx.inception import save_fid_stats
+
+    dev = device_mod.resolve(args.device)
+    if args.data_dir is None and args.dataset in ("mnist", "fashion-mnist"):
+        print(f"{PREFIX} WARNING: no --data-dir given for {args.dataset}; "
+              "computing stats over the synthetic glyph bank — only valid "
+              "against runs using the same synthetic fallback")
+    data, _labels = load_image_dataset(args.dataset, args.data_dir)
+    sel = np.random.default_rng(args.seed).permutation(len(data))[:args.n]
+    if args.conv:
+        # conv runs train and evaluate at the 2px-zero-padded resolution
+        # (algos/registry.py load_partition); stats must be at that side
+        data = np.pad(data, ((0, 0), (2, 2), (2, 2)))
+    side = data.shape[-1]
+    imgs = data[sel].astype(np.float32) / 255.0
+    imgs = ((imgs - 0.5) / 0.5).reshape(-1, 1, side, side)
+    if args.inception_weights:
+        from cglgan_tpu_torch.evalx.inception import (inception_extractor,
+                                                      load_inception_weights)
+        extractor = inception_extractor(
+            load_inception_weights(args.inception_weights, dev))
+    else:
+        extractor = conv_feature_extractor(side, device=dev)
+    mu, sigma = activation_stats(extractor, imgs)
+    save_fid_stats(args.out, mu, sigma, side=side)
+    print(f"{PREFIX} wrote {args.out}: mu ({mu.shape[0]},), "
+          f"sigma {sigma.shape}, {len(imgs)} images")
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="tpufed-torch",
+                                     description=__doc__.splitlines()[0])
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    prun = sub.add_parser("run", help="train one algorithm")
+    _add_run_args(prun)
+    prun.set_defaults(fn=cmd_run)
+    psweep = sub.add_parser(
+        "sweep", help="run algos x datasets x iid in one invocation and "
+                      "emit a comparison table (the reference __main__ loops)")
+    _add_run_args(psweep, with_algo=False)
+    psweep.add_argument("--algos", default="cglgan",
+                        help="comma list, e.g. cglgan,capgan,flgan")
+    psweep.add_argument("--datasets", default="2dmg",
+                        help="comma list, e.g. 2dmg,mnist,fashion-mnist")
+    psweep.add_argument("--iids", default="1,2",
+                        help="comma list of iid settings, e.g. 1,2")
+    psweep.set_defaults(fn=cmd_sweep)
+    peval = sub.add_parser("eval", help="score a saved checkpoint")
+    _add_cache_arg(peval)
+    peval.add_argument("checkpoint", help="path to a checkpoint file inside "
+                                          "a run dir")
+    peval.add_argument("--n", type=int, default=1000)
+    peval.add_argument("--out", default=None)
+    peval.add_argument("--device", default=None,
+                       help="torch device (default cuda)")
+    peval.add_argument("--inception-weights", default=None)
+    peval.add_argument("--fid-stats", default=None)
+    peval.set_defaults(fn=cmd_eval)
+    pcomp = sub.add_parser(
+        "compare", help="tabulate run dirs into one comparison table "
+                        "(final-tick metrics per run)")
+    pcomp.add_argument("run_dirs", nargs="+",
+                       help="run directories (each with config.json + "
+                            "metrics.jsonl)")
+    pcomp.add_argument("--out", default=None,
+                       help="also write <out>.xlsx and <out>.csv")
+    pcomp.set_defaults(fn=cmd_compare)
+    pdoc = sub.add_parser(
+        "doctor", help="diagnose the environment: versions, bounded CUDA "
+                       "probe, kernel build directory, native dataplane")
+    _add_cache_arg(pdoc)
+    pdoc.add_argument("--device", default=None,
+                      help="probe this torch device, cuda or cpu (default "
+                           "cuda)")
+    pdoc.add_argument("--probe-timeout", type=int, default=60,
+                      help="seconds before declaring the card unresponsive")
+    pdoc.set_defaults(fn=cmd_doctor)
+    pstats = sub.add_parser(
+        "fid-stats", help="precompute real-image FID statistics "
+                          "(.npz consumable via run/eval --fid-stats)")
+    pstats.add_argument("--dataset", default="mnist",
+                        choices=[d for d in DATASETS if d != "2dmg"])
+    pstats.add_argument("--data-dir", default=None)
+    pstats.add_argument("--n", type=int, default=10000)
+    pstats.add_argument("--seed", type=int, default=20211212)
+    pstats.add_argument("--inception-weights", default=None)
+    pstats.add_argument("--conv", action="store_true",
+                        help="compute stats at the 2px-padded resolution "
+                             "conv runs evaluate at (pass iff the consuming "
+                             "run uses --conv)")
+    pstats.add_argument("--device", default=None,
+                        help="torch device (default cuda)")
+    pstats.add_argument("--out", required=True, help="output .npz path")
+    pstats.set_defaults(fn=cmd_fid_stats)
+    args = parser.parse_args(argv)
+    _enable_compile_cache(args)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

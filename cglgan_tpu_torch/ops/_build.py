@@ -7,6 +7,8 @@ The hash covers the source, every header under ``csrc/`` it includes and the
 flags, so an edited source or header rebuilds.
 Nothing is built at import time: ``load`` builds on first use, and
 ``build_all`` starts one ``nvcc`` per source, all at once.
+``set_build_dir`` moves the build directory (the CLI's
+``--compile-cache``) before the first build.
 """
 from __future__ import annotations
 
@@ -29,6 +31,14 @@ KERNELS = ("fused_dstep", "fused_sweep", "fused_adam", "threefry")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def set_build_dir(path: str) -> str:
+    """Build into (and load from) ``path`` from now on; returns it
+    absolute.  A library already loaded in this process stays loaded."""
+    global BUILD_DIR
+    BUILD_DIR = os.path.abspath(os.path.expanduser(path))
+    return BUILD_DIR
 
 
 def nvcc() -> str:

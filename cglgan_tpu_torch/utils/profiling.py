@@ -8,14 +8,35 @@ lower bound.  The sums read the profiler's raw device events, not
 ``key_averages()``: building its event tree takes minutes for a round of
 ~250 000 launches (the ragged FedAvg sweep on MNIST shapes).
 ``chip_smoke.py`` holds the two to the same names, counts and times on one
-round.  Used by ``chip_smoke.py``.
+round.  Used by ``chip_smoke.py``.  ``trace`` writes a block's trace for
+the CLI's ``run --profile`` (the reference's ``jax.profiler`` trace,
+``cglgan_tpu/utils/profiling.py``).
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Any, Dict, Tuple
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str, device: torch.device):
+    """``torch.profiler`` over the block (host and, on the card, device
+    activity), written as a Chrome trace to ``<logdir>/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device.type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 def device_kernel_sums(prof) -> Dict[str, Tuple[float, int]]:

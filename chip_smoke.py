@@ -161,7 +161,20 @@ Phases, each printing one JSON line:
             20), epoch=5 auto and epoch=1 (autograd: it must stay 0),
             CGL-GAN (20 workers / 5 servers) and MD-GAN (10 workers) at
             epoch=5 forced and FL-GAN on 2DMG (``force_dtype``, default
-            path), 20 rounds each.
+            path), 20 rounds each;
+  cli       the CLI, ``cglgan_tpu_torch.cli.main`` called in process:
+            ``run capgan`` on the main config at epoch=5 (``fused_dstep``)
+            and ``run flgan --dataset 2dmg --pallas-sweep on`` (16 workers,
+            ``fused_sweep``), 40 rounds, a tick and a checkpoint every 20,
+            then each resumed from its ``ckpt_20`` to round 40 in a second
+            run dir (the kernel's count, set to 0 just before each run,
+            must rise by 40 and by 20; both ``ckpt_final`` restored on the
+            card and held bit for bit, every leaf, with the params' and
+            moments' largest difference against each group's scale
+            reported; the tick's rounds/s, checkpoint MB and save and
+            restore seconds); ``eval`` of the CAP-GAN ``ckpt_final``,
+            ``compare`` of the four run dirs and ``doctor`` (exit 0, naming
+            the card).
 The round phases also profile a few further rounds (device time by kernel,
 busy share; ``cglgan_tpu_torch/utils/profiling.py``).
 Each phase prints ``{"starting": name}`` before it runs.  Then the card
@@ -169,7 +182,7 @@ line, the ``kernels`` line and, last, the ok line.  Any failure raises and
 exits non-zero; without a card it exits 2 and prints no result.
 ``--phases a,b`` runs only the named phases (of ``dstep dstep_bf16 sweep
 adam threefry reference main draws eval_image fedavg fedavg_image cgl mdgan
-bf16 conv conv_baselines conv_bf16 inception``)
+bf16 conv conv_baselines conv_bf16 inception cli``)
 for a short first look at a new kernel; the
 ``kernels`` and ok lines are printed only by a full run.  Imports nothing
 of JAX.
@@ -2965,13 +2978,182 @@ def phase_inception(card, part_main, part_conv):
     emit(res)
 
 
+# The CLI phase: the main config and the FL-GAN 2DMG kernel path through
+# ``python -m cglgan_tpu_torch.cli run``, called in process so that the
+# wrappers' counts can be read; 40 rounds, a tick and a checkpoint every
+# 20, then the same command resumed from its ckpt_20 in a second run dir.
+CLI_RUN = ("--rounds", "40", "--num-plt", "20", "--ckpt-every", "20")
+CLI_CAPGAN = ("run", "capgan", "--dataset", "synthetic-mnist",
+              "--num-workers", "16", "--num-servers", "1", "--iid", "1",
+              "--batch-size", "100", "--epoch", "5")
+CLI_FLGAN = ("run", "flgan", "--dataset", "2dmg", "--num-workers", "16",
+             "--num-class", "8", "--num-sample", "1000", "--batch-size",
+             "100", "--iid", "1", "--epoch", "5", "--pallas-sweep", "on")
+
+
+def cli_call(argv):
+    """``cglgan_tpu_torch.cli.main(argv)`` in this process with its output
+    kept; returns (output lines, seconds).  A non-zero exit raises, and
+    any failure prints the command's output before it propagates."""
+    import contextlib
+    import io
+    from cglgan_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv))
+    except BaseException:
+        print(buf.getvalue()[-4000:], file=sys.stderr, flush=True)
+        raise
+    if rc != 0:
+        print(buf.getvalue()[-4000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"tpufed-torch {' '.join(argv[:2])} exited "
+                             f"{rc}")
+    return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def cli_run_and_resume(card, root, label, argv, counter):
+    """``argv`` to round 40 in ``<root>/<label>-full`` (ticks at 20 and
+    40, ``ckpt_20``, ``ckpt_40``, ``ckpt_final``); then the same command
+    resumed from that run's ``ckpt_20`` to round 40 in a second run dir,
+    ``<root>/<label>-resumed``.  ``counter``: the kernel module whose count,
+    set to 0 just before each, the full run must raise by 40 and the
+    resumed one by 20.  The two ckpt_final states, restored on the card,
+    are held bit for bit, every leaf (BN buffers, Adam counts, ``lam``
+    and ``t`` too); where they differ, the largest difference of the
+    params and moments against each group's scale says by how much."""
+    import json
+
+    import numpy as np
+    import torch
+    from cglgan_tpu_torch.algos.registry import build_runner, load_partition
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+    from cglgan_tpu_torch.utils.transplant import to_numpy
+    from cglgan_tpu_torch.utils.tree import tree_leaves
+
+    full = os.path.join(root, f"{label}-full")
+    resumed = os.path.join(root, f"{label}-resumed")
+    out = lambda d: ("--out", root, "--name", os.path.basename(d))
+    counter.launches = 0
+    _, full_s = cli_call((*argv, *CLI_RUN, *out(full)))
+    launches = counter.launches
+    counter.launches = 0
+    _, resumed_s = cli_call((*argv, *CLI_RUN, "--resume",
+                             os.path.join(full, "ckpt_20"), *out(resumed)))
+    second = counter.launches
+    if (launches, second) != (40, 20):
+        raise AssertionError(f"{label}: {counter.__name__} launches "
+                             f"{launches} (full), {second} (resumed); "
+                             f"expected 40, 20")
+    ticks = [[json.loads(line) for line in open(os.path.join(d,
+                                                             "metrics.jsonl"))]
+             for d in (full, resumed)]
+    if [[t["round"] for t in ts] for ts in ticks] != [[20, 40], [40]]:
+        raise AssertionError(f"{label}: tick rounds {ticks}")
+    finite_metrics(ticks[0] + ticks[1])
+    with open(os.path.join(full, "config.json")) as f:
+        cfg = FedGANConfig(**json.load(f))
+    runner = build_runner(cfg, load_partition(cfg))
+    template = runner.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = restore_checkpoint(os.path.join(full, "ckpt_final"), template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = restore_checkpoint(os.path.join(resumed, "ckpt_final"), template)
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(root, f"{label}-timed"), ref)
+    save_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(os.path.join(root, f"{label}-timed")) / 1e6
+
+    # every leaf, BN buffers, Adam counts, lam and t included (bf16 as
+    # float32, exactly)
+    a = tree_leaves(to_numpy(got, bf16="float32"))
+    b = tree_leaves(to_numpy(ref, bf16="float32"))
+    bit_equal = got.t == ref.t == 40 and len(a) == len(b) and all(
+        np.array_equal(x, y) for x, y in zip(a, b))
+    errs = state_errs(got, ref)
+    if not bit_equal:
+        raise AssertionError(f"{label}: resumed state not bit-equal to the "
+                             f"uninterrupted one (t {got.t} / {ref.t}; "
+                             f"params, mu, nu off by {errs} of their "
+                             f"group's scale)")
+    tick = ticks[0][-1]
+    res = {"phase": "cli", "path": label, "card": card, "argv": list(argv),
+           "kernel": counter.__name__.rsplit(".", 1)[1],
+           "launches_full": launches, "launches_resumed": second,
+           "full_s": full_s, "resumed_s": resumed_s,
+           "tick_rounds_per_s": tick["rounds_per_s"],
+           "tick_wall_s": tick["wall_s"],
+           "resumed_bit_equal": bit_equal,
+           "resumed_errs_over_group_scale": errs,
+           "ckpt_mb": size_mb, "ckpt_save_s": save_s,
+           "ckpt_restore_s": restore_s, "last_tick": tick,
+           "resumed_last_tick": ticks[1][-1]}
+    emit(res)
+    return res
+
+
+def phase_cli(card):
+    """The CLI's ``run`` at full width on the main config (``fused_dstep``)
+    and on the FL-GAN 2DMG kernel path (``fused_sweep``), each with a
+    resume held to the uninterrupted run; ``eval`` of the CAP-GAN
+    ``ckpt_final``; ``compare`` over the four run dirs; ``doctor``, which
+    must exit 0 naming the card.  Returns {path: launches of the full
+    run}."""
+    import json
+    import shutil
+    import tempfile
+
+    import torch
+    from cglgan_tpu_torch.ops import fused_dstep, fused_sweep
+
+    root = tempfile.mkdtemp(prefix="cli-phase-")
+    try:
+        cap = cli_run_and_resume(card, root, "capgan", CLI_CAPGAN,
+                                 fused_dstep)
+        fl = cli_run_and_resume(card, root, "flgan", CLI_FLGAN, fused_sweep)
+        lines, eval_s = cli_call(("eval", os.path.join(root, "capgan-full",
+                                                       "ckpt_final"),
+                                  "--n", "100"))
+        report = json.loads(lines[-1])
+        if report["round"] != 40 or not {"fid", "inception_score"} <= \
+                set(report) or not all(math.isfinite(report[k])
+                                       for k in ("fid", "inception_score")):
+            raise AssertionError(f"eval: {report}")
+        dirs = [os.path.join(root, f"{a}-{b}") for a in ("capgan", "flgan")
+                for b in ("full", "resumed")]
+        _, compare_s = cli_call(("compare", *dirs, "--out",
+                                 os.path.join(root, "compare")))
+        with open(os.path.join(root, "compare.csv")) as f:
+            rows = f.read().strip().splitlines()
+        if len(rows) != 5:
+            raise AssertionError(f"compare: {rows}")
+        lines, doctor_s = cli_call(("doctor",))
+        doctor = json.loads("\n".join(lines))
+        name = torch.cuda.get_device_name(0)
+        if doctor["backend"].get("device_kind") != name:
+            raise AssertionError(f"doctor: {doctor}")
+        emit({"phase": "cli", "card": card, "eval": report,
+              "eval_s": eval_s, "compare_rows": len(rows) - 1,
+              "compare_s": compare_s, "doctor": doctor,
+              "doctor_s": doctor_s})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"capgan": cap["launches_full"], "flgan": fl["launches_full"]}
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     all_phases = ("dstep", "dstep_bf16", "sweep", "adam", "threefry",
                   "reference", "main", "draws", "eval_image", "fedavg",
                   "fedavg_image", "cgl", "mdgan", "bf16", "conv",
-                  "conv_baselines", "conv_bf16", "inception")
+                  "conv_baselines", "conv_bf16", "inception", "cli")
     ap.add_argument("--phases", default=",".join(all_phases),
                     help="comma-separated subset of: " + " ".join(all_phases))
     phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
@@ -3103,6 +3285,10 @@ def main(argv=None):
             part_of("mdgan", MDGAN_MNIST), pallas_dstep=True, **bf)
         phase_fedavg("flgan", False, phase="bf16", force_dtype=True, **bf)
         phase_reference_bf16()
+    if run("cli"):
+        cli_launches = phase_cli(card)
+        done["dstep_launches cli capgan"] = cli_launches["capgan"]
+        done["sweep_launches cli flgan"] = cli_launches["flgan"]
     if len(phases) != len(all_phases):
         print(card, flush=True)
         emit({"partial": phases})
@@ -3136,11 +3322,17 @@ def main(argv=None):
         "capgan bf16": done["dstep_bf16_launches"],
         "cglgan bf16": done["dstep_bf16_launches cglgan"],
         "mdgan bf16": done["dstep_bf16_launches mdgan"]}
+    # the FL-GAN pair's shape; launches from its 20 kernel-path rounds, and
+    # the CLI's FL-GAN 2DMG run beside them
+    sweep = entry(fused_sweep, done["sweep_launches"], done["sweep"],
+                  done["sweep"][0], None)
+    sweep["launches_by_path"] = {
+        "flgan": done["sweep_launches"],
+        **{k.split(" ", 1)[1]: v for k, v in done.items()
+           if k.startswith("sweep_launches ")}}
     kernels = [
         dstep, dstep_bf16,
-        # the FL-GAN pair's shape; launches from its 20 kernel-path rounds
-        entry(fused_sweep, done["sweep_launches"], done["sweep"],
-              done["sweep"][0], None),
+        sweep,
         # float32 moments (the mode with a library call); launches from
         # the three init/step steps over a two-leaf tree (one launch a step)
         entry(fused_adam, done["adam_launches"], done["adam"], adam_f32,
@@ -3162,6 +3354,7 @@ def main(argv=None):
                if k.startswith("threefry_launches ")}}})
     if any(k["launches"] < 1 for k in kernels) or \
             min(dstep["launches_by_path"].values()) < 1 or \
+            min(sweep["launches_by_path"].values()) < 1 or \
             min(dstep_bf16["launches_by_path"].values()) < 1:
         raise AssertionError(f"a kernel was never launched: {kernels}")
     print(card, flush=True)
