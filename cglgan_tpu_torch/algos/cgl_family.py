@@ -255,9 +255,11 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
         per = z.shape[0] // S
         out, _ = g_model.apply(state.g.params, state.g.bn,
                                z.reshape(S, per, zdim), train=False)
+        # copies by ``cat``, not ``reshape``: torch.export then keeps the
+        # batch symbolic down to one row a server (``utils/export.py``)
         if multipath:
-            out = out.reshape((S, k * per) + tuple(out.shape[3:]))[:, ::k]
-        return out.reshape((S * per,) + tuple(out.shape[2:]))
+            out = torch.cat(out.unbind(1), dim=1)[:, ::k]
+        return torch.cat(out.unbind(0))
 
     @torch.no_grad()
     def gen_client(state: FedState, z, client: int):

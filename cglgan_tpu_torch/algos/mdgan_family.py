@@ -230,7 +230,7 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
         per = z.shape[0] // S
         out, _ = g_model.apply(state.g.params, state.g.bn,
                                z.reshape(S, per, zdim), train=False)
-        return out.reshape((S * per,) + tuple(out.shape[2:]))
+        return torch.cat(out.unbind(0))
 
     def sample(state: FedState, n: int):
         """Eval samples: each server gives n/S (the painter pools the

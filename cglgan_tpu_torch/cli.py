@@ -17,9 +17,19 @@ with ``--resume`` continues a run bit for bit.  It runs on the card unless
 ``--device cpu`` asks for the host, and raises without a card.  The
 reference's ``--platform`` is ``--device`` here, and ``--compile-cache``
 names the directory the CUDA kernels are built into.  Also ``sweep``,
-``eval``, ``compare``, ``doctor`` and ``fid-stats``; ``export``,
-``import-torch``, ``run --init-from-torch``, ``bench`` and ``plot`` are
-not ported yet.
+``eval``, ``compare``, ``plot``, ``doctor`` and ``fid-stats``, and the
+serving and migration commands:
+
+    tpufed-torch export logger/<run>/ckpt_final --n 0 --out g.pt2
+    tpufed-torch import-torch G.pt --samples s.png --export g.pt2
+    tpufed-torch run capgan ... --init-from-torch G0.pt,G1.pt
+
+``export`` writes a ``torch.export`` program of the trained generator
+(``utils/export.py``; the reference's ``--platform`` / ``--platforms``
+are ``--device``: a program is traced for one device), ``import-torch``
+reads a reference ``torch.save(net_g.state_dict())`` file
+(``utils/torch_import.py``) and ``--init-from-torch`` starts a run from
+such files.  ``bench`` is not ported yet.
 
 The top-level imports load no torch, so ``doctor`` can probe a card whose
 initialisation hangs.
@@ -34,6 +44,10 @@ from cglgan_tpu_torch.core.config import (ALGOS, DATASETS, FedGANConfig,
                                           WEIGHTINGS)
 
 PREFIX = "[tpufed-torch]"
+# mirrors models.zoo.GEN_SPECS (asserted equal in the tests): the CLI's
+# top-level imports load no torch
+GEN_SPECS = ("2dmg-small", "2dmg-mlp", "2dmg-multipath", "mnist-mlp",
+             "mnist-multipath", "conv", "conv-multipath")
 
 
 def _add_run_args(p: argparse.ArgumentParser, with_algo: bool = True) -> None:
@@ -99,6 +113,10 @@ def _add_run_args(p: argparse.ArgumentParser, with_algo: bool = True) -> None:
                    help="checkpoint cadence in rounds (reference: 5000)")
     p.add_argument("--resume", default=None,
                    help="path to a checkpoint to resume from")
+    p.add_argument("--init-from-torch", default=None,
+                   help="comma list of reference .pt generator state_dicts "
+                        "to warm-start from (one per stacked G, or one to "
+                        "broadcast); optimizer state starts fresh")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs on the host "
                         "only when asked)")
@@ -225,6 +243,10 @@ def _execute_run(args) -> dict:
     from cglgan_tpu_torch.utils.logging import RunDir
 
     dev = device_mod.resolve(args.device)     # raises without a card
+    init_pts = getattr(args, "init_from_torch", None)
+    if init_pts and args.resume:
+        raise SystemExit("--init-from-torch and --resume are mutually "
+                         "exclusive (a checkpoint already has generators)")
     cfg = cfg_from_args(args)
     if args.devices or cfg.model_shards > 1:
         from cglgan_tpu_torch.algos.common import check_supported
@@ -241,6 +263,12 @@ def _execute_run(args) -> dict:
     part = load_partition(cfg)
     runner = build_runner(cfg, part, device=dev)
     state = runner.init_state()
+    if init_pts:
+        from cglgan_tpu_torch.utils.torch_import import warm_start_generators
+        paths = [p.strip() for p in init_pts.split(",") if p.strip()]
+        state = warm_start_generators(state, paths)
+        print(f"{PREFIX} generators warm-started from {len(paths)} "
+              f"reference checkpoint(s)")
     if args.resume:
         state = restore_checkpoint(args.resume, state)
         print(f"{PREFIX} resumed from {args.resume} at round {state.t}")
@@ -503,6 +531,214 @@ def cmd_eval(args) -> int:
     return 0
 
 
+# Categorical series palette, fixed slot order assigned by run position —
+# never cycled, never re-sorted (the ordering is the colorblind-safety
+# mechanism).  Runs beyond 8 series must facet, not reuse hues; numeric
+# values always remain available as the table view (``compare``).
+_SERIES_PALETTE = ("#2a78d6", "#eb6834", "#1baf7a", "#eda100",
+                   "#e87ba4", "#008300", "#4a3aa7", "#e34948")
+
+
+def cmd_plot(args) -> int:
+    """Render run dirs' metric trajectories into one comparison figure —
+    the cross-run view of ``compare``, as curves (one line per run, one
+    panel per metric).  Uses no device.
+
+        tpufed-torch plot logger/mnist-iid2-* --out plots/iid2.png
+    """
+    import json
+
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise SystemExit(f"{PREFIX} plot needs matplotlib, which this "
+                         f"Python cannot import ({e})")
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
+    runs = []
+    for d in args.run_dirs:
+        met_p = os.path.join(d, "metrics.jsonl")
+        if not os.path.isfile(met_p):
+            print(f"{PREFIX} skipping {d}: no metrics.jsonl")
+            continue
+        with open(met_p) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        if not rows:
+            print(f"{PREFIX} skipping {d}: empty metrics.jsonl")
+            continue
+        runs.append((os.path.basename(os.path.normpath(d)), rows))
+    if not runs:
+        raise SystemExit(f"{PREFIX} no usable run dirs")
+    if len(runs) > len(_SERIES_PALETTE):
+        raise SystemExit(
+            f"{PREFIX} {len(runs)} runs exceed the {len(_SERIES_PALETTE)} "
+            "validated series slots — facet into several plots instead")
+
+    if args.metrics:
+        metrics = [m.strip() for m in args.metrics.split(",") if m.strip()]
+    else:
+        last = runs[0][1][-1]
+        metrics = (["kl_score", "mode_coverage"] if "kl_score" in last
+                   else ["fid", "inception_score"])
+    fig, axes = plt.subplots(1, len(metrics),
+                             figsize=(6.4 * len(metrics), 4.6),
+                             squeeze=False)
+    plotted = 0
+    for ax, metric in zip(axes[0], metrics):
+        for slot, (label, rows) in enumerate(runs):
+            xs = [r["round"] for r in rows if metric in r]
+            ys = [r[metric] for r in rows if metric in r]
+            if not xs:
+                continue
+            ax.plot(xs, ys, color=_SERIES_PALETTE[slot], linewidth=2,
+                    label=label)
+            plotted += 1
+        if args.logy and metric in ("fid", "kl_score"):
+            ax.set_yscale("log")
+        ax.set_xlabel("round")
+        ax.set_ylabel(metric)
+        ax.grid(True, alpha=0.25, linewidth=0.5)
+        for side in ("top", "right"):
+            ax.spines[side].set_visible(False)
+    if plotted == 0:
+        plt.close(fig)
+        raise SystemExit(f"{PREFIX} no run carries any of {metrics}")
+    axes[0][0].legend(frameon=False, fontsize=8)
+    if args.title:
+        fig.suptitle(args.title)
+    fig.tight_layout()
+    out_dir = os.path.dirname(args.out)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    fig.savefig(args.out, dpi=140)
+    plt.close(fig)
+    print(f"{PREFIX} figure: {args.out} ({len(runs)} runs, "
+          f"panels: {', '.join(metrics)})")
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Export the trained generator as a ``torch.export`` serving artifact
+    (utils/export.py): eval-mode G forward, weights held, callable as
+    z[n, latent] -> samples with no model code or checkpoint.  The program
+    is traced for ``--device``."""
+    import json
+
+    from cglgan_tpu_torch.algos.registry import build_runner
+    from cglgan_tpu_torch.core import device as device_mod
+    from cglgan_tpu_torch.utils.checkpoint import restore_checkpoint
+    from cglgan_tpu_torch.utils.export import (export_client_generator,
+                                               export_generator,
+                                               save_generator)
+
+    dev = device_mod.resolve(args.device)
+    run_dir = os.path.dirname(os.path.abspath(args.checkpoint))
+    with open(os.path.join(run_dir, "config.json")) as f:
+        cfg = FedGANConfig(**json.load(f))
+    runner = build_runner(cfg, device=dev)
+    state = restore_checkpoint(args.checkpoint, runner.init_state())
+    n = args.n if args.n > 0 else None
+    extra = {"algo": cfg.algo, "dataset": cfg.dataset, "round": state.t}
+    if args.client is not None:
+        ep = export_client_generator(runner, state, args.client, n)
+        default_name = f"generator_{state.t}_client{args.client}.pt2"
+        extra["client"] = args.client
+    else:
+        ep = export_generator(runner, state, n)
+        default_name = f"generator_{state.t}.pt2"
+    out = args.out or os.path.join(run_dir, default_name)
+    manifest = save_generator(ep, out, extra)
+    print(json.dumps({"out": out, **manifest}))
+    return 0
+
+
+def cmd_import_torch(args) -> int:
+    """Import a reference ``torch.save(net_g.state_dict())`` checkpoint
+    (the only artifact the reference trainers produce —
+    CGLGAN/MNIST/main.py:191, capgan.py:186-198): detect the generator
+    family from the state_dict, convert to the port's trees, and
+    optionally draw samples, score them and/or export a ``torch.export``
+    serving artifact.  Prints one JSON summary line."""
+    import json
+
+    import numpy as np
+
+    from cglgan_tpu_torch.core import device as device_mod
+    from cglgan_tpu_torch.core import threefry
+    from cglgan_tpu_torch.utils.torch_import import import_generator_file
+    from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    dev = device_mod.resolve(args.device)
+    model, params, state, info = import_generator_file(
+        args.checkpoint, family=args.family,
+        num_heads=args.num_heads,
+        img_shape=((1, args.img_size, args.img_size)
+                   if args.img_size else None), device=dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    report = {"checkpoint": args.checkpoint, **info, "params": n_params}
+    up = lambda tree: tree_map(lambda x: x.unsqueeze(0), tree)
+
+    def forward(seed):
+        # the reference's jax.random.normal(jax.random.key(seed), (n, 100))
+        z = threefry.normal(threefry.key(seed, dev), (args.n, 100))
+        y, _ = model.apply(up(params), up(state), z.unsqueeze(0),
+                           train=False)
+        y = y[0]
+        if model.multipath:
+            # (heads, n, ...) -> (heads*n, ...) interleaved sample-major, so
+            # that any truncation (grid [:100], evaluator [:n]) spans ALL
+            # heads: the multi-path G's mode coverage lives in the head
+            # mixture (mixed-gan.py:242-252)
+            y = y.transpose(0, 1).reshape((-1,) + tuple(y.shape[2:]))
+        return y
+
+    if args.samples:
+        y = _host_samples(forward(args.seed))
+        out_path = args.samples
+        if y.ndim >= 3:       # image families -> grid PNG
+            from cglgan_tpu_torch.utils.imaging import save_image_grid
+            save_image_grid(y.reshape(-1, *y.shape[-3:])[:100], out_path)
+        else:                 # 2DMG points -> raw array (np.save appends
+            # ".npy" to suffix-less paths; normalize first so the reported
+            # path is the file that actually exists)
+            if not out_path.endswith(".npy"):
+                out_path += ".npy"
+            np.save(out_path, y)
+        report["samples"] = out_path
+
+    if args.eval_dataset:
+        # score the imported G with the workload's evaluator: FID /
+        # Inception Score on images, KL / DS / mode coverage on 2DMG
+        from cglgan_tpu_torch.algos.registry import load_partition
+        from cglgan_tpu_torch.evalx.evaluator import make_evaluator
+        img_shape = info["img_shape"]
+        conv = info["family"].startswith("conv")
+        cfg = FedGANConfig(
+            algo="capgan", dataset=args.eval_dataset, conv=conv,
+            img_size=(28 if conv else
+                      (img_shape[-1] if len(img_shape) == 3 else 28)),
+            data_dir=args.data_dir)
+        part = load_partition(cfg)
+        evaluator = make_evaluator(
+            cfg, part, eval_n=args.n, fid_stats=args.fid_stats,
+            inception_weights=args.inception_weights, device=dev)
+        report.update(evaluator(None, None, samples=forward(args.seed + 1)))
+
+    if args.export:
+        from cglgan_tpu_torch.utils.export import (export_imported,
+                                                   save_generator)
+        ep = export_imported(model, params, state,
+                             args.export_n if args.export_n > 0 else None)
+        manifest = save_generator(ep, args.export,
+                                  {"imported_from": args.checkpoint,
+                                   "family": info["family"]})
+        report["export"] = {"out": args.export, **manifest}
+
+    print(json.dumps(report))
+    return 0
+
+
 def cmd_doctor(args) -> int:
     """Environment diagnosis: versions, a BOUNDED probe of the card (in a
     killable subprocess: a hung initialisation never hangs this one), the
@@ -624,6 +860,83 @@ def main(argv=None) -> int:
     pcomp.add_argument("--out", default=None,
                        help="also write <out>.xlsx and <out>.csv")
     pcomp.set_defaults(fn=cmd_compare)
+    pexport = sub.add_parser(
+        "export", help="export the trained generator as a torch.export "
+                       "serving artifact (z -> samples)")
+    _add_cache_arg(pexport)
+    pexport.add_argument("checkpoint", help="path to a checkpoint file "
+                                            "inside a run dir")
+    pexport.add_argument("--n", type=int, default=0,
+                         help="serving batch size baked into the artifact; "
+                              "0 (default) = batch-polymorphic (any "
+                              "multiple of num_servers)")
+    pexport.add_argument("--out", default=None,
+                         help="output path (default "
+                              "<run dir>/generator_<round>.pt2)")
+    pexport.add_argument("--client", type=int, default=None, metavar="C",
+                         help="export client C's PERSONALIZED generator "
+                              "(CGL family: head C%%k of server C//k's G, "
+                              "mixed-gan.py:242-252 routing) instead of "
+                              "the painter blend; any batch size")
+    pexport.add_argument("--device", default=None,
+                         help="torch device the artifact is traced for "
+                              "(default cuda)")
+    pexport.set_defaults(fn=cmd_export)
+    pimp = sub.add_parser(
+        "import-torch",
+        help="import a reference torch.save(net_g.state_dict()) .pt "
+             "checkpoint: detect the generator family, convert to the "
+             "port's trees, optionally sample and/or export")
+    pimp.add_argument("checkpoint", help="path to a reference .pt file")
+    pimp.add_argument("--family", default=None, choices=GEN_SPECS,
+                      help="override the auto-detected generator family")
+    pimp.add_argument("--num-heads", type=int, default=None,
+                      help="override the detected multipath head count")
+    pimp.add_argument("--img-size", type=int, default=None,
+                      help="override the detected square image side")
+    pimp.add_argument("--samples", default=None,
+                      help="write an eval-mode sample artifact here "
+                           "(PNG grid for image families, .npy for 2DMG)")
+    pimp.add_argument("--n", type=int, default=100,
+                      help="latents to draw for --samples")
+    pimp.add_argument("--seed", type=int, default=0)
+    pimp.add_argument("--eval-dataset", default=None, choices=DATASETS,
+                      help="score the imported generator with the standard "
+                           "workload evaluator against this dataset "
+                           "(FID/IS for images, KL/DS/coverage for 2dmg)")
+    pimp.add_argument("--data-dir", default=None,
+                      help="IDX files for real MNIST (--eval-dataset)")
+    pimp.add_argument("--fid-stats", default=None,
+                      help="precomputed real-image (mu, sigma) .npz "
+                           "(--eval-dataset)")
+    pimp.add_argument("--inception-weights", default=None,
+                      help="InceptionV3 weights .npz for reference FID "
+                           "(--eval-dataset)")
+    pimp.add_argument("--export", default=None,
+                      help="also export a torch.export serving artifact "
+                           "here")
+    pimp.add_argument("--export-n", type=int, default=0,
+                      help="serving batch baked into --export; 0 = "
+                           "batch-polymorphic")
+    pimp.add_argument("--device", default=None,
+                      help="torch device (default cuda; --export is traced "
+                           "for it)")
+    pimp.set_defaults(fn=cmd_import_torch)
+    pplot = sub.add_parser(
+        "plot", help="render run dirs' metric trajectories into one "
+                     "comparison figure (one line per run, one panel per "
+                     "metric)")
+    pplot.add_argument("run_dirs", nargs="+",
+                       help="run directories with metrics.jsonl")
+    pplot.add_argument("--metrics", default=None,
+                       help="comma-separated metric keys (default: "
+                            "kl_score,mode_coverage for 2DMG runs; "
+                            "fid,inception_score for image runs)")
+    pplot.add_argument("--out", required=True, help="output .png path")
+    pplot.add_argument("--logy", action="store_true",
+                       help="log y-scale on fid/kl_score panels")
+    pplot.add_argument("--title", default=None)
+    pplot.set_defaults(fn=cmd_plot)
     pdoc = sub.add_parser(
         "doctor", help="diagnose the environment: versions, bounded CUDA "
                        "probe, kernel build directory, native dataplane")

@@ -135,6 +135,14 @@ def _mlp_model(spec, out_dim: int = 1, out_shape=None) -> Model:
     return Model(init, apply, spec, out_dim=out_dim)
 
 
+def _fan_out(x: torch.Tensor, shape) -> torch.Tensor:
+    """``x.reshape(shape)`` where ``x``'s strides force a copy: the same
+    copy and view ``reshape`` makes there, spelled out, so that
+    torch.export keeps the batch symbolic down to 1 (``reshape`` itself
+    branches on the batch being 1; ``utils/export.py``)."""
+    return x.clone(memory_format=torch.contiguous_format).view(shape)
+
+
 def _multipath_model(trunk_spec, head_spec, num_heads: int,
                      out_shape=None) -> Model:
     """Shared trunk, ``num_heads`` heads a member.  The trunk runs once; its
@@ -158,8 +166,9 @@ def _multipath_model(trunk_spec, head_spec, num_heads: int,
                                    state["trunk"], z, train)
         S, B = hidden.shape[0], hidden.shape[1]
         flat = lambda x: x.reshape((S * k,) + tuple(x.shape[2:]))
-        x = hidden.unsqueeze(1).expand((S, k) + tuple(hidden.shape[1:])) \
-            .reshape((S * k,) + tuple(hidden.shape[1:]))
+        x = hidden if k == 1 else _fan_out(
+            hidden.unsqueeze(1).expand((S, k) + tuple(hidden.shape[1:])),
+            (S * k,) + tuple(hidden.shape[1:]))
         y, new_hs = mlp_apply(head_spec, tree_map(flat, params["heads"]),
                               tree_map(flat, state["heads"]), x, train)
         split = lambda t: t.reshape((S, k) + tuple(t.shape[1:]))
@@ -194,7 +203,11 @@ def _conv_trunk_apply(p, s, z, train):
     """z (S, B, 100) -> the second conv's output, grouped (B, S*64, 32, 32),
     and the first BatchNorm's new state."""
     n, b = z.shape[0], z.shape[1]
-    x = nn.to_groups(nn.linear(p["l1"], z).reshape(n, b, 128, 8, 8))
+    x = nn.linear(p["l1"], z).reshape(n, b, 128, 8, 8)
+    # ``nn.to_groups`` of a member-major tensor: the view, or the copy
+    # its ``reshape`` would make
+    x = x.squeeze(0) if n == 1 else _fan_out(x.transpose(0, 1),
+                                             (b, n * 128, 8, 8))
     x = nn.group_conv2d(p["c1"], nn.upsample2x(x))
     x, s1 = nn.batchnorm(p["bn1"], s["bn1"], x, train)
     x = nn.upsample2x(nn.leaky_relu(x))
@@ -242,17 +255,19 @@ def _conv_mixg_model(num_heads: int) -> Model:
         hidden, s1 = _conv_trunk_apply(params["trunk"], state["trunk"], z,
                                        train)
         h, w = hidden.shape[2], hidden.shape[3]
-        x = hidden.reshape(B, S, 1, 64, h, w).expand(B, S, k, 64, h, w) \
-            .reshape(B, S * k * 64, h, w)
+        x = hidden if k == 1 else _fan_out(
+            hidden.reshape(B, S, 1, 64, h, w).expand(B, S, k, 64, h, w),
+            (B, S * k * 64, h, w))
         flat = lambda t: t.reshape((S * k,) + tuple(t.shape[2:]))
         hp, hs = tree_map(flat, params["heads"]), tree_map(flat,
                                                            state["heads"])
         x, new_hs = nn.batchnorm(hp["bn"], hs["bn"], x, train)
         y = torch.tanh(nn.group_conv2d(hp["c"], nn.leaky_relu(x)))
-        y = nn.from_groups(y, S * k)
+        # grouped (B, S*k, H, W) -> (S, k, B, 1, H, W), a view
+        y = y.unflatten(1, (S, k, 1)).permute(1, 2, 0, 3, 4, 5)
         split = lambda t: t.reshape((S, k) + tuple(t.shape[1:]))
-        return split(y), {"trunk": {"bn1": s1},
-                          "heads": {"bn": tree_map(split, new_hs)}}
+        return y, {"trunk": {"bn1": s1},
+                   "heads": {"bn": tree_map(split, new_hs)}}
 
     return Model(init, apply, "conv-multipath", multipath=True)
 
@@ -364,6 +379,10 @@ def build_discriminator(family: str, out_dim: int = 1,
     if family == "conv":     # one raw logit (lsgan.py:92-98): BCE on logits
         return _conv_d_model()
     raise ValueError(f"unknown discriminator family {family!r}")
+
+
+GEN_SPECS = ("2dmg-small", "2dmg-mlp", "2dmg-multipath", "mnist-mlp",
+             "mnist-multipath", "conv", "conv-multipath")
 
 
 def models_for_config(cfg) -> Tuple[Model, Model]:

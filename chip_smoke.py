@@ -174,7 +174,24 @@ Phases, each printing one JSON line:
             reported; the tick's rounds/s, checkpoint MB and save and
             restore seconds); ``eval`` of the CAP-GAN ``ckpt_final``,
             ``compare`` of the four run dirs and ``doctor`` (exit 0, naming
-            the card).
+            the card);
+  serve     serving and migration on the main config: a reference-layout
+            ``mnist-mlp`` G (``nn.Sequential`` under ``model``, seeded, its
+            BN statistics moved) ``torch.save``d; ``warm_start_generators``
+            onto the card's init (G equal to the file bit for bit, Linear
+            weights transposed; D and the optimiser state untouched); ``run
+            capgan ... --epoch 5 --rounds 20 --init-from-torch`` through the
+            CLI (``fused_dstep``'s count, set to 0 just before, must reach
+            20); ``export`` of its ``ckpt_final`` at ``--n 100`` and ``--n
+            0``, served at n = 1, 100 and 10 000 against ``runner.gen`` on
+            the restored state (bit-equal, or the phase fails; the largest
+            difference reported); samples/s of the program against eager
+            ``gen`` at n = 100 and 10 000, in turns; a consumer process that
+            imports torch only serves the program on the card; and
+            ``import-torch`` of the ``.pt`` with ``--samples`` and
+            ``--export``, its program bit-equal to the imported model's
+            eager forward; ``plot`` of the run dir (without matplotlib it must
+            exit naming it).
 The round phases also profile a few further rounds (device time by kernel,
 busy share; ``cglgan_tpu_torch/utils/profiling.py``).
 Each phase prints ``{"starting": name}`` before it runs.  Then the card
@@ -182,7 +199,7 @@ line, the ``kernels`` line and, last, the ok line.  Any failure raises and
 exits non-zero; without a card it exits 2 and prints no result.
 ``--phases a,b`` runs only the named phases (of ``dstep dstep_bf16 sweep
 adam threefry reference main draws eval_image fedavg fedavg_image cgl mdgan
-bf16 conv conv_baselines conv_bf16 inception cli``)
+bf16 conv conv_baselines conv_bf16 inception cli serve``)
 for a short first look at a new kernel; the
 ``kernels`` and ok lines are printed only by a full run.  Imports nothing
 of JAX.
@@ -3147,13 +3164,276 @@ def phase_cli(card):
     return {"capgan": cap["launches_full"], "flgan": fl["launches_full"]}
 
 
+# The serve phase: a reference-layout MNIST generator ``.pt`` warm-starts
+# the main config, trains 20 rounds through the CLI's ``run
+# --init-from-torch`` (``fused_dstep``), and its ``ckpt_final`` is exported
+# as ``torch.export`` programs and served on the card; then ``import-torch``
+# of the same ``.pt`` with ``--export``.
+SERVE_ROUNDS = 20
+SERVE_N = (1, 100, 10000)
+SERVE_TIMED_N = (100, 10000)
+SERVE_REPS = 20
+
+
+def reference_mnist_g():
+    """A reference ``mnist-mlp`` G's layout (model/mnist_model.py:5-29, an
+    ``nn.Sequential`` under ``model``), on the host."""
+    import torch
+    tnn = torch.nn
+
+    def block(din, dout, bn=True):
+        return [tnn.Linear(din, dout)] + \
+            ([tnn.BatchNorm1d(dout, 0.8)] if bn else []) + \
+            [tnn.LeakyReLU(0.2)]
+
+    class Generator(tnn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = tnn.Sequential(
+                *block(100, 128, bn=False), *block(128, 256),
+                *block(256, 512), *block(512, 1024),
+                tnn.Linear(1024, 784), tnn.Tanh())
+
+        def forward(self, z):
+            return self.model(z)
+
+    return Generator()
+
+
+def serve_check(label, got, want):
+    """(bit-equal, largest |difference|); raises unless bit-equal."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"serve {label}: {tuple(got.shape)} "
+                             f"{got.dtype} vs {tuple(want.shape)} "
+                             f"{want.dtype}")
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"serve {label}: not bit-equal, off by {err}")
+    return True, err
+
+
+def net_leaves(net):
+    """Every tensor of a ``NetState``: params, BN state, Adam state."""
+    from cglgan_tpu_torch.utils.tree import tree_leaves
+    return tree_leaves([net.params, net.bn, net.opt.count, net.opt.mu,
+                        net.opt.nu])
+
+
+def phase_serve(card, part, dev="cuda"):
+    """Serving and migration on the main config, on ``dev`` (the card; the
+    host only to rehearse the phase).  Returns ``fused_dstep``'s launches
+    in the ``run --init-from-torch`` call."""
+    import shutil
+    import tempfile
+
+    import torch
+    from cglgan_tpu_torch.algos.registry import build_runner
+    from cglgan_tpu_torch.core import threefry
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.ops import fused_dstep
+    from cglgan_tpu_torch.utils.checkpoint import restore_checkpoint
+    from cglgan_tpu_torch.utils.export import load_generator
+    from cglgan_tpu_torch.utils.torch_import import (import_generator_file,
+                                                     warm_start_generators)
+    from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    root = tempfile.mkdtemp(prefix="serve-phase-")
+    try:
+        # 1. the reference's G, seeded, its BN statistics moved
+        tg = reference_mnist_g()
+        gen = torch.Generator().manual_seed(7)
+        with torch.no_grad():
+            for p in tg.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+            for _ in range(3):
+                tg(torch.randn(100, 100, generator=gen))
+        pt = os.path.join(root, "G.pt")
+        torch.save(tg.state_dict(), pt)
+        sd = tg.state_dict()
+
+        # 2. warm start onto the main config's init on the card: G equal
+        # to the file bit for bit (Linear weights transposed), D and the
+        # optimiser state untouched
+        cfg = FedGANConfig(algo="capgan", epoch=5, **MAIN)
+        runner = build_runner(cfg, part, device=dev)
+        init = runner.init_state()
+        t0 = time.perf_counter()
+        warm = warm_start_generators(init, [pt])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        linears = [i for i, p in enumerate(warm.g.params)
+                   if p is not None and "w" in p]
+        bns = [i for i, s in enumerate(warm.g.bn) if s is not None]
+        mods = [m for m in tg.model if not isinstance(
+            m, (torch.nn.LeakyReLU, torch.nn.Tanh))]
+        lin_mods = [m for m in mods if isinstance(m, torch.nn.Linear)]
+        bn_mods = [m for m in mods if isinstance(m, torch.nn.BatchNorm1d)]
+        g_equal = len(linears) == len(lin_mods) and \
+            len(bns) == len(bn_mods) and all(
+                torch.equal(warm.g.params[i]["w"][0].cpu(),
+                            m.weight.detach().t()) and
+                torch.equal(warm.g.params[i]["b"][0].cpu(),
+                            m.bias.detach())
+                for i, m in zip(linears, lin_mods)) and all(
+                torch.equal(warm.g.bn[i]["mean"][0].cpu(), m.running_mean)
+                and torch.equal(warm.g.bn[i]["var"][0].cpu(), m.running_var)
+                and torch.equal(warm.g.params[i]["scale"][0].cpu(),
+                                m.weight.detach())
+                for i, m in zip(bns, bn_mods))
+        same = lambda a, b: len(a) == len(b) and all(
+            torch.equal(x, y) for x, y in zip(a, b))
+        d_kept = same(net_leaves(warm.d), net_leaves(init.d)) and \
+            same(tree_leaves([warm.g.opt.count, warm.g.opt.mu,
+                              warm.g.opt.nu]),
+                 tree_leaves([init.g.opt.count, init.g.opt.mu,
+                              init.g.opt.nu])) and \
+            torch.equal(warm.lam, init.lam) and warm.t == init.t
+        if not (g_equal and d_kept):
+            raise AssertionError(f"warm start: G equal {g_equal}, D and "
+                                 f"optimiser kept {d_kept}")
+        del init, warm
+
+        # 3. the CLI's run --init-from-torch on the main config
+        argv = (*CLI_CAPGAN, "--rounds", str(SERVE_ROUNDS),
+                "--init-from-torch", pt, "--out", root, "--name", "init",
+                "--device", dev)
+        fused_dstep.launches = 0
+        lines, run_s = cli_call(argv)
+        launches = fused_dstep.launches
+        if launches < SERVE_ROUNDS or not any(
+                "warm-started from 1" in line for line in lines):
+            raise AssertionError(f"run --init-from-torch: {launches} "
+                                 f"fused_dstep launches; {lines[-5:]}")
+        run_dir = os.path.join(root, "init")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            ticks = [json.loads(line) for line in f if line.strip()]
+        finite_metrics(ticks)
+
+        # 4. export ckpt_final at a fixed batch and batch-polymorphic; serve
+        # both on the card against gen on the restored state
+        ckpt = os.path.join(run_dir, "ckpt_final")
+        state = restore_checkpoint(ckpt, runner.init_state())
+        fixed, poly = (os.path.join(root, f"g{n}.pt2") for n in (100, 0))
+        exports = {}
+        for path, n in ((fixed, 100), (poly, 0)):
+            lines, secs = cli_call(("export", ckpt, "--n", str(n),
+                                    "--out", path, "--device", dev))
+            exports[n] = {"manifest": json.loads(lines[-1]),
+                          "export_s": secs}
+        serve_fixed, _ = load_generator(fixed)
+        serve_poly, manifest = load_generator(poly)
+        if manifest["min_batch"] != 1 or \
+                manifest["device"].split(":")[0] != dev:
+            raise AssertionError(f"polymorphic export: {manifest}")
+        zs = {n: threefry.normal(threefry.key(n, dev), (n, 100))
+              for n in SERVE_N}
+        checks = {}
+        for n, z in zs.items():
+            want = runner.gen(state, z)
+            checks[f"poly n={n}"] = serve_check(f"n={n}", serve_poly(z),
+                                                want)
+            if n == 100:
+                checks["fixed n=100"] = serve_check("fixed", serve_fixed(z),
+                                                    want)
+            if n == 1 and want.shape != (1, 1, 28, 28):
+                raise AssertionError(f"n=1 served {tuple(want.shape)}")
+
+        # 5. samples/s of the program against eager gen, in turns
+        timing = {}
+        for n in SERVE_TIMED_N:
+            z = zs[n]
+            with torch.no_grad():
+                eager = [cuda_ms(lambda: runner.gen(state, z), SERVE_REPS)]
+                prog = [cuda_ms(lambda: serve_poly(z), SERVE_REPS)]
+                prog.append(cuda_ms(lambda: serve_poly(z), SERVE_REPS))
+                eager.append(cuda_ms(lambda: runner.gen(state, z),
+                                     SERVE_REPS))
+            timing[f"n={n}"] = {
+                "program_ms": prog, "eager_ms": eager,
+                "program_samples_per_s": n / (min(prog) / 1e3),
+                "eager_samples_per_s": n / (min(eager) / 1e3)}
+
+        # 6. a consumer that imports torch only serves the program on cuda
+        code = (
+            "import json, sys, time\n"
+            "for name in ('jax', 'cglgan_tpu', 'cglgan_tpu_torch'):\n"
+            "    sys.modules[name] = None\n"
+            "import torch\n"
+            f"program = torch.export.load({poly!r}).module()\n"
+            f"z = torch.randn(100, 100, device={dev!r},\n"
+            f"                generator=torch.Generator({dev!r}).manual_seed(1))\n"
+            "y = program(z)\n"
+            f"assert y.device.type == {dev!r}, y.device\n"
+            "assert tuple(y.shape) == (100, 1, 28, 28), y.shape\n"
+            "assert torch.isfinite(y).all() and y.abs().max() <= 1\n"
+            "print(json.dumps({'shape': list(y.shape),\n"
+            "                  'max_abs': y.abs().max().item()}))\n")
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                             capture_output=True, text=True, timeout=300,
+                             env={**os.environ, "PYTHONPATH": ""})
+        consumer_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"consumer: {out.stderr[-2000:]}")
+        consumer = json.loads(out.stdout.strip().splitlines()[-1])
+
+        # 7. import-torch of the .pt with --samples and --export; the
+        # program against the imported model's eager forward
+        imp = os.path.join(root, "imported.pt2")
+        lines, import_s = cli_call(("import-torch", pt, "--samples",
+                                    os.path.join(root, "s.png"), "--export",
+                                    imp, "--device", dev))
+        report = json.loads(lines[-1])
+        if report["family"] != "mnist-mlp" or not os.path.getsize(
+                os.path.join(root, "s.png")):
+            raise AssertionError(f"import-torch: {report}")
+        model, params, gstate, _ = import_generator_file(pt, device=dev)
+        serve_imp, _ = load_generator(imp)
+        up = lambda tree: tree_map(lambda x: x.unsqueeze(0), tree)
+        with torch.no_grad():
+            want, _ = model.apply(up(params), up(gstate),
+                                  zs[100].unsqueeze(0), train=False)
+        checks["import-torch n=100"] = serve_check(
+            "import-torch", serve_imp(zs[100]), want[0])
+
+        # 8. plot of the run dir: matplotlib where it imports, else an
+        # exit that names it
+        fig = os.path.join(root, "runs.png")
+        try:
+            cli_call(("plot", run_dir, "--out", fig))
+            plot = f"png, {os.path.getsize(fig)} bytes"
+        except SystemExit as e:
+            if "matplotlib" not in str(e) or e.code in (0, None):
+                raise
+            plot = str(e)
+
+        res = {"phase": "serve", "card": card, "device": dev,
+               "config": {"algo": "capgan", "epoch": 5, **MAIN},
+               "warm_start_s": warm_s, "g_equal_pt": g_equal,
+               "d_and_opt_kept": d_kept,
+               "run_rounds": SERVE_ROUNDS, "run_s": run_s,
+               "dstep_launches": launches, "last_tick": ticks[-1],
+               "exports": exports,
+               "bit_equal": {k: v[0] for k, v in checks.items()},
+               "max_abs_err": {k: v[1] for k, v in checks.items()},
+               "timing": timing, "consumer": consumer,
+               "consumer_s": consumer_s, "import_s": import_s,
+               "import_report": report, "plot": plot}
+        emit(res)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     all_phases = ("dstep", "dstep_bf16", "sweep", "adam", "threefry",
                   "reference", "main", "draws", "eval_image", "fedavg",
                   "fedavg_image", "cgl", "mdgan", "bf16", "conv",
-                  "conv_baselines", "conv_bf16", "inception", "cli")
+                  "conv_baselines", "conv_bf16", "inception", "cli",
+                  "serve")
     ap.add_argument("--phases", default=",".join(all_phases),
                     help="comma-separated subset of: " + " ".join(all_phases))
     phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
@@ -3289,6 +3569,9 @@ def main(argv=None):
         cli_launches = phase_cli(card)
         done["dstep_launches cli capgan"] = cli_launches["capgan"]
         done["sweep_launches cli flgan"] = cli_launches["flgan"]
+    if run("serve"):
+        done["dstep_launches cli init-from-torch"] = phase_serve(
+            card, part_of("capgan", MAIN))
     if len(phases) != len(all_phases):
         print(card, flush=True)
         emit({"partial": phases})

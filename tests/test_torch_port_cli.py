@@ -11,13 +11,17 @@ Distribution Score and mode coverage within 1e-5 relative, as
 ``rounds_per_s`` are left out.  ``fid-stats``: mu and sigma within
 ``TOL_STATS`` = 1e-5 of their largest entry, as
 ``test_torch_port_fid.py``'s ``activation_stats`` (the extractors' weights
-are within 4 ulps).  Parser, config, ``compare`` and ``eval``: exact.
+are within 4 ulps).  ``import-torch --samples``: within ``TOL_SAMPLES`` =
+1e-5 absolute (the latents are the reference's threefry normals within 3
+ulps, through a 100-32-2 G).  ``run --init-from-torch``: as ``run``.
+Parser, config, ``compare``, ``eval`` and ``export``: exact.
 """
 import argparse
 import csv
 import dataclasses
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -35,6 +39,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL_METRIC = 1e-5
 TOL_EVAL = 1e-5
 TOL_STATS = 1e-5
+TOL_SAMPLES = 1e-5
 EVAL_KEYS = ("kl_score", "distribution_score", "mode_coverage")
 # CAP-GAN on 2DMG, 2 servers, epoch 2 (the fused_dstep path's plain
 # version), lr 0.01 so that the generated points reach the real modes in
@@ -115,10 +120,9 @@ def _command_options(main, cmd, monkeypatch):
 
 def test_run_options_match_reference():
     """Every ``run`` option of the reference with its name, default,
-    choices, type and action, but ``--platform`` (``--device`` here) and
-    ``--init-from-torch`` (not ported yet)."""
+    choices, type and action, but ``--platform`` (``--device`` here)."""
     ref, mine = _options(jcli._add_run_args), _options(cli._add_run_args)
-    assert set(ref) - set(mine) == {"--platform", "--init-from-torch"}
+    assert set(ref) - set(mine) == {"--platform"}
     assert set(mine) - set(ref) == {"--device"}
     for name in set(ref) & set(mine):
         assert mine[name] == ref[name], name
@@ -325,3 +329,228 @@ def test_pyproject_names_the_script():
     with open(os.path.join(REPO, "pyproject.toml")) as f:
         text = f.read()
     assert 'tpufed-torch = "cglgan_tpu_torch.cli:main"' in text
+
+
+# ---------------------------------------------------------------------------
+# export, import-torch, run --init-from-torch, plot
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cmd,ref_only,mine_only", [
+    ("export", {"--platform", "--platforms"}, {"--device"}),
+    ("import-torch", {"--platform", "--platforms"}, {"--device"}),
+    ("plot", set(), set())])
+def test_serving_options_match_reference(cmd, ref_only, mine_only,
+                                         monkeypatch):
+    """``export``, ``import-torch`` and ``plot`` take the reference's
+    options with their defaults, choices, types and actions; its
+    ``--platform`` / ``--platforms`` are ``--device`` here (a
+    ``torch.export`` program is traced for one device)."""
+    ref = _command_options(jcli.main, cmd, monkeypatch)
+    mine = _command_options(cli.main, cmd, monkeypatch)
+    assert set(ref) - set(mine) == ref_only
+    assert set(mine) - set(ref) == mine_only
+    for name in set(ref) & set(mine):
+        assert mine[name] == ref[name], name
+
+
+def test_gen_specs_mirror_the_zoo():
+    from cglgan_tpu.models import zoo as jzoo
+    from cglgan_tpu_torch.models import zoo
+    assert cli.GEN_SPECS == zoo.GEN_SPECS == jzoo.GEN_SPECS \
+        == jcli.GEN_SPECS
+
+
+class _TwinG(torch.nn.Module):
+    """A reference 2DMG generator's layout: ``model`` (the 100-32 trunk, or
+    the whole 100-32-2 net) and, multipath, ``paths``."""
+
+    def __init__(self, heads=0):
+        super().__init__()
+        tnn = torch.nn
+        if heads:
+            self.model = tnn.Sequential(tnn.Linear(100, 32),
+                                        tnn.LeakyReLU(0.2))
+            self.paths = tnn.ModuleList([
+                tnn.Sequential(tnn.Linear(32, 2), tnn.Tanh())
+                for _ in range(heads)])
+        else:
+            self.model = tnn.Sequential(tnn.Linear(100, 32),
+                                        tnn.LeakyReLU(0.2),
+                                        tnn.Linear(32, 2), tnn.Tanh())
+
+
+def _save_twin(path, seed, heads=0):
+    torch.manual_seed(seed)
+    torch.save(_TwinG(heads).state_dict(), str(path))
+    return str(path)
+
+
+def _last_json(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def _assert_ticks_match(ticks, jticks):
+    for tick, jtick in zip(ticks, jticks, strict=True):
+        assert list(tick) == list(jtick)
+        for key, v in jtick.items():
+            if key in ("wall_s", "rounds_per_s", "round"):
+                continue
+            tol = TOL_EVAL * max(1.0, abs(v)) if key in EVAL_KEYS \
+                else TOL_METRIC
+            assert abs(tick[key] - v) <= tol, (key, tick[key], v)
+
+
+def test_run_init_from_torch_matches_reference(run_dirs, tmp_path):
+    """``run --init-from-torch`` with one reference ``.pt`` a server: the
+    port's ticks are the reference CLI's within TOL_METRIC / TOL_EVAL, and
+    the warm start moved them off the run from the seed's own init."""
+    pts = [_save_twin(tmp_path / f"g{i}.pt", seed=i) for i in range(2)]
+    out = str(tmp_path / "runs")
+    init = ["--init-from-torch", ",".join(pts), "--out", out]
+    assert jcli.main(RUN + init + ["--name", "ref", "--compile-cache",
+                                   "off", "--platform", "cpu"]) == 0
+    assert cli.main(RUN + init + ["--name", "port", "--device", "cpu"]) == 0
+    ticks = _jsonl(os.path.join(out, "port"))
+    _assert_ticks_match(ticks, _jsonl(os.path.join(out, "ref")))
+    cold = _jsonl(run_dirs["port"])
+    assert [t["round"] for t in ticks] == [2, 4]
+    assert any(ticks[0][k] != cold[0][k] for k in ticks[0]
+               if k not in ("wall_s", "rounds_per_s", "round"))
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        cli.main(RUN + init + ["--resume", os.path.join(out, "port",
+                                                        "ckpt_2"),
+                               "--name", "both", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("heads", [0, 3])
+def test_import_torch_samples_match_reference(heads, tmp_path, capsys):
+    """``import-torch --samples`` on one ``.pt`` and seed: the port's .npy
+    is the reference CLI's within TOL_SAMPLES (its latents are the
+    reference's threefry normals, within 3 ulps), heads interleaved
+    sample-major; the same report, and with ``--eval-dataset 2dmg`` the
+    same KL / DS / coverage within TOL_EVAL."""
+    pt = _save_twin(tmp_path / "g.pt", seed=5, heads=heads)
+    argv = ["import-torch", pt, "--n", "50", "--seed", "3"]
+    if heads:
+        argv += ["--eval-dataset", "2dmg"]
+    capsys.readouterr()
+    assert jcli.main(argv + ["--samples", str(tmp_path / "ref")]) == 0
+    jreport = _last_json(capsys)
+    assert cli.main(argv + ["--samples", str(tmp_path / "port"),
+                            "--device", "cpu"]) == 0
+    report = _last_json(capsys)
+    assert report["samples"] == str(tmp_path / "port.npy")
+    for key, v in jreport.items():
+        if key in EVAL_KEYS:
+            assert abs(report[key] - v) <= TOL_EVAL * max(1.0, abs(v)), key
+        elif key != "samples":
+            assert report[key] == v, key
+    assert set(report) == set(jreport)
+    got, want = np.load(tmp_path / "port.npy"), np.load(tmp_path / "ref.npy")
+    assert got.shape == want.shape == (max(heads, 1) * 50, 2)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL_SAMPLES)
+
+
+def test_import_torch_export(tmp_path, capsys):
+    """``import-torch --export`` writes a polymorphic artifact (from n = 1)
+    of the imported Mix-G, heads onto the batch head-major, equal to the
+    imported model's eager forward; its report carries the manifest."""
+    from cglgan_tpu_torch.utils.export import load_generator
+    from cglgan_tpu_torch.utils.torch_import import import_generator_file
+    from cglgan_tpu_torch.utils.tree import tree_map
+
+    pt = _save_twin(tmp_path / "g.pt", seed=6, heads=3)
+    art = str(tmp_path / "g.pt2")
+    capsys.readouterr()
+    assert cli.main(["import-torch", pt, "--export", art,
+                     "--device", "cpu"]) == 0
+    report = _last_json(capsys)
+    assert report["family"] == "2dmg-multipath" and report["num_heads"] == 3
+    assert report["export"]["out"] == art
+    assert report["export"]["family"] == "2dmg-multipath"
+    assert report["export"]["imported_from"] == pt
+    assert report["export"]["in_shape"] == ["b", 100]
+    assert report["export"]["out_shape"] == ["3*b", 2]
+    serve, manifest = load_generator(art)
+    assert manifest["min_batch"] == 1
+    model, params, state, _ = import_generator_file(pt, device="cpu")
+    up = lambda tree: tree_map(lambda x: x.unsqueeze(0), tree)
+    for n in (1, 9):
+        z = torch.from_numpy(np.random.default_rng(n).normal(
+            size=(n, 100)).astype(np.float32))
+        with torch.no_grad():
+            y, _ = model.apply(up(params), up(state), z[None], train=False)
+        assert torch.equal(serve(z), y[0].reshape(3 * n, 2))
+
+
+def test_export_serves_the_checkpoint(run_dirs, tmp_path, capsys):
+    """``export`` of the port's CAP-GAN ``ckpt_final`` (2 servers): the
+    default name in its run dir, a polymorphic ``2*b`` program serving
+    n = 2 and 10 as the restored state's ``gen``; ``--client 1 --n 10``
+    serves ``gen_client``; without a card it raises."""
+    import shutil
+
+    from cglgan_tpu_torch.utils.export import load_generator
+
+    run = tmp_path / "run"
+    run.mkdir()
+    for name in ("config.json", "ckpt_final"):
+        shutil.copy(os.path.join(run_dirs["port"], name), run / name)
+    ckpt = str(run / "ckpt_final")
+    capsys.readouterr()
+    assert cli.main(["export", ckpt, "--device", "cpu"]) == 0
+    line = _last_json(capsys)
+    assert line["out"] == str(run / "generator_4.pt2")
+    assert line["in_shape"] == ["2*b", 100] and line["min_batch"] == 2
+    assert (line["algo"], line["dataset"], line["round"]) == \
+        ("capgan", "2dmg", 4)
+    client = str(tmp_path / "c1.pt2")
+    assert cli.main(["export", ckpt, "--n", "10", "--client", "1",
+                     "--out", client, "--device", "cpu"]) == 0
+    assert _last_json(capsys)["client"] == 1
+    with open(run / "config.json") as f:
+        cfg = FedGANConfig(**json.load(f))
+    runner = build_runner(cfg, device="cpu")
+    state = restore_checkpoint(ckpt, runner.init_state())
+    serve, _ = load_generator(line["out"])
+    serve_c, _ = load_generator(client)
+    for n in (2, 10):
+        z = torch.from_numpy(np.random.default_rng(n).normal(
+            size=(n, 100)).astype(np.float32))
+        assert torch.equal(serve(z), runner.gen(state, z))
+    assert torch.equal(serve_c(z), runner.gen_client(state, z, 1))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["export", ckpt])
+
+
+def test_plot_renders_and_refuses(run_dirs, tmp_path):
+    """``plot`` of the port's and the reference's run dirs writes a PNG
+    (as the reference's own ``plot`` does over the same dirs); it refuses
+    a metric no run carries, nine runs ("facet") and dirs without
+    metrics."""
+    dirs = [run_dirs["port"], run_dirs["ref"]]
+    out = tmp_path / "plots" / "fig.png"
+    assert cli.main(["plot", *dirs, "--out", str(out), "--logy",
+                     "--title", "capgan"]) == 0
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert jcli.main(["plot", *dirs, "--out", str(tmp_path / "r.png")]) == 0
+    other = str(tmp_path / "x.png")
+    with pytest.raises(SystemExit, match="no run carries"):
+        cli.main(["plot", *dirs, "--metrics", "fid", "--out", other])
+    with pytest.raises(SystemExit, match="facet"):
+        cli.main(["plot", *([run_dirs["port"]] * 9), "--out", other])
+    with pytest.raises(SystemExit, match="no usable"):
+        cli.main(["plot", str(tmp_path), "--out", other])
+    assert not os.path.exists(other)
+
+
+def test_plot_names_matplotlib_when_missing(run_dirs, tmp_path,
+                                            monkeypatch):
+    """Where matplotlib cannot be imported, ``plot`` exits non-zero with a
+    message that names it."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(SystemExit, match="matplotlib") as e:
+        cli.main(["plot", run_dirs["port"], "--out",
+                  str(tmp_path / "x.png")])
+    assert e.value.code not in (0, None)

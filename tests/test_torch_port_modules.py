@@ -342,7 +342,8 @@ def test_port_imports_no_jax():
     for name in ("ops.fused_dstep", "ops.fused_sweep", "ops.fused_adam",
                  "algos.fedavg_family", "algos.mdgan_family", "data.gmm",
                  "fed.sampling", "evalx.hist2d", "evalx.evaluator",
-                 "core.threefry", "evalx.fid", "evalx.inception"):
+                 "core.threefry", "evalx.fid", "evalx.inception",
+                 "utils.export", "utils.torch_import"):
         assert f"cglgan_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"

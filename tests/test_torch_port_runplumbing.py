@@ -397,7 +397,8 @@ def test_probe_error_timeout_and_cpu():
 
 def test_cli_and_utils_import_no_jax():
     """In a fresh interpreter: the CLI loads no torch at import, and the
-    CLI and the new utils load no ``jax`` and nothing of ``cglgan_tpu``."""
+    CLI and the utils (serving and migration too) load no ``jax`` and
+    nothing of ``cglgan_tpu``."""
     code = (
         "import sys\n"
         "import cglgan_tpu_torch.cli\n"
@@ -406,7 +407,8 @@ def test_cli_and_utils_import_no_jax():
         "cglgan_tpu_torch.utils.logging, cglgan_tpu_torch.utils.xlsx, "
         "cglgan_tpu_torch.utils.imaging, "
         "cglgan_tpu_torch.utils.backend_probe, "
-        "cglgan_tpu_torch.utils.profiling\n"
+        "cglgan_tpu_torch.utils.profiling, cglgan_tpu_torch.utils.export, "
+        "cglgan_tpu_torch.utils.torch_import\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'cglgan_tpu' or "
         "m.startswith('cglgan_tpu.')]\n"
