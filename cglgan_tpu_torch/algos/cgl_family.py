@@ -2,7 +2,8 @@
 the Lambda game.
 
 Port of ``cglgan_tpu/algos/cgl_family.py`` (the MLP models
-and the conv LSGAN pair, in float32 or bfloat16, one device).  Every round
+and the conv LSGAN pair, in float32 or bfloat16, on one device or a
+clients mesh).  Every round
 each edge server makes a detached fake batch Xd; every client runs ``epoch``
 local D steps on (real window, Xd); the server's G takes one step on the
 per-client losses l through the UPDATED Ds; on each server's cadence the
@@ -28,6 +29,16 @@ server s.  The local-D phase runs the fused CUDA kernel
 reference's rule: auto at epoch > 1 in float32, forced only in bfloat16 —
 and autograd otherwise.
 
+A clients mesh (``mesh``, ``core/meshes.py``; the reference's ``P(None,
+"clients")`` on ``(S, k, ...)``): each rank holds k / n clients of every
+server, flat ``(S * k / n, ...)``, with their shards, D state and dropout
+keys, and the replicated G, Lambda and round draws; the G step gathers the
+``(S, k)`` per-client losses (the game reads them all) and all-reduces the
+cotangent of the G's output (``common.grads_through``); the E-round share
+all-reduces ``(S, ...)`` partial sums; the cloud sync runs on the
+replicated G; the metrics are the means over every client.  No kernel runs
+on a mesh, as in the reference (``fused_dstep.eligible``).
+
 bfloat16 (``dtype="bfloat16"``): G and D params, BN state, latents, fakes
 and Adam moments are bfloat16; the per-client losses, the game (w, Lambda)
 and the metrics are float32, as in the reference.
@@ -51,7 +62,8 @@ from cglgan_tpu_torch.algos.common import FedState, NetState
 from cglgan_tpu_torch.algos.game import game_step
 from cglgan_tpu_torch.algos.runner import Runner
 from cglgan_tpu_torch.core import device as device_mod
-from cglgan_tpu_torch.core import prng, threefry
+from cglgan_tpu_torch.core import meshes, prng, threefry
+from cglgan_tpu_torch.core.meshes import CLIENTS, P
 from cglgan_tpu_torch.core.dtypes import torch_dtype
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.fed import collectives, topology
@@ -62,10 +74,19 @@ from cglgan_tpu_torch.utils.tree import (tree_leaves, tree_map,
                                           tree_unflatten)
 
 
-def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
+def build_cgl_family(cfg, part: Partition, device=None,
+                     mesh=None) -> Runner:
+    """``mesh``: an optional clients mesh; this rank's block of every
+    server's clients is placed here (module docstring)."""
     dev = device_mod.resolve(device)
     common.check_supported(cfg)
     S, k, W = cfg.num_servers, cfg.clients_per_server, cfg.num_workers
+    # this rank's clients of each server: k_loc of them, from blk.start
+    blk = slice(0, k) if mesh is None else mesh.block(k)
+    k_loc = blk.stop - blk.start
+    spec_sk = P(None, CLIENTS)
+    local = lambda tree: meshes.place(tree, mesh, spec_sk, groups=S)
+    everyone = lambda x: meshes.gather_clients(x, mesh, groups=S)
     algo = cfg.algo
     g_model, d_model = models_for_config(cfg)
     multipath = g_model.multipath
@@ -77,8 +98,8 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
 
     # flat (W, max_len, din) shards, resident on the device: uint8 images,
     # or float32 2DMG points
-    shards = torch.from_numpy(
-        np.ascontiguousarray(part.data.reshape(W, max_len, -1))).to(dev)
+    shards = local(torch.from_numpy(
+        np.ascontiguousarray(part.data.reshape(W, max_len, -1)))).to(dev)
     din = shards.shape[2]
     beta = torch.from_numpy(topology.server_beta(part.lengths, S)).to(dev)
     data_len = topology.server_data_len(part.lengths, S)
@@ -98,8 +119,11 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
                          d_loss_half=algo in ("capgan", "mixgan"),
                          dtype=dtype, fuse_concat=not cfg.conv),
         cfg.epoch)
-    use_kernel = fused_dstep.eligible(cfg)
+    use_kernel = fused_dstep.eligible(cfg, mesh)
     rounds = prng.RoundKeys(cfg, max_len, cfg.epoch, dev)
+
+    # the D state is this rank's clients; G and Lambda are replicated
+    layout = {"d": (spec_sk, S)}
 
     def init_state() -> FedState:
         # a G a server and a D a client, each from its own key of the
@@ -114,54 +138,58 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
             # net_g / net_d .apply(weights_init) (mixed-gan.py:181,348)
             gp = nn.dcgan_reinit(threefry.fold_in(kg, prng.FOLD_REINIT_G), gp)
             dp = nn.dcgan_reinit(threefry.fold_in(kd, prng.FOLD_REINIT_D), dp)
-        return FedState(NetState(gp, gbn, common.adam_init(gp, S)),
-                        NetState(dp, dbn, common.adam_init(dp, W)),
-                        torch.zeros((S,), dtype=torch.float32, device=dev), 0)
+        state = FedState(NetState(gp, gbn, common.adam_init(gp, S)),
+                         NetState(dp, dbn, common.adam_init(dp, W)),
+                         torch.zeros((S,), dtype=torch.float32, device=dev),
+                         0)
+        return meshes.commit_tree(meshes.place_state(state, mesh, layout),
+                                  mesh)
 
     def route(fake):
-        """G output -> (W, B, din) per-client fakes: a multipath G's
-        (S, k, B, ...) head i to client i; a single-path G's (S, B, ...)
-        full batch to every client of the server."""
+        """G output -> (S * k_loc, B, din) fakes of this rank's clients: a
+        multipath G's (S, k, B, ...) head i to client i; a single-path G's
+        (S, B, ...) full batch to every client of the server."""
         if multipath:
-            return fake.reshape(W, B, din)
-        return fake.reshape(S, 1, B, din).expand(S, k, B, din) \
-            .reshape(W, B, din)
+            return fake[:, blk].reshape(S * k_loc, B, din)
+        return fake.reshape(S, 1, B, din).expand(S, k_loc, B, din) \
+            .reshape(S * k_loc, B, din)
 
-    def g_update(g: NetState, gbn1, z_g, d_new: NetState, lam,
+    def g_update(g: NetState, gbn1, z_g, d_new: NetState, lam, d_loss,
                  drop_keys=None):
         """One G forward from gbn1; the per-client losses through the
-        updated Ds are both the game's inputs and the primal of the
-        backward: cotangent w for a single-path G; for a multipath G,
-        cotangent ones for the heads and w for the trunk
+        updated Ds are both the game's inputs (every client's, gathered on
+        a mesh, with the D losses ``d_loss`` for the metrics) and the primal
+        of the backward: cotangent w for a single-path G; for a multipath
+        G, cotangent ones for the heads and w for the trunk
         (cglgan_tpu/algos/cgl_family.py:169-181).  ``drop_keys``: the conv
-        D's dropout keys (W, 2)."""
+        D's dropout keys, one a client of this rank."""
         gp, leaves = common.with_grad(g.params)
         with torch.enable_grad():
             fake, gbn2 = g_model.apply(gp, gbn1, z_g, train=True)
             out, _ = d_model.apply(d_new.params, d_new.bn, route(fake),
                                    train=True, rng=drop_keys)
-            losses = adv(out, 1.0).reshape(S, k)
-            game = game_step(weighting, losses.detach(), beta, lam,
-                             cfg.lr_lambda)
-            w = game.w.to(losses.dtype)
-            if multipath:
-                # leaves run heads then trunk (sorted keys)
-                n_heads = len(tree_leaves(gp["heads"]))
-                heads = torch.autograd.grad(
-                    losses, leaves[:n_heads], grad_outputs=torch.ones_like(
-                        losses), retain_graph=True)
-                trunk = torch.autograd.grad(losses, leaves[n_heads:],
-                                            grad_outputs=w)
-                grads = list(heads) + list(trunk)
-            else:
-                grads = list(torch.autograd.grad(losses, leaves,
-                                                 grad_outputs=w))
-        l0 = losses.detach()
+            losses = adv(out, 1.0).reshape(S, k_loc)
+        both = everyone(torch.stack([losses.detach().reshape(-1),
+                                     d_loss.float()], dim=1)).t().contiguous()
+        l0 = both[0].reshape(S, k)
+        game = game_step(weighting, l0, beta, lam, cfg.lr_lambda)
+        w = game.w.to(losses.dtype)[:, blk]
+        if multipath:
+            # leaves run heads then trunk (sorted keys)
+            n_heads = len(tree_leaves(gp["heads"]))
+            heads, trunk = common.grads_through(
+                fake, losses, [torch.ones_like(losses), w],
+                [leaves[:n_heads], leaves[n_heads:]], mesh)
+            grads = list(heads) + list(trunk)
+        else:
+            grads = list(common.grads_through(fake, losses, [w], [leaves],
+                                              mesh)[0])
         f_max = torch.sum(game.w * l0, dim=-1) - game.lam_coeff * lam
         new_p, new_opt = common.adam_update(
             g.params, tree_unflatten(g.params, grads), g.opt,
             cfg.lr_g, cfg.b1, cfg.b2)
-        metrics = {"g_loss": l0.mean(), "f_max": f_max.mean(),
+        metrics = {"d_loss": both[1].mean(), "g_loss": l0.mean(),
+                   "f_max": f_max.mean(),
                    "f_beta": game.f_beta.mean(),
                    "f_gamma": game.f_gamma.mean(),
                    "lambda": game.lam_new.mean()}
@@ -211,8 +239,8 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
         if cfg.conv:
             k_d, k_drop = common.conv_stream_keys(
                 streams, dev, "starts, z_d, z_g, k_d, k_drop")
-            d_keys = common.client_keys(k_d, k)
-            drop_keys = common.client_keys(k_drop, k)
+            d_keys = local(common.client_keys(k_d, k))
+            drop_keys = local(common.client_keys(k_drop, k))
         # the latents in the run's dtype (the reference draws them so)
         z_d = torch.as_tensor(z_d, device=dev).to(dtype)
         z_g = torch.as_tensor(z_g, device=dev).to(dtype)
@@ -228,22 +256,19 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
             fake = xd.reshape(B, din) if shared else route(xd)
             new_d, d_loss = d_step(state.d, shards, starts, fake, d_keys)
 
-        new_g, lam_new, gm = g_update(g, gbn1, z_g, new_d, state.lam,
-                                      drop_keys)
-        metrics = {"d_loss": d_loss.mean(), **gm}
+        new_g, lam_new, metrics = g_update(g, gbn1, z_g, new_d, state.lam,
+                                           d_loss, drop_keys)
 
         if cfg.E > 0 and (t + 1) % cfg.E == 0:
             # every-E-rounds neighbour D-share within a server's block
             blocked = lambda tree: tree_map(
-                lambda x: x.reshape((S, k) + x.shape[1:]), tree)
+                lambda x: x.reshape((S, k_loc) + x.shape[1:]), tree)
             flat = lambda tree: tree_map(
-                lambda x: x.reshape((W,) + x.shape[2:]), tree)
-            new_d = NetState(
-                flat(collectives.neighbor_share_tree(blocked(new_d.params),
-                                                     k, blocked=True)),
-                flat(collectives.neighbor_share_tree(blocked(new_d.bn), k,
-                                                     blocked=True)),
-                new_d.opt)
+                lambda x: x.reshape((S * k_loc,) + x.shape[2:]), tree)
+            params, bn = flat(collectives.neighbor_share_tree(
+                blocked((new_d.params, new_d.bn)), k, blocked=True,
+                mesh=mesh))
+            new_d = NetState(params, bn, new_d.opt)
         return FedState(new_g, new_d, lam_new, t + 1), metrics
 
     @torch.no_grad()
@@ -283,4 +308,5 @@ def build_cgl_family(cfg, part: Partition, device=None) -> Runner:
         return gen(state, z.reshape(S * per, zdim))
 
     return Runner(cfg, part, init_state, round_fn, sample, gen=gen,
-                  gen_batch_multiple=S, gen_client=gen_client, device=dev)
+                  gen_batch_multiple=S, gen_client=gen_client, device=dev,
+                  mesh=mesh, layout=layout)

@@ -19,7 +19,7 @@ from typing import Any, Callable, List, NamedTuple
 
 import torch
 
-from cglgan_tpu_torch.core import threefry
+from cglgan_tpu_torch.core import meshes, threefry
 from cglgan_tpu_torch.core.dtypes import weak
 from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -28,18 +28,18 @@ from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 # what the port covers
 # ---------------------------------------------------------------------------
 
-def check_supported(cfg, mesh=None) -> None:
+def check_supported(cfg) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the
-    ported slices do not cover: meshes and ``model_shards > 1`` (every
-    algorithm runs on the MLP models and on the conv LSGAN pair, on 2DMG
-    and the image datasets, in float32 and bfloat16).  A conv config on
-    2DMG builds, as the reference's does; only its rounds need image data
-    (the conv D reads a row as a square image)."""
+    ported slices do not cover: ``model_shards > 1`` (every algorithm runs
+    on the MLP models and on the conv LSGAN pair, on 2DMG and the image
+    datasets, in float32 and bfloat16, on one device or sharded over a
+    clients mesh, ``core/meshes.py``).  A conv config on 2DMG builds, as the
+    reference's does; only its rounds need image data (the conv D reads a
+    row as a square image)."""
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unsupported dtype {cfg.dtype!r}")
-    if mesh is not None or cfg.model_shards > 1:
-        raise NotImplementedError("meshes and model_shards > 1 are not "
-                                  "ported yet (ROADMAP queue 1 item 17)")
+    if cfg.model_shards > 1:
+        raise NotImplementedError(meshes.TP_NOT_PORTED)
 
 
 def client_keys(k_s: torch.Tensor, k: int) -> torch.Tensor:
@@ -235,6 +235,28 @@ def with_grad(tree):
     """Detached leaf copies that require grad, plus the leaf list."""
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(tree)]
     return tree_unflatten(tree, leaves), leaves
+
+
+def grads_through(out: torch.Tensor, losses: torch.Tensor, cotangents,
+                  leaf_sets, mesh=None) -> list:
+    """The G step's gradients where the per-client ``losses`` reach the
+    G's leaves only through its output ``out``: for each i, the gradient of
+    ``sum(cotangents[i] * losses)`` with respect to ``leaf_sets[i]``.
+
+    First the cotangents of ``out``, one backward through the Ds each; on
+    a clients mesh ``losses`` are this rank's clients', and the cotangents
+    are summed over the ranks in one all-reduce of ``out``'s size (the
+    reference's sharded round all-reduces the same), so every rank's
+    replicated G takes every client's gradient.  Then one backward through
+    the G each.  The cotangents reaching ``out`` and the G's backward are
+    those of one backward from the losses: without a mesh, or on one rank,
+    the gradients are the same bits."""
+    cots = [torch.autograd.grad(losses, out, grad_outputs=c,
+                                retain_graph=True)[0] for c in cotangents]
+    cots = meshes.all_reduce(cots, mesh)
+    return [torch.autograd.grad(out, leaves, grad_outputs=c,
+                                retain_graph=i + 1 < len(cots))
+            for i, (c, leaves) in enumerate(zip(cots, leaf_sets))]
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,16 @@ forward.  FL-GAN averages the conv nets' BatchNorm buffers with their
 params; FeGAN keeps them per worker.  The keys of a lane's masked steps
 are drawn and unused, as in the reference.
 
+A clients mesh (``mesh``, ``core/meshes.py``; the reference's
+``P("clients")`` on ``(W, ...)``): each rank holds a contiguous block of
+W / n workers, with their shards, Adam state (FeGAN: BN state too), step
+counts and lane draws (``prng.lane_draws(..., lanes=)``); the G and D
+params are replicated.  FL-GAN's FedAvg, with the loss means, is one
+all-reduce of local partials; FeGAN's schedule is made on every rank from
+the same seed, and each rank trains its own sampled workers in gather mode
+(at full width its block), all-reducing the weighted partial sums.  No
+kernel runs on a mesh, as in the reference (``fused_sweep.eligible``).
+
 bfloat16 (``dtype="bfloat16"``; on 2DMG only with ``force_dtype``, as the
 reference's config demands): params, BN state, latents, fakes, real rows
 and Adam moments are bfloat16, the losses float32; the kernel stays
@@ -70,7 +80,8 @@ from cglgan_tpu_torch.algos import common
 from cglgan_tpu_torch.algos.common import FedState, NetState
 from cglgan_tpu_torch.algos.runner import Runner
 from cglgan_tpu_torch.core import device as device_mod
-from cglgan_tpu_torch.core import prng, threefry
+from cglgan_tpu_torch.core import meshes, prng, threefry
+from cglgan_tpu_torch.core.meshes import CLIENTS, P
 from cglgan_tpu_torch.core.dtypes import torch_dtype
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.fed import collectives
@@ -187,7 +198,11 @@ def _local_sweep(cfg, g_model, d_model, adv):
         shards (n, L, ...); z1, z2 (n, >= max(steps), B, zdim); ``steps``
         the lanes' step counts on the host, ``steps_dev`` the same on the
         device (needed only where they differ); ``keys``: the conv D's
-        ``(kd1, kd2)``, each (n, >= max(steps), 2), or None."""
+        ``(kd1, kd2)``, each (n, >= max(steps), 2), or None.  No lanes (a
+        mesh rank none of whose workers is sampled): nothing to do."""
+        if len(steps) == 0:
+            none = torch.zeros((0,), dtype=torch.float32, device=z1.device)
+            return g, d, none, none
         lo, hi = int(steps.min()), int(steps.max())
         d_sum = g_sum = 0.0
         for i in range(hi):
@@ -233,23 +248,31 @@ def _kernel_sweep_all(cfg, g: NetState, d: NetState, shards, starts, z1, z2):
             NetState(new_d.params, d.bn, new_d.opt), d_loss, g_loss)
 
 
-def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None):
+def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None,
+                  mesh=None):
     """What both runners share: models, shards, the local phase and the
     serving functions.  ``d_model`` replaces the config's D (FeGAN's on
-    image data)."""
+    image data); ``mesh``: a clients mesh, whose rank holds the workers
+    ``blk`` (all W without one)."""
     common.check_supported(cfg)
     g_model, cfg_d = models_for_config(cfg)
     d_model = d_model or cfg_d
     adv = common.make_adv_loss(adv_head)
     W, B, zdim = cfg.num_workers, cfg.batch_size, cfg.latent_dim
+    blk = slice(0, W) if mesh is None else mesh.block(W)
+    local = lambda tree: meshes.place(tree, mesh, P(CLIENTS))
     dtype = torch_dtype(cfg)
-    shards = torch.from_numpy(np.ascontiguousarray(part.data)).to(dev)
-    steps_np = _local_steps(cfg, part.lengths)
+    shards = local(torch.from_numpy(np.ascontiguousarray(part.data))).to(dev)
+    steps_all = _local_steps(cfg, part.lengths)
+    # this rank's workers' step counts, on the host and on the device
+    steps_np = steps_all[blk]
     steps_dev = torch.from_numpy(steps_np.astype(np.int64)).to(dev)
-    max_steps = int(steps_np.max())
+    # every rank sweeps to the largest count of all W: their draws and
+    # window starts are the unsharded run's
+    max_steps = int(steps_all.max())
     max_len = part.data.shape[1]
     sweep = _local_sweep(cfg, g_model, d_model, adv)
-    use_kernel = fused_sweep.eligible(cfg)
+    use_kernel = fused_sweep.eligible(cfg, mesh)
     rounds = prng.RoundKeys(cfg, max_len, max_steps, dev)
 
     def init_nets():
@@ -274,13 +297,19 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None):
 
     def streams_for(t: int, streams):
         """(starts, z1, z2, dropout keys or None, survival mask or None):
+        the lanes' draws this rank's, the survival mask every worker's.
         ``streams`` may carry the survival draw after its draws and keys;
-        else it is drawn for round t."""
+        else it is drawn for round t.  Injected streams cover all W
+        workers."""
         alive = streams[first_extra] \
             if streams is not None and len(streams) > first_extra else None
         if streams is None:
-            streams = (rounds.starts(t),
-                       *prng.lane_draws(cfg, rounds.key(t), max_steps))
+            streams = (rounds.starts(t), *prng.lane_draws(
+                cfg, rounds.key(t), max_steps,
+                None if mesh is None else blk))
+        elif mesh is not None:
+            streams = (streams[0], *(torch.as_tensor(x)[blk]
+                                     for x in streams[1:first_extra]))
         starts, z1, z2 = streams[:3]
         keys = common.conv_stream_keys(
             streams, dev, "starts, z1, z2, kd1, kd2", extras=1) \
@@ -299,9 +328,10 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None):
     def local_phase(g: NetState, d: NetState, lane_shards, starts, z1, z2,
                     keys, lanes=None, lanes_dev=None):
         """g, d: lane-stacked states with params broadcast; ``keys``: the
-        lanes' conv dropout keys or None; ``lanes``: the lanes' workers on
-        the host and ``lanes_dev`` on the device (gather mode), or None for
-        all W workers in order."""
+        lanes' conv dropout keys or None; ``lanes``: the lanes' workers
+        (indices into this rank's block) on the host and ``lanes_dev`` on
+        the device (gather mode), or None for all of its workers in
+        order."""
         if use_kernel:
             return _kernel_sweep_all(cfg, g, d, lane_shards, starts, z1, z2)
         if lanes is not None:
@@ -323,20 +353,26 @@ def _family_parts(cfg, part: Partition, dev, adv_head: str, d_model=None):
             return gen(state, prng.eval_z(cfg.seed, (n, zdim), dev))
         return gen, sample
 
-    return (W, shards, init_nets, streams_for, local_phase, make_gen,
+    return (blk, shards, init_nets, streams_for, local_phase, make_gen,
             use_kernel)
 
 
-def build_flgan(cfg, part: Partition, device=None) -> Runner:
+def build_flgan(cfg, part: Partition, device=None, mesh=None) -> Runner:
     dev = device_mod.resolve(device)
-    (W, shards, init_nets, streams_for, local_phase, make_gen,
+    W = cfg.num_workers
+    (blk, shards, init_nets, streams_for, local_phase, make_gen,
      _) = _family_parts(cfg, part, dev,
-                        "raw" if cfg.conv else cfg.resolved_d_head)
+                        "raw" if cfg.conv else cfg.resolved_d_head,
+                        mesh=mesh)
+    n_loc = blk.stop - blk.start
+    # the Adam state is this rank's workers'; params and BN are replicated
+    layout = {"g.opt": (P(CLIENTS), 1), "d.opt": (P(CLIENTS), 1)}
 
     def init_state() -> FedState:
         gp, gbn, dp, dbn, gopt, dopt = init_nets()
-        return FedState(NetState(gp, gbn, gopt), NetState(dp, dbn, dopt),
-                        None, 0)
+        return meshes.commit_tree(meshes.place_state(
+            FedState(NetState(gp, gbn, gopt), NetState(dp, dbn, dopt),
+                     None, 0), mesh, layout), mesh)
 
     def round_fn(state: FedState, streams=None):
         """One federated round.  ``streams``: optional injected
@@ -347,42 +383,47 @@ def build_flgan(cfg, part: Partition, device=None) -> Runner:
         ValueError.  By default they are drawn from ``core.prng`` for round
         ``state.t``."""
         starts, z1, z2, keys, mask = streams_for(state.t, streams)
-        bcast = lambda tree: collectives.broadcast_tree(tree, W)
+        bcast = lambda tree: collectives.broadcast_tree(tree, n_loc)
         g, d, d_loss, g_loss = local_phase(
             NetState(bcast(state.g.params), bcast(state.g.bn), state.g.opt),
             NetState(bcast(state.d.params), bcast(state.d.bn), state.d.opt),
             shards, starts, z1, z2, keys)
+        nets = (g.params, g.bn, d.params, d.bn)
         if mask is None:
             # uniform FedAvg of params and BN buffers (state_dict transfer,
-            # FLGAN/MNIST/flgan.py:148-162)
-            agg = collectives.fedavg_tree
-            metrics = {"d_loss": d_loss.mean(), "g_loss": g_loss.mean()}
+            # FLGAN/MNIST/flgan.py:148-162), and of the lanes' losses: one
+            # all-reduce on a mesh
+            *nets, dl, gl = collectives.fedavg_tree(
+                (*nets, d_loss, g_loss), mesh)
+            metrics = {"d_loss": dl, "g_loss": gl}
             gopt, dopt = g.opt, d.opt
         else:
             # dropped workers neither enter the aggregate nor keep their
             # new Adam state
             ones = torch.ones((W,), dtype=torch.float32, device=dev)
-            agg = lambda tree: collectives.masked_weighted_avg_tree(
-                tree, ones, mask)
+            nets = collectives.masked_weighted_avg_tree(nets, ones, mask,
+                                                        mesh)
+            m_loc = mask if mesh is None else mask[blk]
             keep = lambda old, new: common.AdamState(
                 *collectives.select_update_tree(tuple(old), tuple(new),
-                                                mask))
+                                                m_loc))
             gopt, dopt = keep(state.g.opt, g.opt), keep(state.d.opt, d.opt)
             n = mask.sum()
             denom = torch.clamp(n, min=1.0)
-            metrics = {"d_loss": (d_loss * mask).sum() / denom,
-                       "g_loss": (g_loss * mask).sum() / denom,
+            d_sum, g_sum = meshes.all_reduce(
+                [(d_loss * m_loc).sum(), (g_loss * m_loc).sum()], mesh)
+            metrics = {"d_loss": d_sum / denom, "g_loss": g_sum / denom,
                        "participants": n}
-        return FedState(NetState(agg(g.params), agg(g.bn), gopt),
-                        NetState(agg(d.params), agg(d.bn), dopt),
+        gp, gbn, dp, dbn = nets
+        return FedState(NetState(gp, gbn, gopt), NetState(dp, dbn, dopt),
                         None, state.t + 1), metrics
 
     gen, sample = make_gen(lambda state: state.g.bn)
     return Runner(cfg, part, init_state, round_fn, sample, gen=gen,
-                  device=dev)
+                  device=dev, mesh=mesh, layout=layout)
 
 
-def build_fegan(cfg, part: Partition, device=None) -> Runner:
+def build_fegan(cfg, part: Partition, device=None, mesh=None) -> Runner:
     dev = device_mod.resolve(device)
     W = cfg.num_workers
     sk = fegan_scores(part.class_freq, part.class_freq.sum(0))
@@ -391,8 +432,10 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
                            num_class=cfg.num_class)       # (R, gp_size), once
     # group-gather: with partial participation, train ONLY the gp_size
     # sampled members — gather their (shard, opt, BN) state, sweep, scatter
-    # back — instead of sweeping all W and masking away (1-frac) of the work
-    gather_mode = not fused_sweep.eligible(cfg) and schedule.shape[1] < W
+    # back — instead of sweeping all W and masking away (1-frac) of the work;
+    # on a mesh each rank the sampled members of its block
+    gather_mode = not fused_sweep.eligible(cfg, mesh) and \
+        schedule.shape[1] < W
     # fegan.py:224 uses BCELoss with a 2-logit D whose Sigmoid is commented
     # out — shape-incompatible in torch.  As the reference package does, the
     # intended semantics are implemented: sigmoid head + BCE, and on image
@@ -401,9 +444,14 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
     # 320-323``).
     d_model = build_discriminator("mnist", 1) \
         if cfg.is_image and not cfg.conv else None
-    (_, shards, init_nets, streams_for, local_phase, make_gen,
+    (blk, shards, init_nets, streams_for, local_phase, make_gen,
      use_kernel) = _family_parts(cfg, part, dev,
-                                 "raw" if cfg.conv else "sigmoid", d_model)
+                                 "raw" if cfg.conv else "sigmoid", d_model,
+                                 mesh)
+    n_loc = blk.stop - blk.start
+    # the Adam and BN state is this rank's workers'; params are replicated
+    layout = {f"{net}.{field}": (P(CLIENTS), 1)
+              for net in ("g", "d") for field in ("bn", "opt")}
 
     # first-occurrence lane mask: init_groups only repeats a member in the
     # degenerate group-smaller-than-gp_size fallback; duplicate lanes must
@@ -415,7 +463,8 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
     # Every round's lanes, masks and aggregation weights are known from the
     # schedule, so they are made once here and live on the device: a round
     # then copies nothing from the host (a host-to-device copy would make the
-    # host wait for the device each round).
+    # host wait for the device each round; on a mesh of more than one rank
+    # a round copies its sampled lanes' positions).
     rounds = np.arange(len(schedule))[:, None]
     if gather_mode:
         member_np = lane_valid                             # (R, gp_size)
@@ -440,14 +489,16 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
         # parameters only, fegan.py:133-134) — stack them
         stack = lambda tree: tree_map(
             lambda x: x.unsqueeze(0).repeat((W,) + (1,) * x.ndim), tree)
-        return FedState(NetState(gp, stack(gbn), gopt),
-                        NetState(dp, stack(dbn), dopt), None, 0)
+        return meshes.commit_tree(meshes.place_state(
+            FedState(NetState(gp, stack(gbn), gopt),
+                     NetState(dp, stack(dbn), dopt), None, 0), mesh, layout),
+            mesh)
 
     def round_weights(t: int, drop):
         """Round t's member mask (lanes in gather mode, else workers), its
         normalised aggregation weights, whether any weight is left, and
         the metric denominator: from the schedule, times the survival mask
-        ``drop`` (on the device) with dropout."""
+        ``drop`` (on the device, every worker's) with dropout."""
         if drop is None:
             return (member_dev[t], weight_dev[t], bool(any_alive[t]),
                     float(members[t]))
@@ -458,18 +509,33 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
                 torch.clamp(m.sum(), min=1.0))
 
     def aggregate(lanes, w, alive, old):
-        """Score-weighted aggregate over round t's lanes; if the weights sum
-        to zero the round is a no-op and the old params stay."""
+        """Score-weighted aggregate over round t's lanes (this rank's, with
+        ``w`` their weights); if the weights sum to zero the round is a
+        no-op and the old params stay."""
         if alive is False:
             return old
-        avg = collectives.weighted_avg_tree(lanes, w)
+        avg = collectives.weighted_avg_tree(lanes, w, mesh)
         if alive is True:
             return avg
         return tree_map(lambda a, b: torch.where(alive, a, b), avg, old)
 
     def metrics_of(d_loss, g_loss, m, denom):
-        return {"d_loss": (d_loss * m).sum() / denom,
-                "g_loss": (g_loss * m).sum() / denom}
+        """The losses' means over the round's members (``m`` this rank's
+        lanes' member mask)."""
+        d_sum, g_sum = meshes.all_reduce([(d_loss * m).sum(),
+                                          (g_loss * m).sum()], mesh)
+        return {"d_loss": d_sum / denom, "g_loss": g_sum / denom}
+
+    def sampled(t: int):
+        """Round t's sampled lanes on this rank: (the workers as indices
+        into its block, on the host and on the device; their positions in
+        the group, on the host, or None where every lane is this rank's)."""
+        if mesh is None:
+            return schedule[t], groups_dev[t], None
+        group = schedule[t]
+        pos = np.flatnonzero((group >= blk.start) & (group < blk.stop))
+        lanes = group[pos] - blk.start
+        return lanes, torch.from_numpy(lanes).to(dev), pos
 
     def round_fn(state: FedState, streams=None):
         """One federated round; ``streams`` as for FL-GAN, for all W
@@ -478,10 +544,15 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
         t = state.t
         starts, z1, z2, keys, drop = streams_for(t, streams)
         m, w, alive, denom = round_weights(t, drop)
+        params = (state.g.params, state.d.params)
 
         if gather_mode:
             # ---- train only the sampled lanes -------------------------
-            idx = groups_dev[t]
+            lanes, idx, pos = sampled(t)
+            valid = lane_valid[t]
+            if pos is not None:
+                pos_dev = torch.from_numpy(pos).to(dev)
+                m, w, valid = m[pos_dev], w[pos_dev], valid[pos]
             n = idx.shape[0]
             take = lambda tree: tree_map(lambda x: x[idx], tree)
             bcast = lambda tree: collectives.broadcast_tree(tree, n)
@@ -492,14 +563,14 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
                          common.AdamState(*take(tuple(state.d.opt)))),
                 shards[idx], starts, z1[idx], z2[idx],
                 None if keys is None else tuple(k[idx] for k in keys),
-                lanes=schedule[t], lanes_dev=idx)
+                lanes=lanes, lanes_dev=idx)
             # scatter local state back; duplicate lanes (lane_valid == 0,
             # the degenerate schedule only) are dropped, so each worker is
             # written once; with dropout a dropped lane writes its old state
-            if lane_valid[t].all():
+            if valid.all():
                 src, dst = None, idx
             else:
-                src = torch.from_numpy(np.flatnonzero(lane_valid[t])).to(dev)
+                src = torch.from_numpy(np.flatnonzero(valid)).to(dev)
                 dst = idx[src]
             live = None if drop is None else \
                 (m if src is None else m[src]) > 0
@@ -517,17 +588,18 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
 
             opt_of = lambda old, new: common.AdamState(
                 *scatter(tuple(old), tuple(new)))
-            new_g = NetState(aggregate(g.params, w, alive, state.g.params),
-                             scatter(state.g.bn, g.bn),
+            gp, dp = aggregate((g.params, d.params), w, alive, params)
+            new_g = NetState(gp, scatter(state.g.bn, g.bn),
                              opt_of(state.g.opt, g.opt))
-            new_d = NetState(aggregate(d.params, w, alive, state.d.params),
-                             scatter(state.d.bn, d.bn),
+            new_d = NetState(dp, scatter(state.d.bn, d.bn),
                              opt_of(state.d.opt, d.opt))
             return (FedState(new_g, new_d, None, t + 1),
                     metrics_of(d_loss, g_loss, m, denom))
 
         # ---- full-width path (kernel / full participation) ------------
-        bcast = lambda tree: collectives.broadcast_tree(tree, W)
+        if mesh is not None:
+            m, w = m[blk], w[blk]
+        bcast = lambda tree: collectives.broadcast_tree(tree, n_loc)
         g, d, d_loss, g_loss = local_phase(
             NetState(bcast(state.g.params), state.g.bn, state.g.opt),
             NetState(bcast(state.d.params), state.d.bn, state.d.opt),
@@ -537,10 +609,11 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
         sel = lambda old, new: collectives.select_update_tree(old, new, m)
         opt_of = lambda old, new: common.AdamState(
             *sel(tuple(old), tuple(new)))
-        new_g = NetState(aggregate(g.params, w, alive, state.g.params),
-                         sel(state.g.bn, g.bn), opt_of(state.g.opt, g.opt))
-        new_d = NetState(aggregate(d.params, w, alive, state.d.params),
-                         sel(state.d.bn, d.bn), opt_of(state.d.opt, d.opt))
+        gp, dp = aggregate((g.params, d.params), w, alive, params)
+        new_g = NetState(gp, sel(state.g.bn, g.bn),
+                         opt_of(state.g.opt, g.opt))
+        new_d = NetState(dp, sel(state.d.bn, d.bn),
+                         opt_of(state.d.opt, d.opt))
         return (FedState(new_g, new_d, None, t + 1),
                 metrics_of(d_loss, g_loss, m, denom))
 
@@ -554,4 +627,5 @@ def build_fegan(cfg, part: Partition, device=None) -> Runner:
     eval_bn = tree_map(lambda x: x[0], eval_bn)
     gen, sample = make_gen(lambda state: eval_bn)
     return Runner(cfg, part, init_state, round_fn, sample, gen=gen,
-                  device=dev, extras={"sk": sk, "schedule": schedule})
+                  device=dev, extras={"sk": sk, "schedule": schedule},
+                  mesh=mesh, layout=layout)

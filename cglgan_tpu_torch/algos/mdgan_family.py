@@ -2,7 +2,8 @@
 loss feedback.
 
 Port of ``cglgan_tpu/algos/mdgan_family.py`` (the MLP models
-and the conv LSGAN pair, in float32 or bfloat16, one device).  Every round
+and the conv LSGAN pair, in float32 or bfloat16, on one device or a
+clients mesh).  Every round
 each server's G makes a detached fake batch Xd (train mode, so its BN buffers
 advance); every client trains its D ``epoch`` steps on (real window,
 Xd); the server's G then takes one Adam step on the mean of its clients'
@@ -33,6 +34,17 @@ autograd otherwise.  The kernel path's G loss is the plain mean over the
 server's clients, as the reference's (equal to the masked mean when every
 client survives).
 
+A clients mesh (``mesh``, ``core/meshes.py``; the reference's ``P(None,
+"clients")`` on ``(S, k, ...)``): each rank holds k / n clients of every
+server, flat, with their shards, D state, delta anchors and dropout keys;
+the G, the round draws and the survival draw are replicated.  The G step
+gathers the per-client G and D losses (the metrics and the survivors' means
+read them all) and all-reduces the cotangent of the G's output
+(``common.grads_through``); the ring swap sends one client's D to the next
+rank, the shuffle the Ds whose source is on another rank, the gossips
+all-reduce ``(S, ...)`` partial sums (``fed/collectives.py``).  No kernel
+runs on a mesh, as in the reference (``fused_dstep.eligible``).
+
 Conv (``conv=True``, ``cglgan_tpu/algos/mdgan_family.py:51,65-68,97-124``):
 the D has one raw logit (BCE on logits), the local D step runs real and
 fake through separate forwards (the conv D's BatchNorm takes per-forward
@@ -51,7 +63,8 @@ from cglgan_tpu_torch.algos import common
 from cglgan_tpu_torch.algos.common import FedState, NetState
 from cglgan_tpu_torch.algos.runner import Runner
 from cglgan_tpu_torch.core import device as device_mod
-from cglgan_tpu_torch.core import prng, threefry
+from cglgan_tpu_torch.core import meshes, prng, threefry
+from cglgan_tpu_torch.core.meshes import CLIENTS, P
 from cglgan_tpu_torch.core.dtypes import torch_dtype
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.fed import collectives
@@ -60,20 +73,28 @@ from cglgan_tpu_torch.ops import fused_dstep
 from cglgan_tpu_torch.utils.tree import tree_map, tree_unflatten
 
 
-def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
-    """algo == "acgan" (S servers) or "mdgan" (one central G)."""
+def build_mdgan_family(cfg, part: Partition, device=None,
+                       mesh=None) -> Runner:
+    """algo == "acgan" (S servers) or "mdgan" (one central G); ``mesh``:
+    an optional clients mesh (module docstring)."""
     dev = device_mod.resolve(device)
     common.check_supported(cfg)
     S, k, W = cfg.num_servers, cfg.clients_per_server, cfg.num_workers
     if cfg.algo == "mdgan" and S != 1:
         raise ValueError("mdgan has one central generator (num_servers=1)")
+    # this rank's clients of each server: k_loc of them, from blk.start
+    blk = slice(0, k) if mesh is None else mesh.block(k)
+    k_loc = blk.stop - blk.start
+    spec_sk = P(None, CLIENTS)
+    local = lambda tree: meshes.place(tree, mesh, spec_sk, groups=S)
+    everyone = lambda x: meshes.gather_clients(x, mesh, groups=S)
     g_model, d_model = models_for_config(cfg)
     adv = common.make_adv_loss("raw" if cfg.conv else cfg.resolved_d_head)
     B, zdim = cfg.batch_size, cfg.latent_dim
     dtype = torch_dtype(cfg)
     max_len = part.data.shape[1]
-    shards = torch.from_numpy(
-        np.ascontiguousarray(part.data.reshape(W, max_len, -1))).to(dev)
+    shards = local(torch.from_numpy(
+        np.ascontiguousarray(part.data.reshape(W, max_len, -1)))).to(dev)
     din = shards.shape[2]
 
     d_step = common.d_epoch_steps(
@@ -81,13 +102,16 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
                          cfg.is_image, d_loss_half=False, dtype=dtype,
                          fuse_concat=not cfg.conv),
         cfg.epoch)
-    use_kernel = fused_dstep.eligible(cfg)
+    use_kernel = fused_dstep.eligible(cfg, mesh)
     dropout = cfg.dropout_rate > 0.0
     exchange = cfg.E > 0
     swap = exchange and cfg.algo == "mdgan"
     shuffle = swap and cfg.d_swap == "shuffle"
     delta = exchange and cfg.algo == "acgan" and cfg.gossip == "delta"
     rounds = prng.RoundKeys(cfg, max_len, cfg.epoch, dev)
+    # the D state and the delta anchors are this rank's clients; G is
+    # replicated
+    layout = {"d": (spec_sk, S), **({"lam": (spec_sk, S)} if delta else {})}
 
     def init_state() -> FedState:
         # a G a server, a D a client (cglgan_tpu/algos/mdgan_family.py:
@@ -99,13 +123,16 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
         # the delta gossip's per-client anchors start at zero, as the
         # reference sketch's ``w[key] = 0`` (ACGAN/MNIST/acgan.py:235-237)
         aux = tree_map(torch.zeros_like, (dp, dbn)) if delta else None
-        return FedState(NetState(gp, gbn, common.adam_init(gp, S)),
-                        NetState(dp, dbn, common.adam_init(dp, W)), aux, 0)
+        state = FedState(NetState(gp, gbn, common.adam_init(gp, S)),
+                         NetState(dp, dbn, common.adam_init(dp, W)), aux, 0)
+        return meshes.commit_tree(meshes.place_state(state, mesh, layout),
+                                  mesh)
 
     def route(fake):
-        """A server's (S, B, ...) batch to each of its k clients."""
-        return fake.reshape(S, 1, B, din).expand(S, k, B, din) \
-            .reshape(W, B, din)
+        """A server's (S, B, ...) batch to each of its clients on this
+        rank."""
+        return fake.reshape(S, 1, B, din).expand(S, k_loc, B, din) \
+            .reshape(S * k_loc, B, din)
 
     def server_mean(x, mask):
         """(W,) per-client values -> (S,): the mean over a server's
@@ -116,23 +143,33 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
             return x.mean(dim=1)
         return (x * mask).sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1.0)
 
-    def g_update(g: NetState, gbn1, z_g, d_new: NetState, mask,
+    def g_update(g: NetState, gbn1, z_g, d_new: NetState, mask, d_loss,
                  drop_keys=None):
         """One G forward from gbn1 through each server's k updated Ds, one
         Adam step on each server's ``server_mean`` of its clients' losses.
-        ``drop_keys``: the conv D's dropout keys (W, 2).  Returns (new G,
-        G loss (S,))."""
+        ``drop_keys``: the conv D's dropout keys, one a client of this
+        rank.  Returns (new G, G loss (S,), every client's D loss (W,),
+        gathered with the G losses on a mesh)."""
         gp, leaves = common.with_grad(g.params)
         with torch.enable_grad():
             fake, gbn2 = g_model.apply(gp, gbn1, z_g, train=True)
             out, _ = d_model.apply(d_new.params, d_new.bn, route(fake),
                                    train=True, rng=drop_keys)
-            g_loss = server_mean(adv(out, 1.0), mask)
-            grads = torch.autograd.grad(g_loss.sum(), leaves)
+            losses = adv(out, 1.0)
+        both = everyone(torch.stack([losses.detach(), d_loss.float()],
+                                    dim=1)).t().contiguous()
+        # each client's cotangent in sum_s server_mean_s, as autograd
+        # makes it
+        l_all = both[0].requires_grad_(True)
+        with torch.enable_grad():
+            g_loss = server_mean(l_all, mask)
+            coef, = torch.autograd.grad(g_loss.sum(), l_all)
+        grads = common.grads_through(
+            fake, losses, [local(coef)], [leaves], mesh)[0]
         new_p, new_opt = common.adam_update(
             g.params, tree_unflatten(g.params, list(grads)), g.opt,
             cfg.lr_g, cfg.b1, cfg.b2)
-        return NetState(new_p, gbn2, new_opt), g_loss.detach()
+        return NetState(new_p, gbn2, new_opt), g_loss.detach(), both[1]
 
     # the injected streams: the three draws, with conv the dropout keys at
     # slots 3 and 4, then the survival draw and the swap permutation
@@ -168,8 +205,8 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
         if cfg.conv:
             k_d, k_drop = common.conv_stream_keys(
                 streams, dev, "starts, z_d, z_g, k_d, k_drop", extras=2)
-            d_keys = common.client_keys(k_d, k)
-            drop_keys = common.client_keys(k_drop, k)
+            d_keys = local(common.client_keys(k_d, k))
+            drop_keys = local(common.client_keys(k_drop, k))
         z_d = torch.as_tensor(z_d, device=dev).to(dtype)
         z_g = torch.as_tensor(z_g, device=dev).to(dtype)
         starts = [int(s) for s in starts]
@@ -178,8 +215,9 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
         if use_kernel:
             new_d, d_loss, gbn1 = fused_dstep.kernel_local_phase(
                 cfg, g_model, g, state.d, shards, starts, z_d)
-            new_g, g_loss = g_update(g, gbn1, z_g, new_d, None)
-            metrics = {"d_loss": d_loss.mean(), "g_loss": g_loss.mean()}
+            new_g, g_loss, d_all = g_update(g, gbn1, z_g, new_d, None,
+                                            d_loss)
+            metrics = {"d_loss": d_all.mean(), "g_loss": g_loss.mean()}
         else:
             with torch.no_grad():
                 xd, gbn1 = g_model.apply(g.params, g.bn, z_d, train=True)
@@ -189,37 +227,38 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
             if dropout:
                 m = common.participation_mask(
                     torch.as_tensor(alive, device=dev), cfg.dropout_rate)
-                old = state.d
+                old, m_loc = state.d, local(m)
                 new_d = NetState(
                     collectives.select_update_tree(old.params, new_d.params,
-                                                   m),
-                    collectives.select_update_tree(old.bn, new_d.bn, m),
+                                                   m_loc),
+                    collectives.select_update_tree(old.bn, new_d.bn, m_loc),
                     common.AdamState(*collectives.select_update_tree(
-                        tuple(old.opt), tuple(new_d.opt), m)))
+                        tuple(old.opt), tuple(new_d.opt), m_loc)))
                 mask = m.reshape(S, k)
-            new_g, g_loss = g_update(g, gbn1, z_g, new_d, mask, drop_keys)
-            metrics = {"d_loss": server_mean(d_loss, mask).mean(),
+            new_g, g_loss, d_all = g_update(g, gbn1, z_g, new_d, mask,
+                                            d_loss, drop_keys)
+            metrics = {"d_loss": server_mean(d_all, mask).mean(),
                        "g_loss": g_loss.mean()}
 
         lam = state.lam
         if exchange and (t + 1) % cfg.E == 0:
             blocked = lambda tree: tree_map(
-                lambda x: x.reshape((S, k) + x.shape[1:]), tree)
+                lambda x: x.reshape((S, k_loc) + x.shape[1:]), tree)
             flat = lambda tree: tree_map(
-                lambda x: x.reshape((W,) + x.shape[2:]), tree)
+                lambda x: x.reshape((S * k_loc,) + x.shape[2:]), tree)
             cur = (new_d.params, new_d.bn)
             if shuffle:
                 cur = collectives.permute_tree(
-                    cur, torch.as_tensor(perm, device=dev))
+                    cur, torch.as_tensor(perm, device=dev), mesh)
             elif swap:
-                cur = collectives.ring_shift_tree(cur, 1)
+                cur = collectives.ring_shift_tree(cur, 1, mesh)
             elif delta:
                 cur, lam = collectives.delta_share_tree(
-                    blocked(cur), blocked(lam), k, blocked=True)
+                    blocked(cur), blocked(lam), k, blocked=True, mesh=mesh)
                 cur, lam = flat(cur), flat(lam)
             else:
-                cur = flat(collectives.neighbor_share_tree(blocked(cur), k,
-                                                           blocked=True))
+                cur = flat(collectives.neighbor_share_tree(
+                    blocked(cur), k, blocked=True, mesh=mesh))
             new_d = NetState(cur[0], cur[1], new_d.opt)
         return FedState(new_g, new_d, lam, t + 1), metrics
 
@@ -241,4 +280,5 @@ def build_mdgan_family(cfg, part: Partition, device=None) -> Runner:
         return gen(state, z.reshape(S * per, zdim))
 
     return Runner(cfg, part, init_state, round_fn, sample, gen=gen,
-                  gen_batch_multiple=S, device=dev)
+                  gen_batch_multiple=S, device=dev, mesh=mesh,
+                  layout=layout)

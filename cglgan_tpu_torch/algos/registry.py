@@ -5,8 +5,10 @@ models, on the image datasets and on 2DMG: the CGL family (CGL-GAN,
 CAP-GAN, Mix-G), the MD-GAN family (AC-GAN, MD-GAN) and the FedAvg family
 (FL-GAN, FeGAN; the ragged "epochs" sweep on image data).  The conv LSGAN
 pair runs on all seven in float32 and bfloat16, on images zero-padded
-28 -> 32.  What is not ported (meshes) raises ``NotImplementedError``
-naming its ROADMAP item (``algos/common.py`` ``check_supported``).
+28 -> 32, on one device or sharded over a clients mesh
+(``core/meshes.py``).  What is not ported (``model_shards > 1``) raises
+``NotImplementedError`` naming its ROADMAP item (``algos/common.py``
+``check_supported``).
 """
 from __future__ import annotations
 
@@ -49,10 +51,14 @@ def load_partition(cfg) -> Partition:
                      run_subsample=run_sub)
 
 
-def build_runner(cfg, part: Optional[Partition] = None, device=None):
+def build_runner(cfg, part: Optional[Partition] = None, device=None,
+                 mesh=None):
     """Runner for ``cfg`` on ``device`` (default ``cuda``; raises when no
-    card is present unless ``device="cpu"`` is passed)."""
-    dev = device_mod.resolve(device)
+    card is present unless ``device="cpu"`` is passed).  ``mesh``: an
+    optional clients mesh (``core/meshes.py``); the runner's per-client
+    state and data shards are this rank's block, on the mesh's device."""
+    dev = device_mod.resolve(mesh.device if device is None and mesh
+                             else device)
     if cfg.dtype == "bfloat16" and dev.type == "cuda":
         # bfloat16 products accumulate in float32 and round once, as XLA's
         # do: cuBLAS may otherwise reduce partial sums in bfloat16 (the
@@ -63,18 +69,18 @@ def build_runner(cfg, part: Optional[Partition] = None, device=None):
         # validate the forced flag for EVERY algo: eligible() raises for a
         # config that cannot take the kernel instead of running without it
         from cglgan_tpu_torch.ops import fused_sweep
-        fused_sweep.eligible(cfg)
+        fused_sweep.eligible(cfg, mesh)
     check_supported(cfg)
     if part is None:
         part = load_partition(cfg)
     if cfg.algo == "flgan":
         from cglgan_tpu_torch.algos.fedavg_family import build_flgan
-        return build_flgan(cfg, part, dev)
+        return build_flgan(cfg, part, dev, mesh)
     if cfg.algo == "fegan":
         from cglgan_tpu_torch.algos.fedavg_family import build_fegan
-        return build_fegan(cfg, part, dev)
+        return build_fegan(cfg, part, dev, mesh)
     if cfg.algo in ("acgan", "mdgan"):
         from cglgan_tpu_torch.algos.mdgan_family import build_mdgan_family
-        return build_mdgan_family(cfg, part, dev)
+        return build_mdgan_family(cfg, part, dev, mesh)
     from cglgan_tpu_torch.algos.cgl_family import build_cgl_family
-    return build_cgl_family(cfg, part, dev)
+    return build_cgl_family(cfg, part, dev, mesh)

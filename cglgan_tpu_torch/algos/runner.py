@@ -5,8 +5,10 @@ Port of ``cglgan_tpu/algos/runner.py``.  A round is one Python call
 ``train`` loops rounds and keeps each tick's metric sums on the device, so
 the host waits for the device once per tick (the counterpart of the
 reference's ``scan_rounds`` chunk means), and then for the evaluator's
-metrics, if any.  Capturing rounds into CUDA
-graphs is a later ROADMAP item (queue 1 item 7).
+metrics, if any.  On a clients mesh every rank runs the rounds (the
+metrics are already the means over every client) and rank 0 alone
+evaluates, on its replicated G.  Capturing rounds into CUDA graphs is a
+later ROADMAP item (queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -28,6 +30,10 @@ class Runner(NamedTuple):
                                   torch.Tensor]] = None
     device: Optional[torch.device] = None
     extras: Optional[Dict[str, Any]] = None          # e.g. fegan sk, schedule
+    mesh: Any = None                                 # core.meshes.Mesh
+    # the sharded fields of the state: {dotted path: (spec, groups)}
+    # (core.meshes.place_state)
+    layout: Optional[Dict[str, tuple]] = None
 
 
 def train(runner: Runner,
@@ -49,13 +55,17 @@ def train(runner: Runner,
     evaluation; a callable ``(runner, state) -> dict`` adds its metrics.
     ``on_tick`` is called as ``on_tick(round, tick, state)`` after each
     tick, ``round`` the absolute round counter, as the reference's
-    (``cglgan_tpu/algos/runner.py:147-148``)."""
+    (``cglgan_tpu/algos/runner.py:147-148``).  On a mesh every rank calls
+    ``train``; the evaluator runs on rank 0 only, so only its ticks carry
+    the eval metrics."""
     cfg = runner.cfg
     rounds = rounds if rounds is not None else cfg.num_communication
     eval_every = eval_every if eval_every is not None else cfg.num_plt
     eval_every = max(1, min(eval_every, rounds))
     if state is None:
         state = runner.init_state()
+    if runner.mesh is not None and runner.mesh.rank != 0:
+        evaluator = False
     if evaluator is None:
         from cglgan_tpu_torch.evalx.evaluator import make_evaluator
         evaluator = make_evaluator(cfg, runner.part, eval_n=eval_n,

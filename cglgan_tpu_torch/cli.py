@@ -14,7 +14,11 @@ every ``--num-plt`` rounds, and writes the reference's run dir:
 previews, a sample artifact a tick, ``ckpt_<round>`` whenever a
 ``--ckpt-every`` multiple is crossed and ``ckpt_final``; the same command
 with ``--resume`` continues a run bit for bit.  It runs on the card unless
-``--device cpu`` asks for the host, and raises without a card.  The
+``--device cpu`` asks for the host, and raises without a card.
+``--devices N`` shards the federation's clients over N ranks, one process
+a card (``core/meshes.py``; with ``--device cpu``, N gloo ranks on the
+host); rank 0 owns the run dir, and its checkpoints are an unsharded
+run's.  The
 reference's ``--platform`` is ``--device`` here, and ``--compile-cache``
 names the directory the CUDA kernels are built into.  Also ``sweep``,
 ``eval``, ``compare``, ``plot``, ``doctor`` and ``fid-stats``, and the
@@ -121,11 +125,12 @@ def _add_run_args(p: argparse.ArgumentParser, with_algo: bool = True) -> None:
                    help="torch device (default cuda; cpu runs on the host "
                         "only when asked)")
     p.add_argument("--devices", type=int, default=0,
-                   help="shard clients over the first N devices "
-                        "(0 = single-device; not ported yet)")
+                   help="shard clients over N ranks, one process a card "
+                        "(with --device cpu: N gloo ranks on the host; "
+                        "0 = single-device, no mesh)")
     p.add_argument("--model-shards", type=int, default=1,
-                   help="tensor-parallel generator shards (1 = off; not "
-                        "ported yet)")
+                   help="tensor-parallel generator shards (1 = off; more "
+                        "is not ported yet and raises)")
     p.add_argument("--pallas-dstep", default="auto",
                    choices=("auto", "on", "off"),
                    help="the fused local-D-epoch CUDA kernel "
@@ -230,10 +235,18 @@ def cmd_run(args) -> int:
     return 0
 
 
-def _execute_run(args) -> dict:
-    """One training run; returns {"run_dir": path, "final": last tick dict}."""
+def _mesh_rank(mesh, args) -> dict:
+    """A rank of ``run --devices N`` (``meshes.spawn``)."""
+    return _execute_run(args, mesh)
+
+
+def _execute_run(args, mesh=None) -> dict:
+    """One training run; returns {"run_dir": path, "final": last tick dict}
+    (None on a mesh rank other than 0).  ``--devices N`` spawns N ranks,
+    each of which comes back here with its ``mesh``."""
     import numpy as np
 
+    from cglgan_tpu_torch.algos.common import check_supported
     from cglgan_tpu_torch.algos.registry import build_runner, load_partition
     from cglgan_tpu_torch.algos.runner import train
     from cglgan_tpu_torch.core import device as device_mod
@@ -242,41 +255,52 @@ def _execute_run(args) -> dict:
     from cglgan_tpu_torch.utils.imaging import save_image_grid, save_scatter_2d
     from cglgan_tpu_torch.utils.logging import RunDir
 
-    dev = device_mod.resolve(args.device)     # raises without a card
     init_pts = getattr(args, "init_from_torch", None)
     if init_pts and args.resume:
         raise SystemExit("--init-from-torch and --resume are mutually "
                          "exclusive (a checkpoint already has generators)")
     cfg = cfg_from_args(args)
-    if args.devices or cfg.model_shards > 1:
-        from cglgan_tpu_torch.algos.common import check_supported
-        check_supported(cfg, mesh=args.devices)   # raises: item 17
+    check_supported(cfg)                      # model_shards > 1 raises
+    if args.devices and mesh is None:
+        from cglgan_tpu_torch.core import meshes
+        # raises where fewer than --devices cards are present
+        return meshes.spawn(_mesh_rank, args.devices, args.device, args)[0]
+    # rank 0 (or an unsharded run) owns the run dir, the logs, the
+    # artifacts and the checkpoint files; the other ranks write nothing
+    lead = mesh is None or mesh.rank == 0
+    dev = mesh.device if mesh else device_mod.resolve(args.device)
+    say = print if lead else (lambda *a, **k: None)
     synthetic = cfg.dataset in ("mnist", "fashion-mnist") and not cfg.data_dir
     if synthetic:
-        print(f"{PREFIX} WARNING: no --data-dir given for {cfg.dataset}; "
-              "falling back to the deterministic synthetic glyph dataset "
-              "(same shapes/cardinality, not handwriting)")
+        say(f"{PREFIX} WARNING: no --data-dir given for {cfg.dataset}; "
+            "falling back to the deterministic synthetic glyph dataset "
+            "(same shapes/cardinality, not handwriting)")
     if cfg.dtype == "bfloat16" and cfg.dataset == "2dmg":
         # construction only succeeds here with force_dtype=True
-        print(f"{PREFIX} WARNING: --force-dtype bfloat16 on 2DMG; fidelity "
-              "results from this run are not reference-comparable")
+        say(f"{PREFIX} WARNING: --force-dtype bfloat16 on 2DMG; fidelity "
+            "results from this run are not reference-comparable")
     part = load_partition(cfg)
-    runner = build_runner(cfg, part, device=dev)
+    runner = build_runner(cfg, part, device=dev, mesh=mesh)
+    # where the checkpoints' client stacks live
+    on_mesh = dict(mesh=mesh, layout=runner.layout)
     state = runner.init_state()
     if init_pts:
         from cglgan_tpu_torch.utils.torch_import import warm_start_generators
         paths = [p.strip() for p in init_pts.split(",") if p.strip()]
         state = warm_start_generators(state, paths)
-        print(f"{PREFIX} generators warm-started from {len(paths)} "
-              f"reference checkpoint(s)")
+        say(f"{PREFIX} generators warm-started from {len(paths)} "
+            f"reference checkpoint(s)")
     if args.resume:
-        state = restore_checkpoint(args.resume, state)
-        print(f"{PREFIX} resumed from {args.resume} at round {state.t}")
+        state = restore_checkpoint(args.resume, state, **on_mesh)
+        say(f"{PREFIX} resumed from {args.resume} at round {state.t}")
     # a resume into the same run dir drops the ticks it will log again
     run_dir = RunDir(args.out, args.name, cfg,
                      tensorboard=getattr(args, "tensorboard", False),
-                     resume_round=state.t if args.resume else None)
-    if synthetic:
+                     resume_round=state.t if args.resume else None) \
+        if lead else None
+    # a file of rank 0's run dir; the other ranks write none
+    lead_file = lambda name: run_dir.file(name) if lead else None
+    if lead and synthetic:
         # a permanent marker, so that a run dir on the glyph bank is never
         # taken for a run on the real data
         with open(run_dir.file("DATA_SOURCE.txt"), "w") as f:
@@ -288,13 +312,14 @@ def _execute_run(args) -> dict:
                 "does not.  Metrics are comparable across runs on the glyph "
                 "bank, NOT to runs on the real data.  Pass --data-dir with "
                 "the IDX files to train on real data.\n")
-    print(f"{PREFIX} run dir: {run_dir.path}")
-    print(f"{PREFIX} device: {dev} ({_device_name(dev)})")
-    print(f"{PREFIX} shards: {part.lengths.tolist()}")
+    say(f"{PREFIX} run dir: {run_dir.path if lead else None}")
+    say(f"{PREFIX} device: {dev} ({_device_name(dev)})"
+        + (f", mesh of {mesh.size} ranks" if mesh else ""))
+    say(f"{PREFIX} shards: {part.lengths.tolist()}")
 
     # per-device distribution previews (CGLGAN/MNIST/main.py:499-501)
     img_side = cfg.img_size + 4 if cfg.conv else cfg.img_size
-    for i in range(min(cfg.num_workers, 32)):
+    for i in range(min(cfg.num_workers, 32) if lead else 0):
         L = int(part.lengths[i])
         sel = part.data[i, :min(L, 100)]
         if cfg.is_image:
@@ -308,59 +333,70 @@ def _execute_run(args) -> dict:
     last_ckpt = [state.t]
 
     def on_tick(t, tick, cur_state):
-        msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(tick.items())
-                       if isinstance(v, float))
-        print(f"{PREFIX} round {t}: {msg}")
-        run_dir.log(tick)
-        samples = _host_samples(runner.sample(cur_state,
-                                              min(100, cfg.num_sample)))
-        if cfg.is_image:
-            save_image_grid(samples, run_dir.file(f"{t}.png"))
-        else:
-            save_scatter_2d(run_dir.file(f"{t}.png"), eval_pool[:2000],
-                            samples)
+        if lead:
+            msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(tick.items())
+                           if isinstance(v, float))
+            print(f"{PREFIX} round {t}: {msg}")
+            run_dir.log(tick)
+            samples = _host_samples(runner.sample(cur_state,
+                                                  min(100, cfg.num_sample)))
+            if cfg.is_image:
+                save_image_grid(samples, run_dir.file(f"{t}.png"))
+            else:
+                save_scatter_2d(run_dir.file(f"{t}.png"), eval_pool[:2000],
+                                samples)
         # checkpoint whenever a ckpt_every multiple is crossed (exact
-        # divisibility by the tick cadence not required)
+        # divisibility by the tick cadence not required); on a mesh every
+        # rank takes part
         if args.ckpt_every and t // args.ckpt_every > \
                 last_ckpt[0] // args.ckpt_every:
-            save_checkpoint(run_dir.file(f"ckpt_{t}"), cur_state)
+            save_checkpoint(lead_file(f"ckpt_{t}"), cur_state, **on_mesh)
             last_ckpt[0] = t
 
+    result = lambda final: {"run_dir": run_dir.path, "final": final} \
+        if lead else None
     remaining = cfg.num_communication - state.t
     if remaining <= 0:
-        print(f"{PREFIX} nothing to do (state already past "
-              "num_communication)")
-        return {"run_dir": run_dir.path, "final": {}}
+        say(f"{PREFIX} nothing to do (state already past "
+            "num_communication)")
+        return result({})
 
     if args.profile:
+        import contextlib
+
         from cglgan_tpu_torch.utils.profiling import trace
-        with trace(run_dir.file("profile"), dev):
+        with trace(run_dir.file("profile"), dev) if lead \
+                else contextlib.nullcontext():
             train(runner, rounds=min(cfg.num_plt, remaining), state=state,
                   evaluator=False)
-        print(f"{PREFIX} profile written to {run_dir.file('profile')}")
-        return {"run_dir": run_dir.path, "final": {}}
+        say(f"{PREFIX} profile written to {lead_file('profile')}")
+        return result({})
 
-    # the single source of eval truth: library callers get the same metrics
-    from cglgan_tpu_torch.evalx.evaluator import make_evaluator
-    evaluator = make_evaluator(cfg, part,
-                               fid_stats=args.fid_stats,
-                               inception_weights=args.inception_weights,
-                               device=dev)
+    # the single source of eval truth: library callers get the same
+    # metrics; on a mesh rank 0 evaluates
+    evaluator = False
+    if lead:
+        from cglgan_tpu_torch.evalx.evaluator import make_evaluator
+        evaluator = make_evaluator(cfg, part,
+                                   fid_stats=args.fid_stats,
+                                   inception_weights=args.inception_weights,
+                                   device=dev)
     if cfg.is_image:
         space = "inception-pool3" if args.inception_weights else "proxy-conv"
-        print(f"{PREFIX} FID feature space: {space}"
-              + (f", real stats from {args.fid_stats}" if args.fid_stats
-                 else ""))
+        say(f"{PREFIX} FID feature space: {space}"
+            + (f", real stats from {args.fid_stats}" if args.fid_stats
+               else ""))
 
     out = train(runner, rounds=remaining, state=state, on_tick=on_tick,
                 evaluator=evaluator)
     state = out["state"]
-    save_checkpoint(run_dir.file("ckpt_final"), state)
-    run_dir.close()
+    save_checkpoint(lead_file("ckpt_final"), state, **on_mesh)
+    if lead:
+        run_dir.close()
     hist = out["history"]
-    print(f"{PREFIX} done: {state.t} rounds in {hist[-1]['wall_s']:.1f}s"
-          if hist else f"{PREFIX} done")
-    return {"run_dir": run_dir.path, "final": hist[-1] if hist else {}}
+    say(f"{PREFIX} done: {state.t} rounds in {hist[-1]['wall_s']:.1f}s"
+        if hist else f"{PREFIX} done")
+    return result(hist[-1] if hist else {})
 
 
 def cmd_sweep(args) -> int:
@@ -741,8 +777,9 @@ def cmd_import_torch(args) -> int:
 
 def cmd_doctor(args) -> int:
     """Environment diagnosis: versions, a BOUNDED probe of the card (in a
-    killable subprocess: a hung initialisation never hangs this one), the
-    kernel build directory and the native dataplane.  Prints one JSON
+    killable subprocess: a hung initialisation never hangs this one) with
+    the count of cards, the kernel build directory and the native
+    dataplane.  Prints one JSON
     object; exit 0 iff the device probed (the card, unless ``--device
     cpu``) answered."""
     import json
@@ -757,6 +794,8 @@ def cmd_doctor(args) -> int:
                                        device=args.device)
     if status == "ok":
         report["backend"] = info
+        # the cards a mesh can take: ``run --devices N`` needs N of them
+        report["cuda_devices"] = info["cuda_devices"]
     elif status == "timeout":
         report["backend"] = {
             "error": f"unresponsive (device init exceeded "

@@ -136,14 +136,20 @@ def server_draws(cfg, key: torch.Tensor) -> tuple:
     return z_d, z_g, keys[:, 2], keys[:, 3]
 
 
-def lane_draws(cfg, key: torch.Tensor, steps: int) -> tuple:
+def lane_draws(cfg, key: torch.Tensor, steps: int, lanes=None) -> tuple:
     """A FedAvg round's draws from its key: ``(z1, z2)`` (W, steps, B,
     zdim) in the run's dtype — z1 feeds each local D step's fake batch, z2
     the G step — and with ``cfg.conv`` each lane's dropout keys ``kd1,
     kd2`` (W, steps, 2) after them: ``kd1`` the D step's (split into the
-    real and the fake forward's), ``kd2`` the G step's."""
+    real and the fake forward's), ``kd2`` the G step's.  ``lanes``: a
+    slice of the W workers (a mesh rank's block), drawn alone; a lane's
+    draws come from its own key, so they are the same bits as the whole
+    draw's rows."""
     W, B, zdim = cfg.num_workers, cfg.batch_size, cfg.latent_dim
-    keys = threefry.split(threefry.split(threefry.split(key, W), steps), 4)
+    worker_keys = threefry.split(key, W)
+    if lanes is not None:
+        worker_keys = worker_keys[lanes]
+    keys = threefry.split(threefry.split(worker_keys, steps), 4)
     z1, z2 = threefry.normal_parts(keys[..., :2, :], [(B, zdim)] * 2,
                                    torch_dtype(cfg))
     if not cfg.conv:

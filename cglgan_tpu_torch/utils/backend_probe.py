@@ -41,6 +41,9 @@ elif dev == "cpu":
     info.update(device_kind="cpu", count=1)
 else:
     raise SystemExit(f"unsupported device {dev!r}")
+# the cards a mesh can take (``--devices``), whichever device was probed
+info["cuda_devices"] = (torch.cuda.device_count()
+                        if torch.cuda.is_available() else 0)
 print(json.dumps(info))
 """
 
@@ -50,7 +53,8 @@ def probe(timeout: float = 60,
     """Initialise ``device`` (default ``cuda``) in a killable subprocess.
 
     Returns ``(status, info)``: ``("ok", {platform, device_kind, count,
-    torch[, cuda, nvidia_smi]})`` (``nvidia_smi``: the lines of
+    torch, cuda_devices[, cuda, nvidia_smi]})`` (``cuda_devices``: the
+    CUDA devices present, 0 without any) (``nvidia_smi``: the lines of
     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``,
     where it answers), ``("error", message)`` for a fast failure (no
     device, no driver, an import error), or ``("timeout", None)`` when

@@ -11,13 +11,21 @@ it with ``weights_only=True``, which rebuilds no NamedTuple, so
 and loads onto the template's device.  Tensors are saved as they are, so
 bfloat16 leaves keep their bits and a resumed run is the uninterrupted
 one, bit for bit.
+
+On a clients mesh (``core/meshes.py``) rank 0 gathers the client stacks
+(``meshes.gather_state`` with the runner's ``layout``) and writes the file
+an unsharded run writes; a restore reads it on every rank and keeps each
+rank's block.  So a mesh checkpoint restores unsharded, an unsharded one
+on a mesh, and a run resumed on the same mesh continues bit for bit.
 """
 from __future__ import annotations
 
 import os
-from typing import Any
+from typing import Any, Dict, Optional
 
 import torch
+
+from cglgan_tpu_torch.core import meshes
 
 
 def _plain(x: Any) -> Any:
@@ -75,18 +83,27 @@ def _rebuild(like: Any, saved: Any, where: str) -> Any:
     fail(f"unsupported template leaf {type(like).__name__}")
 
 
-def save_checkpoint(path: str, state: Any) -> None:
-    """Write ``state`` to ``path`` (one file), replacing it whole."""
+def save_checkpoint(path: str, state: Any, mesh=None,
+                    layout: Optional[Dict[str, tuple]] = None) -> None:
+    """Write ``state`` to ``path`` (one file), replacing it whole.  On a
+    mesh every rank calls it (a collective) and rank 0 writes the whole
+    state."""
+    state = meshes.gather_state(state, mesh, layout or {})
+    if state is None:
+        return
     path = os.path.abspath(path)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(_plain(state), tmp)
     os.replace(tmp, path)
 
 
-def restore_checkpoint(path: str, template: Any) -> Any:
+def restore_checkpoint(path: str, template: Any, mesh=None,
+                       layout: Optional[Dict[str, tuple]] = None) -> Any:
     """The state saved at ``path``, rebuilt against ``template`` (a
     FedState of the right structure, shapes and dtypes, e.g. from
-    ``runner.init_state()``) on the template's device."""
+    ``runner.init_state()``) on the template's device; on a mesh, this
+    rank's block of it."""
     saved = torch.load(os.path.abspath(path), map_location="cpu",
                        weights_only=True)
+    saved = meshes.place_state(saved, mesh, layout or {})
     return _rebuild(template, saved, "")

@@ -1,0 +1,143 @@
+"""Every algorithm a few rounds on a clients mesh.
+
+``dryrun_multichip(n, device="cpu")`` is the counterpart of the
+reference's ``dryrun_multichip`` (``__graft_entry__.py:137-231``): its
+configs on an n-rank clients mesh (``core/meshes.py``), 2 clients a rank,
+each checked for ``state.t == rounds`` and finite metrics.  Its composed
+DP x TP config is left out: tensor parallelism is not ported (ROADMAP
+queue 1 item 17).  ``run_cases`` is the function every rank runs; the mesh
+tests and ``chip_smoke.py`` spawn it with cases of their own.
+
+    python -m cglgan_tpu_torch.utils.dryrun 4 --device cpu
+"""
+from __future__ import annotations
+
+import math
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from cglgan_tpu_torch.core import meshes
+
+
+def multichip_cases(n: int) -> List[dict]:
+    """The reference's dryrun configs at ``n`` ranks (its 2-server ones
+    where ``n`` is even), 2DMG at tiny shapes, 2 clients a rank."""
+    base = dict(dataset="2dmg", num_workers=2 * n, num_class=4,
+                num_sample=64, batch_size=16, iid=1, num_communication=2)
+    case = lambda name, rounds, **kw: {"name": name, "rounds": rounds,
+                                       "cfg": {**base, **kw}}
+    cases = [
+        case("capgan", 2, algo="capgan", num_servers=1, epoch=1),
+        case("mdgan E=1", 2, algo="mdgan", num_servers=1, epoch=1, E=1,
+             dropout_rate=0.25),
+        case("fegan", 2, algo="fegan", num_servers=1, epoch=1,
+             frac_workers=0.5),
+        case("flgan ragged", 1, algo="flgan", num_servers=1, epoch=1,
+             local_sweep="epochs")]
+    if n % 2 == 0:
+        cases += [
+            case("cglgan", 1, algo="cglgan", num_servers=2, cloud_epoch=1),
+            case("acgan E=1", 2, algo="acgan", num_servers=2, epoch=1, E=1),
+            case("acgan E=1 delta", 2, algo="acgan", num_servers=2,
+                 epoch=1, E=1, gossip="delta"),
+            case("mixgan", 1, algo="mixgan", num_servers=2,
+                 cloud_epoch=1)]
+    return cases
+
+
+def run_cases(mesh: Optional[meshes.Mesh], cases: List[dict],
+              device=None) -> Dict[str, dict]:
+    """Each case ``{"name", "cfg": FedGANConfig fields, "rounds"[,
+    "warmup", "unsharded"]}``: its partition from the config, its runner
+    on ``mesh`` (or unsharded on ``device``), ``warmup`` then ``rounds``
+    rounds from ``init_state()``.  A case marked ``"unsharded"`` runs
+    without the mesh on rank 0's device, and on no other rank: a mesh run
+    and the unsharded run then time in one process, in turns.
+    Returns {name: {"metrics": per-round floats,
+    "collectives": per-round recorder logs, "seconds": the timed rounds'
+    wall time, "threefry_launches": in the timed rounds, "t", and on rank
+    0 (or unsharded) "state": the whole state, on the host}}."""
+    from cglgan_tpu_torch.algos.registry import build_runner, load_partition
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.ops import threefry as tk
+    from cglgan_tpu_torch.utils.checkpoint import _plain
+
+    out, parts = {}, {}
+    for case in cases:
+        on, where = mesh, device
+        if case.get("unsharded") and mesh is not None:
+            if mesh.rank != 0:
+                continue
+            on, where = None, mesh.device
+        cfg = FedGANConfig(**case["cfg"])
+        key = repr(sorted(case["cfg"].items()))       # a case run again
+        if key not in parts:
+            parts[key] = load_partition(cfg)
+        runner = build_runner(cfg, parts[key], device=where, mesh=on)
+        dev = runner.device
+        sync = (lambda: torch.cuda.synchronize(dev)) \
+            if dev.type == "cuda" else (lambda: None)
+        state = runner.init_state()
+        for _ in range(case.get("warmup", 0)):
+            state, _ = runner.round_fn(state)
+        logs, metrics = [], []
+        if on is not None:
+            on.recorder.take()
+        sync()
+        launched = tk.launches
+        t0 = time.perf_counter()
+        for _ in range(case["rounds"]):
+            state, m = runner.round_fn(state)
+            metrics.append(m)
+            if on is not None:
+                logs.append(on.recorder.take())
+        sync()
+        res = {"seconds": time.perf_counter() - t0,
+               "threefry_launches": tk.launches - launched, "t": state.t,
+               "metrics": [{k: float(v) for k, v in m.items()}
+                           for m in metrics],
+               "collectives": logs}
+        whole = meshes.gather_state(state, on, runner.layout or {})
+        if whole is not None:
+            res["state"] = _plain(whole)
+        out[case["name"]] = res
+    return out
+
+
+def dryrun_multichip(n: int, device="cpu", extra=()) -> Dict[str, dict]:
+    """``multichip_cases(n)`` on ``n`` ranks (gloo on the host by
+    default; ``device="cuda"``: NCCL, one rank a card); raises unless
+    every case reached its round count with finite metrics.  ``extra``:
+    further cases run by the same ranks after them.  Returns rank 0's
+    results of all."""
+    cases = multichip_cases(n)
+    clash = {c["name"] for c in cases} & {c["name"] for c in extra}
+    if clash:
+        raise ValueError(f"extra cases named as the dryrun's: {clash}")
+    res = meshes.spawn(run_cases, n, device, cases + list(extra))[0]
+    for case in cases:
+        got = res[case["name"]]
+        if got["t"] != case["rounds"]:
+            raise AssertionError(f"{case['name']}: t={got['t']}, expected "
+                                 f"{case['rounds']}")
+        for m in got["metrics"]:
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{case['name']}: metrics {m}")
+        print(f"dryrun_multichip: {case['name']} ok — " + ", ".join(
+            f"{k}={v:.4f}" for k, v in got["metrics"][-1].items()))
+    print(f"dryrun_multichip({n}): all ok")
+    return res
+
+
+if __name__ == "__main__":
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("n", type=int, nargs="?", default=2)
+    ap.add_argument("--device", default="cpu")
+    args = ap.parse_args()
+    # by the module's name, so that the ranks unpickle ``run_cases`` from
+    # it and not from ``__main__``
+    from cglgan_tpu_torch.utils import dryrun
+    dryrun.dryrun_multichip(args.n, args.device)

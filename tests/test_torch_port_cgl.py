@@ -356,8 +356,8 @@ def test_gen_gen_client_and_sample_match_jax(algo, dataset):
 def test_train_and_entry_point_contract():
     """``build_runner`` builds cglgan (iid 0, 1, 2) and mixgan on both
     datasets on the CPU when asked, ``train`` runs them, Mix-G's init is
-    DCGAN's; meshes still raise naming their ROADMAP item, and bf16 and
-    conv build."""
+    DCGAN's; tensor parallelism (``model_shards > 1``) still raises naming
+    its ROADMAP item, and bf16 and conv build."""
     for dataset in ("synthetic-mnist", "2dmg"):
         _, part = _partition(dataset)
         for algo, iid in (("cglgan", 0), ("cglgan", 1), ("cglgan", 2),

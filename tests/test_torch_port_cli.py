@@ -256,17 +256,23 @@ def test_sweep_writes_its_summary(tmp_path):
 
 
 def test_run_options_that_route_elsewhere(tmp_path, monkeypatch):
-    """Without a card ``run`` raises rather than train on the host;
-    ``--devices`` names item 17; ``--profile`` writes one tick's trace;
-    ``--compile-cache DIR`` moves the kernel build directory."""
+    """Without a card ``run`` raises rather than train on the host, also
+    with ``--devices`` (never fewer ranks, never the host);
+    ``--model-shards`` names item 17; ``--profile`` writes one tick's
+    trace; ``--compile-cache DIR`` moves the kernel build directory."""
     base = ["run", "flgan", "--num-workers", "4", "--num-class", "4",
             "--num-sample", "64", "--batch-size", "16", "--rounds", "2",
             "--num-plt", "2", "--out", str(tmp_path)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(base + ["--name", "nocard"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(base + ["--name", "nocards", "--devices", "2"])
+        assert not (tmp_path / "nocards").exists()
     with pytest.raises(NotImplementedError, match="item 17"):
-        cli.main(base + ["--device", "cpu", "--devices", "2"])
+        cli.main([{"flgan": "capgan"}.get(a, a) for a in base]
+                 + ["--device", "cpu", "--model-shards", "2"])
     assert cli.main(base + ["--device", "cpu", "--profile",
                             "--name", "prof"]) == 0
     with open(tmp_path / "prof" / "profile" / "trace.json") as f:
@@ -277,6 +283,50 @@ def test_run_options_that_route_elsewhere(tmp_path, monkeypatch):
         compile_cache=str(tmp_path / "kb")))
     assert _build.BUILD_DIR == str(tmp_path / "kb")
     assert _build.target("threefry").startswith(str(tmp_path / "kb"))
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def test_run_on_a_mesh_resumes_bit_exact(tmp_path):
+    """``run capgan --dataset 2dmg --devices 2 --device cpu``: two gloo
+    ranks and one run dir, rank 0's; its checkpoints hold the whole state
+    in the unsharded layout, so ``ckpt_2`` restores into an unsharded
+    runner; the run cut at its ``ckpt_2`` and resumed on the same mesh
+    ends bit for bit where the uninterrupted run ends."""
+    argv = RUN + ["--device", "cpu", "--devices", "2", "--out",
+                  str(tmp_path)]
+    assert cli.main(argv + ["--name", "mesh"]) == 0
+    assert cli.main(argv + ["--name", "resumed", "--resume",
+                            str(tmp_path / "mesh" / "ckpt_2")]) == 0
+    assert sorted(os.listdir(tmp_path)) == ["mesh", "resumed"]
+    assert [t["round"] for t in _jsonl(tmp_path / "mesh")] == [2, 4]
+    load = lambda name, ckpt: torch.load(tmp_path / name / ckpt,
+                                         weights_only=True)
+    whole, resumed = load("mesh", "ckpt_final"), load("resumed",
+                                                      "ckpt_final")
+    assert whole["t"] == resumed["t"] == 4
+    pairs = list(zip(_leaves(whole), _leaves(resumed)))
+    assert pairs and all(torch.equal(a, b) for a, b in pairs)
+    cfg = FedGANConfig(algo="capgan", dataset="2dmg", num_workers=4,
+                       num_servers=2, num_class=4, num_sample=100,
+                       batch_size=16, epoch=2, lr_g=0.01, lr_d=0.01,
+                       num_communication=4, num_plt=2)
+    runner = build_runner(cfg, load_partition(cfg), device="cpu")
+    state = restore_checkpoint(str(tmp_path / "mesh" / "ckpt_2"),
+                               runner.init_state())
+    assert state.t == 2
+    assert all(torch.equal(a, b) for a, b in zip(
+        _leaves(state.d.params), _leaves(load("mesh", "ckpt_2")["d"][
+            "params"])))
 
 
 # ---------------------------------------------------------------------------
@@ -299,11 +349,14 @@ def test_doctor_without_a_card(capsys):
 
 def test_doctor_probes_the_device_asked(capsys):
     """``doctor --device cpu`` hands the device to the probe: the host
-    answers, and doctor exits 0 reporting it."""
+    answers, and doctor exits 0 reporting it and the count of cards a
+    mesh can take."""
     capsys.readouterr()
     assert cli.main(["doctor", "--device", "cpu",
                      "--probe-timeout", "120"]) == 0
-    backend = json.loads(capsys.readouterr().out)["backend"]
+    report = json.loads(capsys.readouterr().out)
+    assert report["cuda_devices"] == torch.cuda.device_count()
+    backend = report["backend"]
     assert backend["platform"] == "cpu" and backend["device_kind"] == "cpu"
     assert backend["torch"] == torch.__version__
 

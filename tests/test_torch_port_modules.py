@@ -343,7 +343,8 @@ def test_port_imports_no_jax():
                  "algos.fedavg_family", "algos.mdgan_family", "data.gmm",
                  "fed.sampling", "evalx.hist2d", "evalx.evaluator",
                  "core.threefry", "evalx.fid", "evalx.inception",
-                 "utils.export", "utils.torch_import"):
+                 "utils.export", "utils.torch_import", "core.meshes",
+                 "utils.dryrun"):
         assert f"cglgan_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
