@@ -39,6 +39,16 @@ all-reduces ``(S, ...)`` partial sums; the cloud sync runs on the
 replicated G; the metrics are the means over every client.  No kernel runs
 on a mesh, as in the reference (``fused_dstep.eligible``).
 
+Tensor parallelism (``model_shards > 1`` on a ``(clients, model)`` mesh,
+``cglgan_tpu/algos/cgl_family.py:117-126``): the G is drawn whole from the
+seed and each rank keeps its blocks of its params, BN state and Adam
+moments (``meshes.place_model_tp``, the servers axis whole); both G
+forwards run column-parallel (``models/tp.py``), the output whole, so the
+D phase and the per-client losses are those of the clients mesh; Adam, the
+cloud sync and the Lambda game act on the blocks with no collective.  The
+runner's ``gen`` and ``sample`` take a state with the whole G
+(``meshes.gather_state`` of ``layout["g"]``; ``train`` gathers it a tick).
+
 bfloat16 (``dtype="bfloat16"``): G and D params, BN state, latents, fakes
 and Adam moments are bfloat16; the per-client losses, the game (w, Lambda)
 and the metrics are float32, as in the reference.
@@ -76,13 +86,20 @@ from cglgan_tpu_torch.utils.tree import (tree_leaves, tree_map,
 
 def build_cgl_family(cfg, part: Partition, device=None,
                      mesh=None) -> Runner:
-    """``mesh``: an optional clients mesh; this rank's block of every
-    server's clients is placed here (module docstring)."""
+    """``mesh``: an optional clients mesh, or a ``(clients, model)`` one;
+    this rank's block of every server's clients is placed here, and with
+    ``model_shards > 1`` its blocks of the G (module docstring)."""
     dev = device_mod.resolve(device)
     common.check_supported(cfg)
     S, k, W = cfg.num_servers, cfg.clients_per_server, cfg.num_workers
     # this rank's clients of each server: k_loc of them, from blk.start
     blk = slice(0, k) if mesh is None else mesh.block(k)
+    # the G's column blocks over the mesh's model axis, as the reference
+    # places them only where the config asks (cgl_family.py:117-126)
+    tp = mesh.tp if mesh is not None and cfg.model_shards > 1 else None
+    if tp is not None and cfg.conv and 3 % tp.size == 0:
+        raise ValueError("the column rule would split the conv G's 3x3 "
+                         f"kernels over model_shards={tp.size}")
     k_loc = blk.stop - blk.start
     spec_sk = P(None, CLIENTS)
     local = lambda tree: meshes.place(tree, mesh, spec_sk, groups=S)
@@ -122,7 +139,9 @@ def build_cgl_family(cfg, part: Partition, device=None,
     use_kernel = fused_dstep.eligible(cfg, mesh)
     rounds = prng.RoundKeys(cfg, max_len, cfg.epoch, dev)
 
-    # the D state is this rank's clients; G and Lambda are replicated
+    # the D state is this rank's clients; Lambda is replicated, and so is
+    # the G but with tensor parallelism, where ``init_state`` records its
+    # blocks' plan under "g"
     layout = {"d": (spec_sk, S)}
 
     def init_state() -> FedState:
@@ -142,6 +161,10 @@ def build_cgl_family(cfg, part: Partition, device=None,
                          NetState(dp, dbn, common.adam_init(dp, W)),
                          torch.zeros((S,), dtype=torch.float32, device=dev),
                          0)
+        if tp is not None:
+            # the servers axis stays whole (lead=1), as the reference's
+            # place_model_tp(t, mesh, lead=1)
+            layout["g"] = (meshes.TP, meshes.tp_plan(state.g, tp.size, 1))
         return meshes.commit_tree(meshes.place_state(state, mesh, layout),
                                   mesh)
 
@@ -165,7 +188,7 @@ def build_cgl_family(cfg, part: Partition, device=None,
         D's dropout keys, one a client of this rank."""
         gp, leaves = common.with_grad(g.params)
         with torch.enable_grad():
-            fake, gbn2 = g_model.apply(gp, gbn1, z_g, train=True)
+            fake, gbn2 = g_model.apply(gp, gbn1, z_g, train=True, tp=tp)
             out, _ = d_model.apply(d_new.params, d_new.bn, route(fake),
                                    train=True, rng=drop_keys)
             losses = adv(out, 1.0).reshape(S, k_loc)
@@ -251,7 +274,8 @@ def build_cgl_family(cfg, part: Partition, device=None,
                 cfg, g_model, g, state.d, shards, starts, z_d)
         else:
             with torch.no_grad():
-                xd, gbn1 = g_model.apply(g.params, g.bn, z_d, train=True)
+                xd, gbn1 = g_model.apply(g.params, g.bn, z_d, train=True,
+                                         tp=tp)
             shared = S == 1 and not multipath
             fake = xd.reshape(B, din) if shared else route(xd)
             new_d, d_loss = d_step(state.d, shards, starts, fake, d_keys)
@@ -274,7 +298,8 @@ def build_cgl_family(cfg, part: Partition, device=None,
     @torch.no_grad()
     def gen(state: FedState, z):
         """Eval-mode samples from caller latents z (n, zdim), n divisible
-        by S; server i generates from the block z[i*per:(i+1)*per].  A
+        by S, of a state with the whole G; server i generates from the
+        block z[i*per:(i+1)*per].  A
         multipath G's output is the concat of its heads, strided back down
         to the per-server quota (painter routing, capgan.py:79-83)."""
         per = z.shape[0] // S

@@ -29,17 +29,16 @@ from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 # ---------------------------------------------------------------------------
 
 def check_supported(cfg) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for what the
-    ported slices do not cover: ``model_shards > 1`` (every algorithm runs
-    on the MLP models and on the conv LSGAN pair, on 2DMG and the image
-    datasets, in float32 and bfloat16, on one device or sharded over a
-    clients mesh, ``core/meshes.py``).  A conv config on 2DMG builds, as the
-    reference's does; only its rounds need image data (the conv D reads a
-    row as a square image)."""
+    """Raise ValueError for a dtype the port does not run.  Every
+    algorithm runs on the MLP models and on the conv LSGAN pair, on 2DMG
+    and the image datasets, in float32 and bfloat16, on one device or
+    sharded over a clients mesh (``core/meshes.py``), and the CGL family
+    with its G split over a ``model`` axis too (``model_shards > 1``; the
+    config refuses it on the other families, as the reference's).  A conv
+    config on 2DMG builds, as the reference's does; only its rounds need
+    image data (the conv D reads a row as a square image)."""
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unsupported dtype {cfg.dtype!r}")
-    if cfg.model_shards > 1:
-        raise NotImplementedError(meshes.TP_NOT_PORTED)
 
 
 def client_keys(k_s: torch.Tensor, k: int) -> torch.Tensor:

@@ -6,9 +6,8 @@ CAP-GAN, Mix-G), the MD-GAN family (AC-GAN, MD-GAN) and the FedAvg family
 (FL-GAN, FeGAN; the ragged "epochs" sweep on image data).  The conv LSGAN
 pair runs on all seven in float32 and bfloat16, on images zero-padded
 28 -> 32, on one device or sharded over a clients mesh
-(``core/meshes.py``).  What is not ported (``model_shards > 1``) raises
-``NotImplementedError`` naming its ROADMAP item (``algos/common.py``
-``check_supported``).
+(``core/meshes.py``), and the CGL family's G also split over the mesh's
+``model`` axis (``model_shards > 1``, ``models/tp.py``).
 """
 from __future__ import annotations
 
@@ -55,8 +54,11 @@ def build_runner(cfg, part: Optional[Partition] = None, device=None,
                  mesh=None):
     """Runner for ``cfg`` on ``device`` (default ``cuda``; raises when no
     card is present unless ``device="cpu"`` is passed).  ``mesh``: an
-    optional clients mesh (``core/meshes.py``); the runner's per-client
-    state and data shards are this rank's block, on the mesh's device."""
+    optional mesh (``core/meshes.py``); the runner's per-client state and
+    data shards are this rank's block, on the mesh's device, and with
+    ``model_shards > 1`` on a mesh with a ``model`` axis, its blocks of
+    the CGL family's G.  Without such a mesh ``model_shards`` places
+    nothing, as the reference's ``place_model_tp``."""
     dev = device_mod.resolve(mesh.device if device is None and mesh
                              else device)
     if cfg.dtype == "bfloat16" and dev.type == "cuda":

@@ -7,8 +7,9 @@ the host waits for the device once per tick (the counterpart of the
 reference's ``scan_rounds`` chunk means), and then for the evaluator's
 metrics, if any.  On a clients mesh every rank runs the rounds (the
 metrics are already the means over every client) and rank 0 alone
-evaluates, on its replicated G.  Capturing rounds into CUDA graphs is a
-later ROADMAP item (queue 1 item 7).
+evaluates, on its replicated G; with the G split over a ``model`` axis,
+every rank joins one gather of the G to rank 0 a tick first.  Capturing
+rounds into CUDA graphs is a later ROADMAP item (queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
+
+from cglgan_tpu_torch.core import meshes
 
 
 class Runner(NamedTuple):
@@ -56,15 +59,21 @@ def train(runner: Runner,
     ``on_tick`` is called as ``on_tick(round, tick, state)`` after each
     tick, ``round`` the absolute round counter, as the reference's
     (``cglgan_tpu/algos/runner.py:147-148``).  On a mesh every rank calls
-    ``train``; the evaluator runs on rank 0 only, so only its ticks carry
-    the eval metrics."""
+    ``train``, and with the same kind of ``evaluator`` (False, or not);
+    the evaluator runs on rank 0 only, so only its ticks carry the eval
+    metrics.  With the G split over a ``model`` axis (``layout["g"]``) the
+    evaluator takes the state with the whole G."""
     cfg = runner.cfg
     rounds = rounds if rounds is not None else cfg.num_communication
     eval_every = eval_every if eval_every is not None else cfg.num_plt
     eval_every = max(1, min(eval_every, rounds))
     if state is None:
         state = runner.init_state()
-    if runner.mesh is not None and runner.mesh.rank != 0:
+    # a G split over a model axis (``layout["g"]``, set by init_state)
+    layout = runner.layout or {}
+    split_g = {"g": layout["g"]} if "g" in layout else {}
+    gather_g = bool(split_g) and evaluator is not False
+    if runner.mesh is not None and not runner.mesh.lead:
         evaluator = False
     if evaluator is None:
         from cglgan_tpu_torch.evalx.evaluator import make_evaluator
@@ -86,8 +95,11 @@ def train(runner: Runner,
         done += interval
         tick: Dict[str, Any] = dict(zip(keys, means))
         tick["round"] = int(state.t)
+        # every rank joins the gather; the lead alone evaluates
+        seen = meshes.gather_state(state, runner.mesh, split_g) \
+            if gather_g else state
         if evaluator:
-            tick.update(evaluator(runner, state))
+            tick.update(evaluator(runner, seen))
         tick["wall_s"] = time.perf_counter() - t0
         tick["rounds_per_s"] = done / tick["wall_s"]
         history.append(tick)

@@ -17,8 +17,9 @@ with ``--resume`` continues a run bit for bit.  It runs on the card unless
 ``--device cpu`` asks for the host, and raises without a card.
 ``--devices N`` shards the federation's clients over N ranks, one process
 a card (``core/meshes.py``; with ``--device cpu``, N gloo ranks on the
-host); rank 0 owns the run dir, and its checkpoints are an unsharded
-run's.  The
+host), and ``--model-shards M`` splits the CGL family's generators over M
+of them (a ``(N / M, M)`` mesh; without ``--devices``, every card); rank
+0 owns the run dir, and its checkpoints are an unsharded run's.  The
 reference's ``--platform`` is ``--device`` here, and ``--compile-cache``
 names the directory the CUDA kernels are built into.  Also ``sweep``,
 ``eval``, ``compare``, ``plot``, ``doctor`` and ``fid-stats``, and the
@@ -129,8 +130,9 @@ def _add_run_args(p: argparse.ArgumentParser, with_algo: bool = True) -> None:
                         "(with --device cpu: N gloo ranks on the host; "
                         "0 = single-device, no mesh)")
     p.add_argument("--model-shards", type=int, default=1,
-                   help="tensor-parallel generator shards (1 = off; more "
-                        "is not ported yet and raises)")
+                   help="tensor-parallel generator shards over a `model` "
+                        "mesh axis, CGL family only (must divide --devices; "
+                        "without --devices, every card; 1 = off)")
     p.add_argument("--pallas-dstep", default="auto",
                    choices=("auto", "on", "off"),
                    help="the fused local-D-epoch CUDA kernel "
@@ -260,14 +262,26 @@ def _execute_run(args, mesh=None) -> dict:
         raise SystemExit("--init-from-torch and --resume are mutually "
                          "exclusive (a checkpoint already has generators)")
     cfg = cfg_from_args(args)
-    check_supported(cfg)                      # model_shards > 1 raises
-    if args.devices and mesh is None:
+    check_supported(cfg)
+    if mesh is None and (args.devices or cfg.model_shards > 1):
+        import torch
+
         from cglgan_tpu_torch.core import meshes
-        # raises where fewer than --devices cards are present
-        return meshes.spawn(_mesh_rank, args.devices, args.device, args)[0]
+        n = args.devices
+        if not n:
+            # the reference's fed_mesh(None, M): every device present
+            if args.device is not None and \
+                    torch.device(args.device).type == "cpu":
+                raise ValueError("--model-shards on --device cpu needs "
+                                 "--devices N (gloo ranks on the host)")
+            n = torch.cuda.device_count() or cfg.model_shards
+        # raises where fewer cards than ranks are present, or where
+        # --model-shards does not divide them
+        return meshes.spawn(_mesh_rank, n, args.device, args,
+                            model_shards=cfg.model_shards)[0]
     # rank 0 (or an unsharded run) owns the run dir, the logs, the
     # artifacts and the checkpoint files; the other ranks write nothing
-    lead = mesh is None or mesh.rank == 0
+    lead = mesh is None or mesh.lead
     dev = mesh.device if mesh else device_mod.resolve(args.device)
     say = print if lead else (lambda *a, **k: None)
     synthetic = cfg.dataset in ("mnist", "fashion-mnist") and not cfg.data_dir
@@ -314,7 +328,9 @@ def _execute_run(args, mesh=None) -> dict:
                 "the IDX files to train on real data.\n")
     say(f"{PREFIX} run dir: {run_dir.path if lead else None}")
     say(f"{PREFIX} device: {dev} ({_device_name(dev)})"
-        + (f", mesh of {mesh.size} ranks" if mesh else ""))
+        + (f", mesh of {mesh.size} ranks" if mesh else "")
+        + (f" x {mesh.model_size} model shards" if mesh and mesh.tp
+           else ""))
     say(f"{PREFIX} shards: {part.lengths.tolist()}")
 
     # per-device distribution previews (CGLGAN/MNIST/main.py:499-501)
@@ -338,13 +354,6 @@ def _execute_run(args, mesh=None) -> dict:
                            if isinstance(v, float))
             print(f"{PREFIX} round {t}: {msg}")
             run_dir.log(tick)
-            samples = _host_samples(runner.sample(cur_state,
-                                                  min(100, cfg.num_sample)))
-            if cfg.is_image:
-                save_image_grid(samples, run_dir.file(f"{t}.png"))
-            else:
-                save_scatter_2d(run_dir.file(f"{t}.png"), eval_pool[:2000],
-                                samples)
         # checkpoint whenever a ckpt_every multiple is crossed (exact
         # divisibility by the tick cadence not required); on a mesh every
         # rank takes part
@@ -373,14 +382,25 @@ def _execute_run(args, mesh=None) -> dict:
         return result({})
 
     # the single source of eval truth: library callers get the same
-    # metrics; on a mesh rank 0 evaluates
-    evaluator = False
+    # metrics; on a mesh rank 0 evaluates (``train`` turns the other
+    # ranks' evaluator off), from the state with the whole G
+    evaluator = None
     if lead:
         from cglgan_tpu_torch.evalx.evaluator import make_evaluator
-        evaluator = make_evaluator(cfg, part,
-                                   fid_stats=args.fid_stats,
-                                   inception_weights=args.inception_weights,
-                                   device=dev)
+        scores = make_evaluator(cfg, part, fid_stats=args.fid_stats,
+                                inception_weights=args.inception_weights,
+                                device=dev)
+
+        def evaluator(run, seen):
+            # and the tick's sample artifact
+            samples = _host_samples(run.sample(seen,
+                                               min(100, cfg.num_sample)))
+            if cfg.is_image:
+                save_image_grid(samples, run_dir.file(f"{seen.t}.png"))
+            else:
+                save_scatter_2d(run_dir.file(f"{seen.t}.png"),
+                                eval_pool[:2000], samples)
+            return scores(run, seen)
     if cfg.is_image:
         space = "inception-pool3" if args.inception_weights else "proxy-conv"
         say(f"{PREFIX} FID feature space: {space}"

@@ -171,10 +171,12 @@ def from_groups(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def group_conv2d(p: Dict[str, torch.Tensor], x: torch.Tensor,
-                 stride: int = 1, padding: int = 1) -> torch.Tensor:
+                 stride: int = 1, padding: int = 1,
+                 bias: bool = True) -> torch.Tensor:
     """N stacked convolutions (``p["w"]`` ``(N, O, I, k, k)``, ``p["b"]``
     ``(N, O)``) on the grouped layout ``(B, N*I, H, W)`` as one grouped
-    ``F.conv2d``; each member's bias added after, as ``conv2d`` does.
+    ``F.conv2d``; each member's bias added after, as ``conv2d`` does
+    (``bias=False``: left to the caller, ``models/tp.py``).
 
     ``x`` takes the weights' dtype first.  Only the eval forwards of a
     bfloat16 G feed it float32: a float32 latent promotes the ``l1``
@@ -186,7 +188,7 @@ def group_conv2d(p: Dict[str, torch.Tensor], x: torch.Tensor,
     n = w.shape[0]
     y = F.conv2d(x.to(w.dtype), w.reshape((-1,) + tuple(w.shape[2:])),
                  stride=stride, padding=padding, groups=n)
-    return y + p["b"].reshape(1, -1, 1, 1)
+    return y + p["b"].reshape(1, -1, 1, 1) if bias else y
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

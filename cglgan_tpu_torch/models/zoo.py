@@ -50,6 +50,7 @@ import torch
 
 from cglgan_tpu_torch.core import threefry
 from cglgan_tpu_torch.models import nn
+from cglgan_tpu_torch.models import tp as model_tp
 from cglgan_tpu_torch.utils.tree import tree_map
 
 # spec entries: ("linear", din, dout) | ("bn", dim) | ("lrelu", slope)
@@ -78,21 +79,26 @@ def mlp_init(key: torch.Tensor, spec, dtype=torch.float32):
     return params, state
 
 
-def mlp_apply(spec, params, state, x: torch.Tensor, train: bool):
+def mlp_apply(spec, params, state, x: torch.Tensor, train: bool, tp=None):
+    """``tp``: the ``model`` axis of a tensor-parallel mesh, ``params`` and
+    ``state`` this rank's blocks (``models/tp.py``); the output is whole
+    either way."""
     new_state = list(state)
+    blk = False                  # whether x is this rank's feature block
     for i, entry in enumerate(spec):
         op = entry[0]
         if op == "linear":
-            x = nn.linear(params[i], x)
+            x, blk = model_tp.linear(params[i], x, blk, tp, entry[2])
         elif op == "bn":
-            x, new_state[i] = nn.batchnorm(params[i], state[i], x, train)
+            x, new_state[i], blk = model_tp.batchnorm(
+                params[i], state[i], x, blk, tp, entry[1], train)
         elif op == "lrelu":
             x = nn.leaky_relu(x, entry[1])
         elif op == "tanh":
             x = torch.tanh(x)
         elif op == "sigmoid":
             x = nn.sigmoid(x)
-    return x, new_state
+    return model_tp.whole(x, blk, tp), new_state
 
 
 def _block(din, dout, bn=True):
@@ -107,8 +113,10 @@ class Model(NamedTuple):
     """``init(keys (n, 2), dtype) -> (params, state)`` stacked over the n
     members, member i drawn from threefry key ``keys[i]`` as the
     reference's ``init(key, dtype)`` draws it, and
-    ``apply(params, state, x (N, B, ...), train, rng=None) -> (y,
-    new_state)`` (``rng``: the conv D's dropout keys, ignored elsewhere);
+    ``apply(params, state, x (N, B, ...), train, rng=None, tp=None) -> (y,
+    new_state)`` (``rng``: the conv D's dropout keys, ignored elsewhere;
+    ``tp``: a G's forward on this rank's blocks over a mesh's ``model``
+    axis, ``models/tp.py``, ignored by the Ds);
     ``spec`` is the spec list, ``{"trunk", "heads"}`` lists for a
     multipath G, or the family's name for a conv model."""
     init: Callable
@@ -124,10 +132,10 @@ def _mlp_model(spec, out_dim: int = 1, out_shape=None) -> Model:
     def init(keys, dtype=torch.float32):
         return mlp_init(keys, spec, dtype)
 
-    def apply(params, state, x, train=True, rng=None):
+    def apply(params, state, x, train=True, rng=None, tp=None):
         if x.ndim > 3:           # (N, B, C, H, W) -> (N, B, C*H*W)
             x = x.reshape(x.shape[0], x.shape[1], -1)
-        y, new_state = mlp_apply(spec, params, state, x, train)
+        y, new_state = mlp_apply(spec, params, state, x, train, tp)
         if out_shape is not None:
             y = y.reshape(tuple(y.shape[:2]) + tuple(out_shape))
         return y, new_state
@@ -161,16 +169,16 @@ def _multipath_model(trunk_spec, head_spec, num_heads: int,
         return ({"trunk": tp, "heads": tree_map(split, hp)},
                 {"trunk": ts, "heads": tree_map(split, hs)})
 
-    def apply(params, state, z, train=True, rng=None):
+    def apply(params, state, z, train=True, rng=None, tp=None):
         hidden, new_ts = mlp_apply(trunk_spec, params["trunk"],
-                                   state["trunk"], z, train)
+                                   state["trunk"], z, train, tp)
         S, B = hidden.shape[0], hidden.shape[1]
         flat = lambda x: x.reshape((S * k,) + tuple(x.shape[2:]))
         x = hidden if k == 1 else _fan_out(
             hidden.unsqueeze(1).expand((S, k) + tuple(hidden.shape[1:])),
             (S * k,) + tuple(hidden.shape[1:]))
         y, new_hs = mlp_apply(head_spec, tree_map(flat, params["heads"]),
-                              tree_map(flat, state["heads"]), x, train)
+                              tree_map(flat, state["heads"]), x, train, tp)
         split = lambda t: t.reshape((S, k) + tuple(t.shape[1:]))
         y = split(y)
         if out_shape is not None:
@@ -199,19 +207,24 @@ def _conv_trunk_init(ks, dtype):
     return p, {"bn1": s1}
 
 
-def _conv_trunk_apply(p, s, z, train):
-    """z (S, B, 100) -> the second conv's output, grouped (B, S*64, 32, 32),
-    and the first BatchNorm's new state."""
+def _conv_trunk_apply(p, s, z, train, tp=None):
+    """z (S, B, 100) -> the second conv's output, grouped (B, S*64, 32, 32)
+    (with ``tp``, a block of each member's channels where ``blk``), whether
+    it is a block, and the first BatchNorm's new state."""
     n, b = z.shape[0], z.shape[1]
-    x = nn.linear(p["l1"], z).reshape(n, b, 128, 8, 8)
+    x, blk = model_tp.linear(p["l1"], z, False, tp, 128 * 8 * 8)
+    x = model_tp.whole(x, blk, tp).reshape(n, b, 128, 8, 8)
     # ``nn.to_groups`` of a member-major tensor: the view, or the copy
     # its ``reshape`` would make
     x = x.squeeze(0) if n == 1 else _fan_out(x.transpose(0, 1),
                                              (b, n * 128, 8, 8))
-    x = nn.group_conv2d(p["c1"], nn.upsample2x(x))
-    x, s1 = nn.batchnorm(p["bn1"], s["bn1"], x, train)
-    x = nn.upsample2x(nn.leaky_relu(x))
-    return nn.group_conv2d(p["c2"], x), s1
+    x, blk = model_tp.conv(p["c1"], nn.upsample2x(x), False, tp)
+    x, s1, blk = model_tp.batchnorm(p["bn1"], s["bn1"], x, blk, tp, 128,
+                                    train, n)
+    # gathered before the upsample, which copies every channel
+    x = nn.upsample2x(model_tp.whole(nn.leaky_relu(x), blk, tp, n))
+    x, blk = model_tp.conv(p["c2"], x, False, tp)
+    return x, blk, s1
 
 
 def _conv_g_model() -> Model:
@@ -223,11 +236,14 @@ def _conv_g_model() -> Model:
                                         keys.device)
         return p, s
 
-    def apply(params, state, z, train=True, rng=None):
-        x, s1 = _conv_trunk_apply(params, state, z, train)
-        x, s2 = nn.batchnorm(params["bn2"], state["bn2"], x, train)
-        x = torch.tanh(nn.group_conv2d(params["c3"], nn.leaky_relu(x)))
-        return nn.from_groups(x, z.shape[0]), {"bn1": s1, "bn2": s2}
+    def apply(params, state, z, train=True, rng=None, tp=None):
+        n = z.shape[0]
+        x, blk, s1 = _conv_trunk_apply(params, state, z, train, tp)
+        x, s2, blk = model_tp.batchnorm(params["bn2"], state["bn2"], x, blk,
+                                        tp, 64, train, n)
+        x, blk = model_tp.conv(params["c3"], nn.leaky_relu(x), blk, tp)
+        x = model_tp.whole(torch.tanh(x), blk, tp, n)
+        return nn.from_groups(x, n), {"bn1": s1, "bn2": s2}
 
     return Model(init, apply, "conv")
 
@@ -250,19 +266,22 @@ def _conv_mixg_model(num_heads: int) -> Model:
                                         "c": hc}},
                 {"trunk": ts, "heads": tree_map(split, {"bn": hbn_s})})
 
-    def apply(params, state, z, train=True, rng=None):
+    def apply(params, state, z, train=True, rng=None, tp=None):
         S, B = z.shape[0], z.shape[1]
-        hidden, s1 = _conv_trunk_apply(params["trunk"], state["trunk"], z,
-                                       train)
-        h, w = hidden.shape[2], hidden.shape[3]
+        hidden, blk, s1 = _conv_trunk_apply(params["trunk"], state["trunk"],
+                                            z, train, tp)
+        # each server's channels (its block of the 64 where ``blk``)
+        c, h, w = hidden.shape[1] // S, hidden.shape[2], hidden.shape[3]
         x = hidden if k == 1 else _fan_out(
-            hidden.reshape(B, S, 1, 64, h, w).expand(B, S, k, 64, h, w),
-            (B, S * k * 64, h, w))
+            hidden.reshape(B, S, 1, c, h, w).expand(B, S, k, c, h, w),
+            (B, S * k * c, h, w))
         flat = lambda t: t.reshape((S * k,) + tuple(t.shape[2:]))
         hp, hs = tree_map(flat, params["heads"]), tree_map(flat,
                                                            state["heads"])
-        x, new_hs = nn.batchnorm(hp["bn"], hs["bn"], x, train)
-        y = torch.tanh(nn.group_conv2d(hp["c"], nn.leaky_relu(x)))
+        x, new_hs, blk = model_tp.batchnorm(hp["bn"], hs["bn"], x, blk, tp,
+                                            64, train, S * k)
+        y, blk = model_tp.conv(hp["c"], nn.leaky_relu(x), blk, tp)
+        y = model_tp.whole(torch.tanh(y), blk, tp, S * k)
         # grouped (B, S*k, H, W) -> (S, k, B, 1, H, W), a view
         y = y.unflatten(1, (S, k, 1)).permute(1, 2, 0, 3, 4, 5)
         split = lambda t: t.reshape((S, k) + tuple(t.shape[1:]))
@@ -297,7 +316,7 @@ def _conv_d_model() -> Model:
                                                       dtype, keys.device)
         return p, state
 
-    def apply(params, state, x, train=True, rng=None):
+    def apply(params, state, x, train=True, rng=None, tp=None):
         n, b = x.shape[0], x.shape[1]
         if x.ndim == 3:      # flat real batches from the shards
             side = int(x.shape[2] ** 0.5)

@@ -3,10 +3,11 @@
 ``dryrun_multichip(n, device="cpu")`` is the counterpart of the
 reference's ``dryrun_multichip`` (``__graft_entry__.py:137-231``): its
 configs on an n-rank clients mesh (``core/meshes.py``), 2 clients a rank,
-each checked for ``state.t == rounds`` and finite metrics.  Its composed
-DP x TP config is left out: tensor parallelism is not ported (ROADMAP
-queue 1 item 17).  ``run_cases`` is the function every rank runs; the mesh
-tests and ``chip_smoke.py`` spawn it with cases of their own.
+and at even n its composed DP x TP config, CAP-GAN on an ``(n / 2, 2)``
+``(clients, model)`` mesh of the same ranks, each checked for ``state.t ==
+rounds`` and finite metrics.  ``run_cases`` is the function every rank
+runs; the mesh tests and ``chip_smoke.py`` spawn it with cases of their
+own.
 
     python -m cglgan_tpu_torch.utils.dryrun 4 --device cpu
 """
@@ -43,22 +44,31 @@ def multichip_cases(n: int) -> List[dict]:
             case("acgan E=1 delta", 2, algo="acgan", num_servers=2,
                  epoch=1, E=1, gossip="delta"),
             case("mixgan", 1, algo="mixgan", num_servers=2,
-                 cloud_epoch=1)]
+                 cloud_epoch=1),
+            # D state over `clients`, the G's columns over `model`
+            case("capgan dp x tp", 2, algo="capgan", num_servers=1,
+                 epoch=1, model_shards=2)]
     return cases
 
 
 def run_cases(mesh: Optional[meshes.Mesh], cases: List[dict],
               device=None) -> Dict[str, dict]:
     """Each case ``{"name", "cfg": FedGANConfig fields, "rounds"[,
-    "warmup", "unsharded"]}``: its partition from the config, its runner
-    on ``mesh`` (or unsharded on ``device``), ``warmup`` then ``rounds``
-    rounds from ``init_state()``.  A case marked ``"unsharded"`` runs
-    without the mesh on rank 0's device, and on no other rank: a mesh run
-    and the unsharded run then time in one process, in turns.
+    "warmup", "unsharded", "probe"]}``: its partition from the config, its
+    runner on ``mesh`` (with a ``model`` axis of the config's
+    ``model_shards``: ``Mesh.with_model_shards``), or unsharded on
+    ``device``, ``warmup`` then ``rounds`` rounds from ``init_state()``.
+    A case marked ``"unsharded"`` runs without the mesh on rank 0's
+    device, and on no other rank: a mesh run and the unsharded run then
+    time in one process, in turns.  A ``"probe"`` case runs no round:
+    ``g_probe`` of its config on the mesh.
     Returns {name: {"metrics": per-round floats,
     "collectives": per-round recorder logs, "seconds": the timed rounds'
     wall time, "threefry_launches": in the timed rounds, "t", and on rank
-    0 (or unsharded) "state": the whole state, on the host}}."""
+    0 (or unsharded) "state": the whole state, on the host, and with
+    ``model_shards > 1`` "placed_init": whether the runner's own
+    ``init_state()`` is the unsharded one's placed, and "round_trip":
+    whether ``gather_state(place_state(x))`` is ``x``, bit for bit}}."""
     from cglgan_tpu_torch.algos.registry import build_runner, load_partition
     from cglgan_tpu_torch.core.config import FedGANConfig
     from cglgan_tpu_torch.ops import threefry as tk
@@ -67,11 +77,16 @@ def run_cases(mesh: Optional[meshes.Mesh], cases: List[dict],
     out, parts = {}, {}
     for case in cases:
         on, where = mesh, device
+        cfg = FedGANConfig(**case["cfg"])
         if case.get("unsharded") and mesh is not None:
-            if mesh.rank != 0:
+            if not mesh.lead:
                 continue
             on, where = None, mesh.device
-        cfg = FedGANConfig(**case["cfg"])
+        elif mesh is not None:
+            on = mesh.with_model_shards(cfg.model_shards)
+        if case.get("probe"):
+            out[case["name"]] = g_probe(cfg, on)
+            continue
         key = repr(sorted(case["cfg"].items()))       # a case run again
         if key not in parts:
             parts[key] = load_partition(cfg)
@@ -80,6 +95,8 @@ def run_cases(mesh: Optional[meshes.Mesh], cases: List[dict],
         sync = (lambda: torch.cuda.synchronize(dev)) \
             if dev.type == "cuda" else (lambda: None)
         state = runner.init_state()
+        checks = _tp_checks(cfg, parts[key], runner, state) \
+            if meshes.model_shards_of(on) > 1 else {}
         for _ in range(case.get("warmup", 0)):
             state, _ = runner.round_fn(state)
         logs, metrics = [], []
@@ -102,8 +119,79 @@ def run_cases(mesh: Optional[meshes.Mesh], cases: List[dict],
         whole = meshes.gather_state(state, on, runner.layout or {})
         if whole is not None:
             res["state"] = _plain(whole)
+            res.update(checks)
         out[case["name"]] = res
     return out
+
+
+def _pairs(tree) -> list:
+    """(path, tensor) of every tensor of a state, on the host, in path
+    order."""
+    from cglgan_tpu_torch.utils.checkpoint import _plain
+    out = []
+    meshes.map_paths(_plain(tree), lambda p, x: out.append((p, x)))
+    return sorted(out, key=lambda px: px[0])
+
+
+def _equal(a, b) -> bool:
+    """Two states bit for bit."""
+    fa, fb = _pairs(a), _pairs(b)
+    return len(fa) == len(fb) and all(
+        pa == pb and x.dtype == y.dtype and torch.equal(x, y)
+        for (pa, x), (pb, y) in zip(fa, fb))
+
+
+def _tp_checks(cfg, part, runner, state) -> dict:
+    """On a ``model`` axis: the runner's own init against the unsharded
+    runner's init placed by the runner's layout, and that init placed and
+    gathered back (a collective: every rank calls it)."""
+    from cglgan_tpu_torch.algos.registry import build_runner
+    whole = build_runner(cfg, part, device=runner.device).init_state()
+    placed = meshes.place_state(whole, runner.mesh, runner.layout)
+    back = meshes.gather_state(placed, runner.mesh, runner.layout)
+    return {"placed_init": _equal(placed, state),
+            "round_trip": back is not None and _equal(back, whole)}
+
+
+def g_probe(cfg, mesh: meshes.Mesh, batch: int = 8) -> Optional[dict]:
+    """The config's G, drawn whole from its seed, forward (train mode) and
+    the gradient of ``mean(y ** 2)`` on latents ``(S, batch, zdim)`` from
+    the seed: whole on this rank, and column-parallel on ``mesh``'s
+    ``model`` axis (``models/tp.py``), its new BN state and gradient
+    blocks gathered.  On the lead rank {"out", "bn", "grads"} of the
+    parallel run and the same of the whole one under "whole_*", on the
+    host; None elsewhere (``tests/test_tensor_parallel.py``'s check)."""
+    from cglgan_tpu_torch.algos import common
+    from cglgan_tpu_torch.core import prng, threefry
+    from cglgan_tpu_torch.core.dtypes import torch_dtype
+    from cglgan_tpu_torch.models.zoo import models_for_config
+    from cglgan_tpu_torch.utils.checkpoint import _plain
+    from cglgan_tpu_torch.utils.tree import tree_unflatten
+    dev, tp, dtype = mesh.device, mesh.tp, torch_dtype(cfg)
+    g_model = models_for_config(cfg)[0]
+    S = cfg.num_servers
+    keys = threefry.split(prng.role_key(cfg.seed, prng.ROLE_INIT_G, dev), S)
+    params, bn = g_model.init(keys, dtype)
+    z = threefry.normal(prng.role_key(cfg.seed, prng.ROLE_NOISE_G, dev),
+                        (S, batch, cfg.latent_dim)).to(dtype)
+
+    def run(p, b, axis):
+        p, leaves = common.with_grad(p)
+        with torch.enable_grad():
+            y, new_bn = g_model.apply(p, b, z, train=True, tp=axis)
+            grads = torch.autograd.grad(torch.mean(y.float() ** 2), leaves)
+        return {"out": y.detach(), "bn": new_bn,
+                "grads": tree_unflatten(p, list(grads))}
+
+    ref = run(params, bn, None)
+    got = run(meshes.place_model_tp(params, mesh),
+              meshes.place_model_tp(bn, mesh), tp)
+    got = meshes.gather_state(got, mesh, {
+        "bn": (meshes.TP, meshes.tp_plan(bn, tp.size)),
+        "grads": (meshes.TP, meshes.tp_plan(params, tp.size))})
+    if got is None:
+        return None
+    return _plain({**got, **{f"whole_{k}": v for k, v in ref.items()}})
 
 
 def dryrun_multichip(n: int, device="cpu", extra=()) -> Dict[str, dict]:

@@ -166,9 +166,10 @@ def test_gen_and_sample_match_jax():
 
 def test_train_and_entry_point_contract():
     """``train`` ticks and metric means; by default every tick carries the
-    image evaluator's FID and IS; the default device is the card; what the
-    slice does not cover raises NotImplementedError naming its ROADMAP
-    item; conv runs a round in float32 and in bfloat16."""
+    image evaluator's FID and IS; the default device is the card;
+    ``model_shards > 1`` without a mesh is the unsharded runner, as the
+    reference's (``place_model_tp`` places nothing there); conv runs a round
+    in float32 and in bfloat16."""
     from cglgan_tpu_torch.algos.runner import train
     _, part = _partition()
     cfg = FedGANConfig(algo="capgan", dataset="synthetic-mnist",
@@ -192,8 +193,10 @@ def test_train_and_entry_point_contract():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_runner(cfg, part)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_runner(cfg.replace(model_shards=2), part, device="cpu")
+    tp = build_runner(cfg.replace(model_shards=2), part, device="cpu")
+    whole = lambda g: tree_leaves((g.params, g.bn, g.opt.mu, g.opt.nu))
+    assert all(torch.equal(a, b) for a, b in zip(
+        whole(tp.init_state().g), whole(run.init_state().g)))
     # conv is ported in float32 and bfloat16 (CAP-GAN, MD-GAN, AC-GAN):
     # each builds and runs a round on 32x32 images
     rng = np.random.default_rng(1)

@@ -356,8 +356,8 @@ def test_gen_gen_client_and_sample_match_jax(algo, dataset):
 def test_train_and_entry_point_contract():
     """``build_runner`` builds cglgan (iid 0, 1, 2) and mixgan on both
     datasets on the CPU when asked, ``train`` runs them, Mix-G's init is
-    DCGAN's; tensor parallelism (``model_shards > 1``) still raises naming
-    its ROADMAP item, and bf16 and conv build."""
+    DCGAN's; ``model_shards > 1`` builds, without a mesh the unsharded
+    runner (as the reference's), and bf16 and conv build."""
     for dataset in ("synthetic-mnist", "2dmg"):
         _, part = _partition(dataset)
         for algo, iid in (("cglgan", 0), ("cglgan", 1), ("cglgan", 2),
@@ -375,9 +375,11 @@ def test_train_and_entry_point_contract():
             if not torch.cuda.is_available():
                 with pytest.raises(RuntimeError, match="device='cpu'"):
                     build_runner(cfg, part)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                build_runner(cfg.replace(model_shards=2), part,
-                             device="cpu")
+            tp = build_runner(cfg.replace(model_shards=2), part,
+                              device="cpu")
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(tp.init_state().g.params),
+                tree_leaves(run.init_state().g.params)))
             # bf16 mode and conv are ported: they build
             build_runner(cfg.replace(dtype="bfloat16", force_dtype=True),
                          part, device="cpu")

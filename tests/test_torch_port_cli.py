@@ -258,7 +258,8 @@ def test_sweep_writes_its_summary(tmp_path):
 def test_run_options_that_route_elsewhere(tmp_path, monkeypatch):
     """Without a card ``run`` raises rather than train on the host, also
     with ``--devices`` (never fewer ranks, never the host);
-    ``--model-shards`` names item 17; ``--profile`` writes one tick's
+    ``--model-shards`` on the host needs ``--devices`` (without it the
+    world is every card); ``--profile`` writes one tick's
     trace; ``--compile-cache DIR`` moves the kernel build directory."""
     base = ["run", "flgan", "--num-workers", "4", "--num-class", "4",
             "--num-sample", "64", "--batch-size", "16", "--rounds", "2",
@@ -270,9 +271,11 @@ def test_run_options_that_route_elsewhere(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(base + ["--name", "nocards", "--devices", "2"])
         assert not (tmp_path / "nocards").exists()
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="needs --devices"):
         cli.main([{"flgan": "capgan"}.get(a, a) for a in base]
-                 + ["--device", "cpu", "--model-shards", "2"])
+                 + ["--device", "cpu", "--model-shards", "2", "--name",
+                    "tp"])
+    assert not (tmp_path / "tp").exists()
     assert cli.main(base + ["--device", "cpu", "--profile",
                             "--name", "prof"]) == 0
     with open(tmp_path / "prof" / "profile" / "trace.json") as f:

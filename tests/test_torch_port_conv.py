@@ -470,7 +470,8 @@ def test_conv_entry_points():
     AC-GAN, FL-GAN and FeGAN build and run a conv round too; in bfloat16
     all seven (FeGAN in gather mode and at full width) build, run a conv
     round and sample (4, 1, 32, 32) in bfloat16; tensor parallelism
-    (``model_shards > 1``) still raises, naming its ROADMAP item."""
+    (``model_shards > 1``) is the CGL family's: the others' configs raise
+    ValueError, as the reference's."""
     _, part = _partition()
     for algo, iid, multi in (("capgan", 1, False), ("cglgan", 0, False),
                              ("cglgan", 1, True), ("mixgan", 1, True)):
@@ -516,9 +517,10 @@ def test_conv_entry_points():
         out = run.sample(state, 4)
         assert tuple(out.shape) == (4, 1, 32, 32)
         assert out.dtype == torch.bfloat16
-        # a clients mesh runs every algorithm; tensor parallelism does not
+        # a clients mesh runs every algorithm; a model axis the CGL family
         common.check_supported(bf16)
         if algo in ("capgan", "cglgan", "mixgan"):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 "
-                                                          "item 17"):
-                common.check_supported(bf16.replace(model_shards=2))
+            common.check_supported(bf16.replace(model_shards=2))
+        else:
+            with pytest.raises(ValueError, match="model_shards"):
+                bf16.replace(model_shards=2)

@@ -455,8 +455,9 @@ def test_train_ticks_finite(algo, kernel):
 
 
 def test_entry_point_contract():
-    """The default device is the card; what the port does not cover
-    (model_shards > 1) raises NotImplementedError naming its ROADMAP item;
+    """The default device is the card; ``model_shards > 1`` is the CGL
+    family's (a FedAvg config refuses it, as the reference's) and builds
+    unsharded without a mesh;
     conv builds for every algorithm in float32 and, under force_dtype, in
     bfloat16 (on 2DMG only its rounds would need image data, as the
     reference's)."""
@@ -464,9 +465,10 @@ def test_entry_point_contract():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             registry.build_runner(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build_runner(cfg.replace(algo="capgan", model_shards=2),
-                              device="cpu")
+    with pytest.raises(ValueError, match="model_shards"):
+        cfg.replace(model_shards=2)
+    registry.build_runner(cfg.replace(algo="capgan", model_shards=2),
+                          device="cpu")
     # conv is ported in float32 and bfloat16: every algorithm builds (its
     # rounds take image data)
     for kw in (dict(), dict(algo="fegan"), dict(algo="mdgan"),

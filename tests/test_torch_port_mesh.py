@@ -239,8 +239,9 @@ def test_one_rank_is_the_unsharded_run(runs):
 
 
 def test_dryrun_multichip_two_ranks(runs):
-    """``dryrun_multichip(2)``: the reference's dryrun configs but its
-    DP x TP one, every one at its round count with finite metrics."""
+    """``dryrun_multichip(2)``: the reference's dryrun configs, its DP x TP
+    one (CAP-GAN on a ``(1, 2)`` clients x model mesh of the two ranks)
+    included, every one at its round count with finite metrics."""
     assert set(runs["dryrun"]) == {c["name"]
                                    for c in dryrun.multichip_cases(2)}
     for case in dryrun.multichip_cases(2):
@@ -248,7 +249,8 @@ def test_dryrun_multichip_two_ranks(runs):
         assert got["t"] == case["rounds"]
         assert all(np.isfinite(v) for m in got["metrics"]
                    for v in m.values())
-    assert len(dryrun.multichip_cases(2)) == 8
+    assert len(dryrun.multichip_cases(2)) == 9
+    assert dryrun.multichip_cases(2)[-1]["cfg"]["model_shards"] == 2
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +264,7 @@ def _stack_leaf_bytes(state):
 
 
 def _kinds(round_log):
-    return [kind for kind, _ in round_log]
+    return [kind for kind, _, _ in round_log]
 
 
 def test_flgan_fedavg_is_one_all_reduce(runs):
@@ -295,7 +297,7 @@ def test_block_share_all_reduces_segment_partials(runs):
         cap = _stack_leaf_bytes(runs[2][name]["state"])
         for log in runs[2][name]["collectives"]:
             assert "all_reduce" in _kinds(log)
-            for kind, sizes in log:
+            for kind, _, sizes in log:
                 if kind == "all_reduce":
                     assert max(sizes) < cap, (name, sizes, cap)
 
@@ -309,7 +311,7 @@ def test_no_round_gathers_a_stack_leaf(runs):
                 continue
             cap = _stack_leaf_bytes(got["state"])
             for log in got["collectives"]:
-                for kind, sizes in log:
+                for kind, _, sizes in log:
                     if kind == "all_gather":
                         assert max(sizes) < cap, (world, name, sizes, cap)
                 assert "gather" not in _kinds(log), (world, name)
@@ -344,16 +346,22 @@ def test_a_clients_axis_the_mesh_does_not_divide_raises():
 
 
 def test_tensor_parallelism_names_its_roadmap_item():
-    """``model_shards > 1``: the config's check and ``fed_mesh`` raise
-    NotImplementedError naming ROADMAP queue 1 item 17; a clients mesh
-    alone is supported."""
-    cfg = FedGANConfig(**{**BASE, "algo": "capgan", "num_workers": 4,
-                          "num_servers": 1})
-    common.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
-        common.check_supported(cfg.replace(model_shards=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
-        meshes.fed_mesh(2, model_shards=2)
+    """The counterpart of the reference's ``test_fed_mesh_validation``
+    (``tests/test_tensor_parallel.py``): ``fed_mesh(4, model_shards=3)``
+    raises "divisible" before it joins any process group, and ``spawn``
+    before it starts one; ``model_shards=0`` raises ValueError there and in
+    the config, and ``model_shards=2`` on flgan in the config, on both
+    packages; without a mesh there is one model shard."""
+    with pytest.raises(ValueError, match="divisible"):
+        meshes.fed_mesh(4, model_shards=3)
+    with pytest.raises(ValueError, match="model_shards"):
+        meshes.fed_mesh(4, model_shards=0)
+    with pytest.raises(ValueError, match="divisible"):
+        meshes.spawn(dryrun.run_cases, 3, "cpu", [], model_shards=2)
+    for kw in (dict(model_shards=0), dict(algo="flgan", model_shards=2)):
+        for config in (FedGANConfig, JaxConfig):
+            with pytest.raises(ValueError, match="model_shards"):
+                config(**{**BASE, "num_workers": 4, **kw})
     assert meshes.model_shards_of(None) == 1
 
 

@@ -344,7 +344,7 @@ def test_port_imports_no_jax():
                  "fed.sampling", "evalx.hist2d", "evalx.evaluator",
                  "core.threefry", "evalx.fid", "evalx.inception",
                  "utils.export", "utils.torch_import", "core.meshes",
-                 "utils.dryrun"):
+                 "utils.dryrun", "models.tp"):
         assert f"cglgan_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
