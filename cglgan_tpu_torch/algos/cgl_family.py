@@ -97,9 +97,6 @@ def build_cgl_family(cfg, part: Partition, device=None,
     # the G's column blocks over the mesh's model axis, as the reference
     # places them only where the config asks (cgl_family.py:117-126)
     tp = mesh.tp if mesh is not None and cfg.model_shards > 1 else None
-    if tp is not None and cfg.conv and 3 % tp.size == 0:
-        raise ValueError("the column rule would split the conv G's 3x3 "
-                         f"kernels over model_shards={tp.size}")
     k_loc = blk.stop - blk.start
     spec_sk = P(None, CLIENTS)
     local = lambda tree: meshes.place(tree, mesh, spec_sk, groups=S)

@@ -375,23 +375,47 @@ def _wire(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return x.cpu() if mesh.stage else x
 
 
+def _memory_order(t: torch.Tensor) -> Optional[List[int]]:
+    """The dims of a dense ``t`` from outermost to innermost in memory
+    (its ``permute`` by them is a contiguous view), None where ``t`` is
+    contiguous or not dense."""
+    if t.is_contiguous():
+        return None
+    perm = sorted(range(t.ndim), key=lambda d: -t.stride(d))
+    return perm if t.permute(perm).is_contiguous() else None
+
+
 def _pack(tensors: Sequence[torch.Tensor]) -> Dict[torch.dtype, tuple]:
-    """Flat buffers, one a dtype: {dtype: (buffer, [(index, shape)])}."""
+    """Flat buffers, one a dtype: {dtype: (buffer, [(index, shape,
+    memory order)])}.  A dense tensor goes in its memory order, so that
+    ``_unpack`` gives it back with its strides: the reductions that read
+    it then sum in the order they would without a mesh."""
     by: Dict[torch.dtype, list] = {}
     for i, t in enumerate(tensors):
         by.setdefault(t.dtype, []).append(i)
-    return {dt: (torch.cat([tensors[i].reshape(-1) for i in idx]),
-                 [(i, tensors[i].shape) for i in idx])
-            for dt, idx in by.items()}
+    plan = {}
+    for dt, idx in by.items():
+        perms = [_memory_order(tensors[i]) for i in idx]
+        flat = [tensors[i].reshape(-1) if perm is None
+                else tensors[i].permute(perm).reshape(-1)
+                for i, perm in zip(idx, perms)]
+        plan[dt] = (torch.cat(flat), [(i, tensors[i].shape, perm)
+                                      for i, perm in zip(idx, perms)])
+    return plan
 
 
 def _unpack(bufs: Dict[torch.dtype, torch.Tensor], plan, n: int) -> list:
     out: List[Any] = [None] * n
     for dt, (_, places) in plan.items():
         flat, at = bufs[dt], 0
-        for i, shape in places:
+        for i, shape, perm in places:
             size = shape.numel()
-            out[i] = flat[at:at + size].reshape(shape)
+            part = flat[at:at + size]
+            if perm is None:
+                out[i] = part.reshape(shape)
+            else:
+                out[i] = part.reshape([shape[d] for d in perm]).permute(
+                    sorted(range(len(perm)), key=perm.__getitem__))
             at += size
     return out
 
@@ -408,7 +432,7 @@ def all_reduce(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh],
     bufs = {}
     for dt, (buf, places) in plan.items():
         mesh.recorder.add("all_reduce", axis,
-                          [tensors[i] for i, _ in places])
+                          [tensors[i] for i, _, _ in places])
         wire = _wire(buf, mesh)
         dist.all_reduce(wire, group=mesh.group_of(axis))
         bufs[dt] = wire.to(buf.device)
@@ -528,7 +552,7 @@ def move_rows(tree, rows_out: Dict[int, List[int]],
         for o, x in zip(out, leaves):
             o[dst] = x.index_select(0, src)
     for q, rows in rows_in.items():
-        plan = {dt: (None, [(i, s) for i, (x, s) in
+        plan = {dt: (None, [(i, s, None) for i, (x, s) in
                             enumerate(zip(leaves, shapes(len(rows))))
                             if x.dtype == dt])
                 for dt, _ in layout(len(rows))}

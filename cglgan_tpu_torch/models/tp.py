@@ -14,16 +14,17 @@ a tensor-parallel mesh, where each helper is the plain layer it wraps:
   backward returns this rank's block;
 * ``scatter_to_model``: this rank's block of a whole activation; its
   backward all-gathers the blocks' gradients, so the whole op before it
-  (a conv, whose OIHW weights the rule leaves whole) takes the whole
-  gradient on every rank.
+  (a conv) takes the whole gradient on every rank.
 
 A linear whose ``w`` and ``b`` are split computes ``x @ w_blk + b_blk`` on
 the whole input; BatchNorm, LeakyReLU and Tanh act on the block (they are
 per feature, so this is exact); the activations are gathered only before an
 op that needs every feature: the next linear, the conv trunk's reshape, a
-conv, or the G's output.  A whole leaf (the conv weights, a ``dout`` the
-shards do not divide) is computed whole on every rank; a split bias or
-BatchNorm after it takes this rank's channel block of the whole output.
+conv, or the G's output.  A whole leaf (a ``dout`` the shards do not
+divide) is computed whole on every rank; a split bias or BatchNorm after
+it takes this rank's channel block of the whole output.  The conv runs
+whole on every rank: its OIHW weight is whole at 2 and 4 shards, and at 3
+the rule splits its kW axis, so ``conv`` all-gathers the blocks first.
 
 Feature axes: the last of an MLP activation ``(N, B, features)``; the
 channels of the grouped image layout ``(B, N*C, H, W)``
@@ -153,14 +154,24 @@ def batchnorm(p, s, x: torch.Tensor, blk: bool, tp, dim: int, train: bool,
 def conv(p, x: torch.Tensor, blk: bool, tp, stride: int = 1,
          padding: int = 1):
     """``nn.group_conv2d`` of grouped ``x`` (a block where ``blk``): the
-    whole input and the whole (OIHW) weights on every rank; a split bias
+    whole input and the whole (OIHW) weights on every rank, a weight the
+    rule splits (its kW axis, at 3 shards) gathered first; a split bias
     adds to this rank's channel block of the output.  Returns (output,
     whether it is a block)."""
     if tp is None:
         return nn.group_conv2d(p, x, stride, padding), False
     n, cout = p["w"].shape[0], p["w"].shape[1]
     x = whole(x, blk, tp, n)
-    y = nn.group_conv2d(p, x, stride, padding, bias=False)
+    # the kernels are square: the rule splits kW where it divides kH.  A
+    # split weight is gathered whole on its last axis (named: ``_axis``
+    # would read a 4-D leaf as a grouped image); the backward of the
+    # gather returns this rank's block of the whole gradient with no
+    # collective, because every model rank computes the same whole
+    # gradient from the same whole input and output gradient
+    w = p["w"]
+    if splits(w.shape[-2], tp):
+        w = _Gather.apply(w, tp, w.ndim - 1, 1)
+    y = nn.group_conv2d({"w": w}, x, stride, padding, bias=False)
     split = splits(cout, tp)
     if split:
         y = scatter_to_model(y, tp, n)

@@ -216,12 +216,16 @@ Phases, each printing one JSON line:
             warm-up and 10 timed rounds), and CAP-GAN conv float32 (5);
             on ``(2, 2)`` the main config again, CGL-GAN on MNIST shapes
             (20 workers / 5 servers, a multipath G, 5 rounds) and the
-            dryrun's "capgan dp x tp"; each in turns against the unsharded
-            run on rank 0's card (unsharded, tp, tp, unsharded), held
-            within the world >= 2 limits of ``mesh``; rounds/s of both,
-            the collectives a round by kind, axis and bytes, threefry
-            launches a round; with 4 cards also the main config over NCCL,
-            one rank a card, on ``(2, 2)`` and ``(1, 4)``.
+            dryrun's "capgan dp x tp"; on ``(1, 3)`` CAP-GAN conv and Mix-G
+            conv (1 warm-up and 5 rounds), whose conv weights the rule
+            splits on kW; each in turns against the unsharded run on rank
+            0's card (unsharded, tp, tp, unsharded), held within the world
+            >= 2 limits of ``mesh``, and on ``(1, 3)`` bit for bit with
+            the collectives over ``model`` the predicted ones; rounds/s of
+            both, the collectives a round by kind, axis and bytes,
+            threefry launches a round; with 4 cards also the main config
+            over NCCL, one rank a card, on ``(2, 2)`` and ``(1, 4)``, and
+            CAP-GAN conv on ``(1, 3)``, three of the cards.
 The round phases also profile a few further rounds (device time by kernel,
 busy share; ``cglgan_tpu_torch/utils/profiling.py``).
 Each phase prints ``{"starting": name}`` before it runs.  Then the card
@@ -3725,28 +3729,56 @@ def phase_mesh(card):
     return on_mesh["main | mesh"]["threefry_launches"]
 
 
-# the tensor-parallel phase: (world, cases) a spawn of shared-card ranks
-# on a (world / 2, 2) mesh, each case (name, config, warm-up, rounds); with
-# 4 cards the main config over NCCL, one rank a card, on (2, 2) and (1, 4)
+# the tensor-parallel phase: (world, model shards, exact, cases) a spawn of
+# shared-card ranks on a (world / ms, ms) mesh, each case (name, config,
+# warm-up, rounds); ``exact``: the TP run must be the unsharded run bit for
+# bit (at 3 shards the only split leaves of these Gs are the conv weights,
+# each gathered whole before its conv).  With 4 cards also the main config
+# over NCCL, one rank a card, on (2, 2) and (1, 4), and CAP-GAN conv on
+# (1, 3), on three of the cards
 TP_MAIN = dict(algo="capgan", epoch=1, num_communication=20000,
                model_shards=2, **MAIN)
 TP_SPAWNS = (
-    (2, (("main", TP_MAIN, 2, 10),
-         ("capgan conv", dict(TP_MAIN, conv=True), 1, 5))),
-    (4, (("main", TP_MAIN, 2, 10),
-         ("cglgan mnist multipath",
-          dict(CGL_MNIST, algo="cglgan", epoch=1, model_shards=2), 1, 5))))
+    (2, 2, False, (("main", TP_MAIN, 2, 10),
+                   ("capgan conv", dict(TP_MAIN, conv=True), 1, 5))),
+    (4, 2, False, (("main", TP_MAIN, 2, 10),
+                   ("cglgan mnist multipath",
+                    dict(CGL_MNIST, algo="cglgan", epoch=1,
+                         model_shards=2), 1, 5))),
+    (3, 3, True, (("capgan conv", dict(TP_MAIN, conv=True), 1, 5),
+                  ("mixgan conv", dict(TP_MAIN, algo="mixgan", conv=True),
+                   1, 5))))
+
+
+def tp_predicted_model_log(state, ms):
+    """A round's collectives over ``model`` where the rule splits only
+    conv weights (``ms`` = 3 here): each split leaf of the whole G
+    (``state``, plain) all-gathered whole in each of the round's 2 G
+    forwards, in the forward's order, and none in the backward."""
+    from cglgan_tpu_torch.core import meshes
+    params = state["g"]["params"]
+    split = []
+    meshes.map_paths(params, lambda path, x: split.append(
+        (path, x.numel() * x.element_size()))
+        if meshes.model_tp_spec(tuple(x.shape), ms, lead=1) != meshes.P()
+        else None)
+    # in the forward's order: c1, c2, then c3 or a multipath G's heads' c
+    order = sorted(split, key=lambda px: ("heads" in px[0], px[0]))
+    forward = [("all_gather", "model", [b]) for _, b in order]
+    return forward + forward
 
 
 def phase_tp(card):
     """``TP_SPAWNS``, and on 4 ranks the dryrun's "capgan dp x tp", each
-    case on the spawn's ``(world / 2, 2)`` mesh of ranks sharing the card
-    and unsharded on rank 0's card, in turns in the ranks' processes (as
-    ``phase_mesh``); with 4 cards also the main config over NCCL, one rank
-    a card, on ``(2, 2)`` and ``(1, 4)``; held within
-    ``mesh_against_unsharded``'s world >= 2
-    limits (the dryrun's at the CPU tests', the 5-10-round MNIST cases at
-    the card-against-CPU ones).  Prints rounds/s of both sides, the
+    case on the spawn's ``(world / ms, ms)`` mesh of ranks sharing the
+    card and unsharded on rank 0's card, in turns in the ranks' processes
+    (as ``phase_mesh``); with 4 cards also the main config over NCCL, one
+    rank a card, on ``(2, 2)`` and ``(1, 4)``, and CAP-GAN conv on ``(1,
+    3)``; held within ``mesh_against_unsharded``'s world >= 2 limits (the
+    dryrun's at the CPU tests', the 5-10-round MNIST cases at the
+    card-against-CPU ones), and at 3 shards bit for bit, with the
+    collectives over ``model`` the predicted ones
+    (``tp_predicted_model_log``).  Prints rounds/s of both sides, the
     collectives a round by kind, axis and bytes and the threefry launches
     a round.  Returns {"<case> (c, m)": threefry launches of its first
     timed TP run (rank 0)}."""
@@ -3760,12 +3792,15 @@ def phase_tp(card):
     emit({"phase": "tp", "card": card, "compute_mode": mode,
           "cards": torch.cuda.device_count()})
     turns = ("unsharded", "tp", "tp again", "unsharded again")
-    # (world, model shards, shared card, cases)
-    spawns = [(world, 2, True, table) for world, table in TP_SPAWNS]
+    # (world, model shards, exact, shared card, cases)
+    spawns = [(world, ms, exact, True, table)
+              for world, ms, exact, table in TP_SPAWNS]
     if torch.cuda.device_count() >= 4:
-        spawns += [(4, ms, False, TP_SPAWNS[0][1][:1]) for ms in (2, 4)]
+        spawns += [(4, ms, False, False, TP_SPAWNS[0][3][:1])
+                   for ms in (2, 4)]
+        spawns.append((3, 3, True, False, TP_SPAWNS[2][3][:1]))
     out, launches = [], {}
-    for world, ms, share, table in spawns:
+    for world, ms, exact, share, table in spawns:
         shape = f"({world // ms}, {ms})" + ("" if share else " nccl")
         cases = [{"name": name, "cfg": {**cfg, "model_shards": ms},
                   "warmup": warm, "rounds": rounds, "long_run": True}
@@ -3784,12 +3819,27 @@ def phase_tp(card):
         for c in cases:
             name, rounds = c["name"], c["rounds"]
             run = {turn: res[f"{name} | {turn}"] for turn in turns}
+            label = f"tp {name} {shape}"
             equal, errs = mesh_against_unsharded(
-                run["tp"], run["unsharded"], world, f"tp {name} {shape}",
-                c["cfg"], long_run=c["long_run"])
+                run["tp"], run["unsharded"], world, label, c["cfg"],
+                long_run=c["long_run"])
             if not (run["tp"]["placed_init"] and run["tp"]["round_trip"]):
-                raise AssertionError(f"tp {name} {shape}: placement")
-            launches[f"tp {name} {shape}"] = run["tp"]["threefry_launches"]
+                raise AssertionError(f"{label}: placement")
+            log = run["tp"]["collectives"][-1]
+            entry = {}
+            if exact:
+                if not equal:
+                    raise AssertionError(f"{label}: not bit-equal to the "
+                                         f"unsharded run ({errs})")
+                want = tp_predicted_model_log(run["unsharded"]["state"], ms)
+                got = [e for e in log if e[1] == "model"]
+                if got != want:
+                    raise AssertionError(f"{label}: collectives over model "
+                                         f"{got}, predicted {want}")
+                entry["model_collectives_as_predicted"] = {
+                    "all_gather": len(want),
+                    "bytes": sum(sum(b) for _, _, b in want)}
+            launches[label] = run["tp"]["threefry_launches"]
             out.append({
                 "case": name, "mesh": shape, "config": c["cfg"],
                 "rounds": rounds, "warmup": c.get("warmup", 0),
@@ -3797,8 +3847,7 @@ def phase_tp(card):
                                           for turn in turns},
                 "bit_equal_to_unsharded": equal,
                 "off_over_group_scale": errs,
-                "collectives_a_round": per_round(
-                    run["tp"]["collectives"][-1]),
+                "collectives_a_round": per_round(log), **entry,
                 "threefry_launches_a_round": {
                     "tp": run["tp"]["threefry_launches"] / rounds,
                     "unsharded":

@@ -20,6 +20,7 @@ import torch
 
 from cglgan_tpu.ops.pallas.fused_adam import fused_adam as jax_fused_adam
 from cglgan_tpu_torch.ops import fused_adam as fa
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 LR, B1, B2 = 2e-4, 0.5, 0.999
 

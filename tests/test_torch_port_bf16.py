@@ -43,6 +43,7 @@ from cglgan_tpu_torch.utils.transplant import (from_jax_numpy,
                                                tensor_from_numpy,
                                                tensor_to_numpy, to_numpy)
 from cglgan_tpu_torch.utils.tree import tree_leaves
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 BF = ml_dtypes.bfloat16
 LR = 2e-4

@@ -27,6 +27,7 @@ from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.ops import fused_dstep
 from cglgan_tpu_torch.utils.transplant import from_jax_numpy, to_numpy
 from cglgan_tpu_torch.utils.tree import tree_leaves
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 5
 NW, L, DIN, B = 4, 48, 64, 8

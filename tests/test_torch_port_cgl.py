@@ -39,6 +39,7 @@ from cglgan_tpu_torch.models import nn, zoo
 from cglgan_tpu_torch.ops import fused_dstep
 from cglgan_tpu_torch.utils.transplant import from_jax_numpy, to_numpy
 from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 5
 NW, S, L, B = 4, 2, 48, 8

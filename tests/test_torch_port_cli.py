@@ -34,6 +34,7 @@ from cglgan_tpu_torch.core.config import FedGANConfig
 from cglgan_tpu_torch.evalx.evaluator import make_evaluator
 from cglgan_tpu_torch.ops import _build
 from cglgan_tpu_torch.utils.checkpoint import restore_checkpoint
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL_METRIC = 1e-5
@@ -50,13 +51,6 @@ RUN = ["run", "capgan", "--dataset", "2dmg", "--num-workers", "4",
        "--lr-d", "0.01", "--rounds", "4", "--num-plt", "2",
        "--ckpt-every", "2"]
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

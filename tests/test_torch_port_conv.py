@@ -46,6 +46,7 @@ from cglgan_tpu_torch.models import nn, zoo
 from cglgan_tpu_torch.ops import fused_dstep
 from cglgan_tpu_torch.utils.transplant import from_jax_numpy, to_numpy
 from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 2
 NW, S, L, B, DIN = 4, 2, 24, 4, 1024
@@ -77,16 +78,6 @@ TOL_PARAMS = (1e-4, 1e-5)
 TOL_MOMENT = 1e-4
 TOL_METRIC = 1e-5
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """torch on one thread, as tests/test_torch_port_fid.py: beside XLA's
-    own thread pool (and the other test workers) a thread a core makes
-    each of the port's small conv rounds wait seconds."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

@@ -46,12 +46,13 @@ from cglgan_tpu_torch.utils.transplant import (from_jax_numpy,
                                                tensor_from_numpy, to_numpy)
 from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map
 # the bf16 file's helpers and round limits; the conv file's partition,
-# dropout keys and autouse fixtures (TF32 off, torch on one thread)
+# dropout keys and autouse fixture (TF32 off)
 from test_torch_port_bf16 import (TOL_METRIC, TOL_MOMENT, TOL_STEPS,
                                   _bits, _cgl_streams, _pair, _spacing)
 from test_torch_port_conv import (B, LR, NW, S, _dropout_keys,  # noqa: F401
-                                  _key_data, _no_tf32, _one_thread,
-                                  _partition, _paths, _t)
+                                  _key_data, _no_tf32, _partition,
+                                  _paths, _t)
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 BF = ml_dtypes.bfloat16
 ROUNDS = 2

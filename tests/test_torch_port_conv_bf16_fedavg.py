@@ -46,11 +46,12 @@ from cglgan_tpu_torch.utils.transplant import (from_jax_numpy,
                                                tensor_from_numpy, to_numpy)
 from cglgan_tpu_torch.utils.tree import tree_leaves
 from test_torch_port_bf16 import TOL_METRIC, _pair
-from test_torch_port_conv import _no_tf32, _one_thread  # noqa: F401
+from test_torch_port_conv import _no_tf32  # noqa: F401
 from test_torch_port_conv_bf16 import (TOL_FWD_STEPS, _close_bf16, _jit,
                                        _steps_apart)
 from test_torch_port_conv_fedavg import (L, NW, _dropout_keys, _fields,
                                          _step_keys)
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 2
 

@@ -34,10 +34,11 @@ from cglgan_tpu_torch.utils.tree import tree_leaves
 from test_torch_port_bf16 import (TOL_METRIC, TOL_STEPS, _cgl_streams,
                                   _pair, _spacing)
 from test_torch_port_conv import (B, LR, NW, _no_tf32,  # noqa: F401
-                                  _one_thread, _partition, _paths)
+                                  _partition, _paths)
 from test_torch_port_conv_bf16 import (TOL_FWD_STEPS, _close_bf16, _jit,
                                        _stacked, _steps_apart)
 from test_torch_port_conv_mdgan import L, _streams
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 2
 

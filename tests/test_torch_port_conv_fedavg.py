@@ -50,11 +50,12 @@ from cglgan_tpu_torch.models import zoo
 from cglgan_tpu_torch.ops import fused_sweep
 from cglgan_tpu_torch.utils.transplant import from_jax_numpy, to_numpy
 from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map
-# the conv file's helpers and tolerances, and its autouse fixtures (TF32
-# off, torch on one thread)
+# the conv file's helpers and tolerances, and its autouse fixture (TF32
+# off)
 from test_torch_port_conv import (LR, TOL_FWD, TOL_METRIC,  # noqa: F401
                                   _close, _close_net, _jit, _no_tf32,
-                                  _noisy_leaves, _one_thread, _port, _t)
+                                  _noisy_leaves, _port, _t)
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 2
 NW, L, B, DIN = 4, 12, 4, 1024

@@ -31,12 +31,13 @@ from cglgan_tpu_torch.core.config import FedGANConfig
 from cglgan_tpu_torch.ops import fused_dstep
 from cglgan_tpu_torch.utils.transplant import from_jax_numpy, to_numpy
 from cglgan_tpu_torch.utils.tree import tree_leaves
-# the conv file's helpers and tolerances, and its autouse fixtures (TF32
-# off, torch on one thread)
+# the conv file's helpers and tolerances, and its autouse fixture (TF32
+# off)
 from test_torch_port_conv import (LR, NW, TOL_FWD, TOL_METRIC,  # noqa: F401
                                   TOL_PARAMS, _close, _close_net, _jit,
-                                  _no_tf32, _noisy_leaves, _one_thread,
-                                  _partition, _paths, _t)
+                                  _no_tf32, _noisy_leaves, _partition,
+                                  _paths, _t)
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 2
 B, L = 4, 24

@@ -20,6 +20,7 @@ from cglgan_tpu.algos import common as jcommon
 from cglgan_tpu.models.zoo import build_discriminator
 from cglgan_tpu.ops.pallas import fused_dstep as jfused
 from cglgan_tpu_torch.ops import fused_dstep
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 W, E, B, DIN, L = 3, 2, 8, 64, 32
 LR, B1, B2 = 2e-4, 0.5, 0.999

@@ -42,6 +42,7 @@ from cglgan_tpu_torch.models import zoo
 from cglgan_tpu_torch.ops import fused_sweep
 from cglgan_tpu_torch.utils.transplant import from_jax_numpy, to_numpy
 from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 # the package re-exports the function ``hist2d`` under the module's name
 jhist = importlib.import_module("cglgan_tpu.evalx.hist2d")

@@ -64,6 +64,7 @@ from cglgan_tpu_torch.ops import fused_sweep
 from cglgan_tpu_torch.utils.transplant import (from_jax_numpy,
                                                tensor_from_numpy, to_numpy)
 from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 BF = jnp.bfloat16
 LR = 2e-4                        # lr_g = lr_d, the config default

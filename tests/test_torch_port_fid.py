@@ -39,22 +39,12 @@ from cglgan_tpu_torch.models import nn
 from cglgan_tpu_torch.utils.transplant import (fid_params_from_numpy,
                                                from_jax_numpy)
 from cglgan_tpu_torch.utils.tree import tree_leaves
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 PROBE_STEPS = 20
 TOL_PROBE = 1e-2          # of each leaf's largest entry, after 20 steps
 TOL_METRIC = 1e-5         # relative: features, stats, FID, IS
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The probe's hundreds of small steps on one thread: with torch's
-    default of a thread a core, every conv's parallel region waits on the
-    other test workers' threads, and a 300-step probe that takes ~4 s
-    takes minutes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

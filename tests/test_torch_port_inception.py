@@ -29,6 +29,7 @@ from cglgan_tpu_torch.core.config import FedGANConfig
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.evalx import inception
 from cglgan_tpu_torch.evalx.evaluator import make_evaluator
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL_FEAT = 1e-4           # of the features' largest entry
 TOL_FID = 1e-3            # relative, rank-99 covariances in 2048-d

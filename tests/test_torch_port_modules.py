@@ -33,6 +33,7 @@ from cglgan_tpu_torch.data.partition import partition
 from cglgan_tpu_torch.fed import collectives, topology
 from cglgan_tpu_torch.models import zoo
 from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-5, 1e-6          # float32 forward math, reordered sums

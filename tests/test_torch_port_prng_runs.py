@@ -27,16 +27,8 @@ from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.models import zoo
 from cglgan_tpu_torch.utils.transplant import to_numpy
 from cglgan_tpu_torch.utils.tree import tree_leaves
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """torch on one thread, as the conv tests: beside XLA's thread pool
-    and the other test workers, a thread a core makes small rounds wait."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _image_partition(nw=4, L=48, din=64, seed=0):

@@ -36,6 +36,7 @@ from cglgan_tpu_torch.data import gmm
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.utils.transplant import from_jax_numpy
 from cglgan_tpu_torch.utils.tree import tree_leaves
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 NORMAL_ULPS = 3
 SEEDS = (0, 7, 20211212)
@@ -55,15 +56,6 @@ def _ulps(a, b, bf16=False):
         ia, ib = ia >> 16, ib >> 16
     return np.abs(ia - ib)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """torch on one thread, as the conv tests: beside XLA's thread pool
-    and the other test workers, a thread a core makes small rounds wait."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------------------

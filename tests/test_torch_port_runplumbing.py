@@ -37,18 +37,10 @@ from cglgan_tpu_torch.utils.checkpoint import (restore_checkpoint,
                                                save_checkpoint)
 from cglgan_tpu_torch.utils.logging import RunDir
 from cglgan_tpu_torch.utils.xlsx import write_xlsx
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """torch on one thread beside the other test workers, as the other
-    port test files."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _leaves(x):

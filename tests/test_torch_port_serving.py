@@ -40,17 +40,10 @@ from cglgan_tpu_torch.utils import torch_import as ti
 from cglgan_tpu_torch.utils.transplant import (from_jax_numpy,
                                                tensor_from_numpy, to_numpy)
 from cglgan_tpu_torch.utils.tree import tree_leaves, tree_map
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL_FWD = 1e-5
 TOL_FWD_CONV = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------------------

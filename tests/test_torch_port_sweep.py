@@ -19,6 +19,7 @@ from cglgan_tpu.models import zoo as jzoo
 from cglgan_tpu.ops.pallas import fused_sweep as jsweep
 from cglgan_tpu_torch.core.config import FedGANConfig
 from cglgan_tpu_torch.ops import fused_sweep
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 W, B = 4, 16
 LR_G, LR_D, B1, B2 = 2e-4, 3e-4, 0.5, 0.999

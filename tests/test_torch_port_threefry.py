@@ -24,6 +24,7 @@ from cglgan_tpu_torch.core import prng, threefry
 from cglgan_tpu_torch.core.config import FedGANConfig
 from cglgan_tpu_torch.data.partition import Partition
 from cglgan_tpu_torch.utils.transplant import from_jax_numpy
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 SEEDS = (0, 7, 20211212)
 SHAPES = ((), (7,), (3, 5), (2, 3, 4))

@@ -62,6 +62,7 @@ from cglgan_tpu_torch.core import meshes
 from cglgan_tpu_torch.core.config import FedGANConfig
 from cglgan_tpu_torch.utils import dryrun
 from cglgan_tpu_torch.utils.checkpoint import restore_checkpoint
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL_METRIC = (1e-5, 1e-6)
 TOL_PARAMS = (1e-4, 1e-6)
