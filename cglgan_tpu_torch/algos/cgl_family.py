@@ -70,7 +70,7 @@ import torch
 from cglgan_tpu_torch.algos import common
 from cglgan_tpu_torch.algos.common import FedState, NetState
 from cglgan_tpu_torch.algos.game import game_step
-from cglgan_tpu_torch.algos.runner import Runner
+from cglgan_tpu_torch.algos.runner import RoundProgram, Runner
 from cglgan_tpu_torch.core import device as device_mod
 from cglgan_tpu_torch.core import meshes, prng, threefry
 from cglgan_tpu_torch.core.meshes import CLIENTS, P
@@ -125,6 +125,7 @@ def build_cgl_family(cfg, part: Partition, device=None,
             1, (data_len * cfg.cloud_epoch / cfg.batch_size).astype(np.int64))
     else:
         periods = np.full(S, max(cfg.cloud_epoch, 1), dtype=np.int64)
+    periods_dev = torch.from_numpy(periods).to(dev)
     cloud_enabled = cfg.cloud_epoch > 0
 
     d_step = common.d_epoch_steps(
@@ -226,13 +227,20 @@ def build_cgl_family(cfg, part: Partition, device=None,
     def put(tree, sub):
         return {**tree, "trunk": sub} if multipath else sub
 
-    def cloud_sync(g: NetState, t: int) -> NetState:
+    def cloud_sync(g: NetState, t) -> NetState:
+        """The masked sync of round ``t``, its mask made on the device.  A
+        device ``t`` (the captured round's counter) syncs every round, as
+        the reference's: a server outside the mask keeps its G (``o * 1 +
+        nw * 0``, which may turn -0.0 into +0.0).  A host ``t`` skips the
+        rounds where no server syncs, since the select would keep every
+        member."""
         # the reference counts t DOWN from num_communication and syncs when
         # the countdown is divisible by the period (capgan.py:155,169)
-        mask_np = ((cfg.num_communication - t) % periods) == 0
-        if not mask_np.any():
-            return g     # the masked select would keep every member exactly
-        mask = torch.from_numpy(mask_np.astype(np.float32)).to(dev)
+        if not isinstance(t, torch.Tensor) and \
+                not (((cfg.num_communication - t) % periods) == 0).any():
+            return g
+        mask = (torch.remainder(cfg.num_communication - t, periods_dev)
+                == 0).float()
         payload = (scope(g.params), scope(g.bn)) if sync_bn \
             else (scope(g.params),)
         avg = collectives.masked_weighted_avg_tree(payload, a_weights, mask)
@@ -243,17 +251,33 @@ def build_cgl_family(cfg, part: Partition, device=None,
         return NetState(put(g.params, mixed[0]),
                         put(g.bn, mixed[1]) if sync_bn else g.bn, g.opt)
 
-    def round_fn(state: FedState, streams=None):
-        """One federated round.  ``streams``: optional injected
-        ``(starts (E,), z_d (S,B,zdim), z_g (S,B,zdim))``, and with conv
-        each server's ``k_d, k_drop`` (S, 2) threefry key data after them;
-        by default they are the reference's draws for round ``state.t``
-        (``core/prng.py``)."""
-        t = state.t
+    def neighbour_share(d: NetState, t) -> NetState:
+        """The every-E-rounds D share within a server's block, after round
+        ``t``.  A host ``t`` decides on the host (on a mesh the share's
+        all-reduce runs only in the rounds that share); a device ``t``
+        shares every round and keeps the share where ``(t + 1) % E == 0``,
+        as the reference's ``jnp.where`` (``cgl_family.py:298-300``)."""
+        device_t = isinstance(t, torch.Tensor)
+        if not device_t and (t + 1) % cfg.E:
+            return d
+        blocked = lambda tree: tree_map(
+            lambda x: x.reshape((S, k_loc) + x.shape[1:]), tree)
+        flat = lambda tree: tree_map(
+            lambda x: x.reshape((S * k_loc,) + x.shape[2:]), tree)
+        shared = flat(collectives.neighbor_share_tree(
+            blocked((d.params, d.bn)), k, blocked=True, mesh=mesh))
+        if device_t:
+            due = torch.remainder(t + 1, cfg.E) == 0
+            shared = tree_map(lambda a, b: torch.where(due, a, b), shared,
+                              (d.params, d.bn))
+        return NetState(shared[0], shared[1], d.opt)
+
+    def round_body(state: FedState, t, streams):
+        """One federated round from its draws ``streams`` (``round_fn``'s)
+        at round ``t``: a host int, or an int64 0-dim device tensor (the
+        captured round's counter).  The host reads no tensor here.  The
+        state's ``t`` is left as it is."""
         g = cloud_sync(state.g, t) if cloud_enabled else state.g
-        if streams is None:
-            streams = (rounds.starts(t),
-                       *prng.server_draws(cfg, rounds.key(t)))
         starts, z_d, z_g = streams[:3]
         d_keys = drop_keys = None
         if cfg.conv:
@@ -264,7 +288,8 @@ def build_cgl_family(cfg, part: Partition, device=None,
         # the latents in the run's dtype (the reference draws them so)
         z_d = torch.as_tensor(z_d, device=dev).to(dtype)
         z_g = torch.as_tensor(z_g, device=dev).to(dtype)
-        starts = [int(s) for s in starts]
+        # the windows are gathered on the device: the host reads no start
+        starts = common.device_starts(starts, dev)
 
         if use_kernel:
             new_d, d_loss, gbn1 = fused_dstep.kernel_local_phase(
@@ -279,18 +304,33 @@ def build_cgl_family(cfg, part: Partition, device=None,
 
         new_g, lam_new, metrics = g_update(g, gbn1, z_g, new_d, state.lam,
                                            d_loss, drop_keys)
+        if cfg.E > 0:
+            new_d = neighbour_share(new_d, t)
+        return FedState(new_g, new_d, lam_new, state.t), metrics
 
-        if cfg.E > 0 and (t + 1) % cfg.E == 0:
-            # every-E-rounds neighbour D-share within a server's block
-            blocked = lambda tree: tree_map(
-                lambda x: x.reshape((S, k_loc) + x.shape[1:]), tree)
-            flat = lambda tree: tree_map(
-                lambda x: x.reshape((S * k_loc,) + x.shape[2:]), tree)
-            params, bn = flat(collectives.neighbor_share_tree(
-                blocked((new_d.params, new_d.bn)), k, blocked=True,
-                mesh=mesh))
-            new_d = NetState(params, bn, new_d.opt)
-        return FedState(new_g, new_d, lam_new, t + 1), metrics
+    def round_fn(state: FedState, streams=None):
+        """One federated round.  ``streams``: optional injected
+        ``(starts (E,), z_d (S,B,zdim), z_g (S,B,zdim))``, and with conv
+        each server's ``k_d, k_drop`` (S, 2) threefry key data after them;
+        by default they are the reference's draws for round ``state.t``
+        (``core/prng.py``)."""
+        t = state.t
+        if streams is None:
+            streams = (rounds.device_starts(t),
+                       *prng.server_draws(cfg, rounds.key(t)))
+        new, metrics = round_body(state, t, streams)
+        return new._replace(t=t + 1), metrics
+
+    program = None
+    if not cfg.conv and mesh is None:
+        # the MLP runners without a mesh: ``train`` runs them as replays
+        # of one captured round (algos/runner.py); the tables hold the
+        # longest piece the reference's rule gives
+        piece = prng.scan_piece(cfg, max_len, 1 << 62)
+        program = RoundProgram(
+            lambda state, t, key, starts: round_body(
+                state, t, (starts, *prng.server_draws(cfg, key))),
+            prng.RoundKeys(cfg, max_len, cfg.epoch, dev, piece=piece), dev)
 
     @torch.no_grad()
     def gen(state: FedState, z):
@@ -331,4 +371,4 @@ def build_cgl_family(cfg, part: Partition, device=None,
 
     return Runner(cfg, part, init_state, round_fn, sample, gen=gen,
                   gen_batch_multiple=S, gen_client=gen_client, device=dev,
-                  mesh=mesh, layout=layout)
+                  mesh=mesh, layout=layout, program=program)

@@ -15,7 +15,7 @@ follows optax's bfloat16 arithmetic op by op (``adam_leaf``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -121,8 +121,37 @@ def normalize_images(x: torch.Tensor) -> torch.Tensor:
     return (x - 0.5) / 0.5
 
 
-def slice_batch(shards: torch.Tensor, start: int, batch_size: int):
-    """Window [start, start+B) of every client's pre-shuffled shard."""
+_ROWS = {}
+
+
+def _rows(n: int, device: torch.device) -> torch.Tensor:
+    """``arange(n)`` on ``device``, made once: a round's gathers add the
+    window start to it."""
+    key = (n, device)
+    if key not in _ROWS:
+        _ROWS[key] = torch.arange(n, device=device)
+    return _ROWS[key]
+
+
+def device_starts(starts, device) -> torch.Tensor:
+    """A round's window starts as an int32 ``(E,)`` tensor on ``device``.
+    A tensor is cast where it lies (a tensor on another device is moved);
+    host ints (a list, numpy or JAX array: injected streams) are copied
+    once."""
+    if isinstance(starts, torch.Tensor):
+        return starts.to(device=device, dtype=torch.int32)
+    return torch.as_tensor([int(s) for s in starts], dtype=torch.int32,
+                           device=device)
+
+
+def slice_batch(shards: torch.Tensor, start, batch_size: int):
+    """Window [start, start+B) of every client's pre-shuffled shard.
+    ``start``: a host int (a view of the shards), or a 0-dim tensor on the
+    shards' device, gathered there (``index_select``: the host never reads
+    it, and a start outside ``[0, max_len - B]`` fails the gather)."""
+    if isinstance(start, torch.Tensor):
+        return shards.index_select(
+            1, start + _rows(batch_size, shards.device))
     return shards[:, start:start + batch_size]
 
 
@@ -293,8 +322,9 @@ def d_step_fn(d_model, adv_loss, lr: float, b1: float, b2: float,
         loss = adv_loss(out_r, 1.0) + adv_loss(out_f, 0.0)
         return (loss * 0.5 if d_loss_half else loss), new_bn
 
-    def step(d_net: NetState, shards, start: int, fake, key=None):
-        """``fake``: flat (W, B, din) per-client or (B, din) shared."""
+    def step(d_net: NetState, shards, start, fake, key=None):
+        """``fake``: flat (W, B, din) per-client or (B, din) shared;
+        ``start``: as ``slice_batch`` takes it."""
         real = prepare_real(slice_batch(shards, start, B), is_image, dtype)
         fake = fake.detach()
         if fake.ndim == 2:
@@ -317,13 +347,15 @@ def d_epoch_steps(step, epoch: int):
     LAST step's loss (the reference inner loop, capgan.py:324-341).  With
     threefry ``key`` (W, 2) (the conv D's dropout), step e takes
     ``split(key, epoch)[:, e]``, or ``key`` itself at epoch 1, as the
-    reference's ``d_epoch_steps`` hands them out."""
-    def run(d_net: NetState, shards, starts: List[int], fake, key=None):
+    reference's ``d_epoch_steps`` hands them out.  ``starts``: the int32
+    ``(epoch,)`` device tensor of ``device_starts``; step e gathers its
+    window from ``starts[e]`` on the device."""
+    def run(d_net: NetState, shards, starts: torch.Tensor, fake, key=None):
         keys = threefry.split(key, epoch) \
             if key is not None and epoch > 1 else None
         loss = None
         for e in range(epoch):
             k_e = key if keys is None else keys[:, e]
-            d_net, loss = step(d_net, shards, int(starts[e]), fake, k_e)
+            d_net, loss = step(d_net, shards, starts[e], fake, k_e)
         return d_net, loss
     return run

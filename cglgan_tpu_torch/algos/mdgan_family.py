@@ -198,7 +198,7 @@ def build_mdgan_family(cfg, part: Partition, device=None,
         t = state.t
         alive, perm = extras_for(t, streams)
         if streams is None:
-            streams = (rounds.starts(t),
+            streams = (rounds.device_starts(t),
                        *prng.server_draws(cfg, rounds.key(t)))
         starts, z_d, z_g = streams[:3]
         d_keys = drop_keys = None
@@ -209,7 +209,8 @@ def build_mdgan_family(cfg, part: Partition, device=None,
             drop_keys = local(common.client_keys(k_drop, k))
         z_d = torch.as_tensor(z_d, device=dev).to(dtype)
         z_g = torch.as_tensor(z_g, device=dev).to(dtype)
-        starts = [int(s) for s in starts]
+        # the windows are gathered on the device: the host reads no start
+        starts = common.device_starts(starts, dev)
         g = state.g
 
         if use_kernel:

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import functools
 import math
+import struct
 from typing import Sequence, Union
 
 import torch
@@ -40,8 +41,13 @@ def torch_dtype(cfg_or_name) -> torch.dtype:
 
 
 @functools.lru_cache(maxsize=None)
-def _rounded(c: float, dtype: torch.dtype) -> float:
-    return float(torch.tensor(c, dtype=dtype))
+def _rounded(c: float) -> float:
+    """``c`` rounded to float32, then to bfloat16 (nearest, ties to even),
+    as ``torch.tensor(c, dtype=torch.bfloat16)`` rounds it, in host
+    arithmetic: a round body reads no tensor on the host."""
+    u = struct.unpack("<I", struct.pack("<f", c))[0]
+    u = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
+    return struct.unpack("<f", struct.pack("<I", u))[0]
 
 
 def weak(c: float, like: Union[torch.Tensor, torch.dtype]) -> float:
@@ -51,7 +57,7 @@ def weak(c: float, like: Union[torch.Tensor, torch.dtype]) -> float:
     dtype = like if isinstance(like, torch.dtype) else like.dtype
     if dtype != torch.bfloat16:
         return c
-    return _rounded(float(c), dtype)
+    return _rounded(float(c))
 
 
 def _dims(dim) -> tuple:

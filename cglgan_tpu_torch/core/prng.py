@@ -20,10 +20,16 @@ rate)`` (FeGAN: ``fold_in(fold_in(root, t), 7)``); MD-GAN's shuffle
 
 ``RoundKeys`` holds a runner's ``fold_in(root, ROLE_LOCAL)`` on its device
 and draws the round keys and window starts of a piece of upcoming rounds in
-one pass each, copying the starts to the host once a piece (the host
-indexes the shards with them).  ``round_streams``, ``sweep_streams``,
-``survival`` and ``swap_permutation`` give one round's draws as the round
-functions take them injected (``round_fn(state, streams=...)``).
+one pass each, into two tables on the device: ``(piece, 2)`` keys and
+``(piece, steps)`` int32 starts.  The CGL and MD-GAN families gather their
+windows with a round's row of starts on the device; a captured round
+(``algos/runner.py`` ``RoundProgram``) reads both rows at a device round
+index, so nothing of a round crosses to the host.  The FedAvg family
+slices its ragged sweep with host ints, copied once a piece
+(``RoundKeys.starts``).  The piece follows the reference's rule
+(``scan_piece``).  ``round_streams``, ``sweep_streams``, ``survival`` and
+``swap_permutation`` give one round's draws as the round functions take
+them injected (``round_fn(state, streams=...)``).
 """
 from __future__ import annotations
 
@@ -73,29 +79,58 @@ def window_starts(keys: torch.Tensor, steps: int, max_len: int,
         threefry.split(threefry.fold_in(keys, ROLE_BATCH), steps), (), 0, hi)
 
 
+def scan_piece(cfg, max_len: int, eval_every: int) -> int:
+    """Rounds a piece, the reference's rule
+    (``cglgan_tpu/algos/runner.py:100-115``): ``cfg.scan_rounds`` where it
+    is > 0, else about 10 000 local steps' worth, ``min(eval_every, 10000
+    // steps)``, at least 1; ``steps`` a round is the epoch, times the
+    batches in a shard of ``max_len`` rows under the "epochs" sweep."""
+    if cfg.scan_rounds and cfg.scan_rounds > 0:
+        return int(cfg.scan_rounds)
+    steps = max(1, cfg.epoch)
+    if cfg.resolved_local_sweep == "epochs":
+        steps *= -(-max_len // cfg.batch_size)
+    return max(1, min(eval_every, 10000 // steps))
+
+
 class RoundKeys:
     """A runner's round keys and window starts (module docstring).
     ``steps``: window starts a round (the epoch, or the FedAvg sweep's
-    largest step count); a piece is ``min(cfg.num_plt, 10000 // steps)``
-    rounds, the reference's scan piece for a tick of ``num_plt`` rounds,
-    or ``piece``."""
+    largest step count); ``piece``: the tables' rows, by default
+    ``scan_piece`` for a tick of ``cfg.num_plt`` rounds.  The tables are
+    made at the first ``fill`` and kept: a graph that reads them reads
+    every later fill's rounds."""
 
     def __init__(self, cfg, max_len: int, steps: int, device, piece=None):
         self.cfg, self.steps, self.max_len = cfg, steps, max_len
         self.root = threefry.key(cfg.seed, device)
         self.local = threefry.fold_in(self.root, ROLE_LOCAL)
-        self.piece = piece or max(1, min(cfg.num_plt, 10000 // max(steps, 1)))
-        self.t0, self.keys, self.starts_of = None, None, None
+        self.piece = piece or scan_piece(cfg, max_len, cfg.num_plt)
+        self.keys = self.starts_of = None
+        self.t0, self.n, self._host = None, 0, None
 
-    def _fill(self, t: int) -> None:
-        self.keys = threefry.fold_in(self.local, range(t, t + self.piece))
-        self.starts_of = window_starts(self.keys, self.steps, self.max_len,
-                                       self.cfg.batch_size).tolist()
-        self.t0 = t
+    def fill(self, t: int, n=None) -> None:
+        """Draw rounds ``t .. t + n - 1`` (``n`` at most ``piece``, a piece
+        by default) into the tables' first rows, on the device."""
+        n = self.piece if n is None else n
+        if not 1 <= n <= self.piece:
+            raise ValueError(f"{n} rounds into tables of {self.piece}")
+        keys = threefry.fold_in(self.local, range(t, t + n))
+        starts = window_starts(keys, self.steps, self.max_len,
+                               self.cfg.batch_size)
+        if self.keys is None:
+            self.keys = torch.empty((self.piece, 2), dtype=keys.dtype,
+                                    device=keys.device)
+            self.starts_of = torch.empty((self.piece, self.steps),
+                                         dtype=starts.dtype,
+                                         device=keys.device)
+        self.keys[:n].copy_(keys)
+        self.starts_of[:n].copy_(starts)
+        self.t0, self.n, self._host = t, n, None
 
     def _at(self, t: int) -> int:
-        if self.t0 is None or not self.t0 <= t < self.t0 + self.piece:
-            self._fill(t)
+        if self.t0 is None or not self.t0 <= t < self.t0 + self.n:
+            self.fill(t)
         return t - self.t0
 
     def key(self, t: int) -> torch.Tensor:
@@ -103,10 +138,19 @@ class RoundKeys:
         i = self._at(t)
         return self.keys[i]
 
-    def starts(self, t: int) -> List[int]:
-        """Round t's ``steps`` window starts as host ints."""
+    def device_starts(self, t: int) -> torch.Tensor:
+        """Round t's ``steps`` window starts, an int32 row of the table on
+        the device (read before the next ``fill``)."""
         i = self._at(t)
         return self.starts_of[i]
+
+    def starts(self, t: int) -> List[int]:
+        """Round t's ``steps`` window starts as host ints, the piece's
+        table copied to the host once."""
+        i = self._at(t)
+        if self._host is None:
+            self._host = self.starts_of[:self.n].tolist()
+        return self._host[i]
 
     def survival(self, t: int, n: int) -> torch.Tensor:
         """Round t's dropout draw: bool (n,) Bernoulli(1 - dropout_rate),
@@ -159,9 +203,9 @@ def lane_draws(cfg, key: torch.Tensor, steps: int, lanes=None) -> tuple:
 
 def round_streams(cfg, t: int, max_len: int, device) -> tuple:
     """Round t's CGL / MD-GAN draws: ``(starts (E,), z_d, z_g[, k_d,
-    k_drop])`` (``server_draws``)."""
+    k_drop])`` (``server_draws``), the starts int32 on ``device``."""
     rk = RoundKeys(cfg, max_len, cfg.epoch, device, piece=1)
-    return (rk.starts(t), *server_draws(cfg, rk.key(t)))
+    return (rk.device_starts(t), *server_draws(cfg, rk.key(t)))
 
 
 def sweep_streams(cfg, t: int, max_len: int, steps: int, device) -> tuple:

@@ -66,6 +66,8 @@
 
 #include <cuda_bf16.h>
 
+#include <cstdio>
+
 #include "mma_tf32.cuh"
 
 namespace {
@@ -91,13 +93,23 @@ __device__ __forceinline__ float operand(float x, bool bf) {
 }
 
 // X[w] = concat(real window, fake): grid (2B, W).  T: the real rows' type;
-// F: the fakes' (float32, or bf16 from a bf16 G).
+// F: the fakes' (float32, or bf16 from a bf16 G).  The window starts at
+// starts[e], read from device memory, so that a replayed graph reads the
+// round's own windows; a start outside [0, max_len - B] stops the kernel
+// (__trap: the launch, and the run, fail) rather than read another row.
 template <typename T, typename F>
 __global__ void prep_kernel(const T* __restrict__ shards, long long max_len,
-                            int start, const F* __restrict__ fake,
-                            long long fake_sw, float* __restrict__ X, int B,
-                            int din) {
+                            const int* __restrict__ starts, int e,
+                            const F* __restrict__ fake, long long fake_sw,
+                            float* __restrict__ X, int B, int din) {
   const int w = blockIdx.y, r = blockIdx.x;
+  const long long start = starts[e];
+  if (start < 0 || start > max_len - B) {
+    if (threadIdx.x == 0 && w == 0 && r == 0)
+      printf("fused_dstep: window start %lld outside [0, %lld]\n", start,
+             max_len - B);
+    __trap();
+  }
   float* xr = X + ((long long)w * 2 * B + r) * din;
   if (r < B) {
     const T* src = shards + ((long long)w * max_len + start + r) * din;
@@ -315,19 +327,19 @@ int run_steps(float* const* in, float* const* out, void* const* scratch,
     const dim3 pgrid((unsigned)R, W);
     if (real_u8 && fake_bf16)
       prep_kernel<<<pgrid, 256, 0, st>>>(
-          (const uint8_t*)shards, max_len, starts[e],
+          (const uint8_t*)shards, max_len, starts, e,
           (const __nv_bfloat16*)fake, fake_sw, X, B, din);
     else if (real_u8)
       prep_kernel<<<pgrid, 256, 0, st>>>(
-          (const uint8_t*)shards, max_len, starts[e], (const float*)fake,
+          (const uint8_t*)shards, max_len, starts, e, (const float*)fake,
           fake_sw, X, B, din);
     else if (fake_bf16)
       prep_kernel<<<pgrid, 256, 0, st>>>(
-          (const float*)shards, max_len, starts[e],
+          (const float*)shards, max_len, starts, e,
           (const __nv_bfloat16*)fake, fake_sw, X, B, din);
     else
       prep_kernel<<<pgrid, 256, 0, st>>>(
-          (const float*)shards, max_len, starts[e], (const float*)fake,
+          (const float*)shards, max_len, starts, e, (const float*)fake,
           fake_sw, X, B, din);
     CHECK_LAUNCH();
 
@@ -404,7 +416,10 @@ const char* fused_dstep_error_string(int code) {
 // shards: (W, max_len, din), uint8 images (real_u8 = 1) or float32 rows.
 // fake: (B, din) or, fake_per_client, (W, B, din); float32 or bf16
 //   (fake_bf16 = 1).
-// starts: E host ints.  cc: (W, E, 2) device.  loss: (W,).  dout <= 2.
+// starts: E device int32 window starts, each checked on the device.
+// cc: (W, E, 2) device.  loss: (W,).  dout <= 2.  Every pointer, starts
+// included, is read by the kernels, never by the host: a captured call
+// replays with whatever the buffers hold then.
 // Returns 0 or the first cudaGetLastError() code.
 int fused_dstep(void* const* state_in, void* const* state_out,
                 void* const* work, int state_bf16, void* const* scratch,

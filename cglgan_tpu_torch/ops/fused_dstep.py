@@ -11,7 +11,10 @@ weight-gradient products, ``LAUNCHES_PER_STEP`` CUDA launches a step.
 ``fused_d_epoch_steps`` launches the kernel for CUDA tensors and runs the
 plain PyTorch version (``fused_d_epoch_steps_plain``: the same hand-derived
 forward, backward and Adam loop in torch ops) for CPU tensors; nothing
-else.  ``launches`` counts the kernel's launches (one per call).
+else.  Both read the E window starts from an int32 device tensor, so a
+call captured into a CUDA graph replays each round's own windows.
+``launches`` counts the kernel's launches (one per call; a captured call
+is counted once a replay by the graph's owner, ``algos/runner.py``).
 ``matmul_3xtf32_plain`` emulates the kernel's product arithmetic in torch
 ops, so the choice of 3xTF32 over one TF32 pass is checked where no card is.
 
@@ -32,7 +35,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from cglgan_tpu_torch.algos.common import (AdamState, NetState, adam_leaf,
-                                           bias_correction,
+                                           bias_correction, device_starts,
                                            normalize_images)
 
 SOURCE = "cglgan_tpu_torch/ops/csrc/fused_dstep.cu"
@@ -80,11 +83,11 @@ def bias_corrections(count: torch.Tensor, W: int, E: int, b1: float,
 def fused_d_epoch_steps(params: Sequence[torch.Tensor],
                         mu: Sequence[torch.Tensor],
                         nu: Sequence[torch.Tensor], count: torch.Tensor,
-                        shards: torch.Tensor, starts: Sequence[int],
-                        fake: torch.Tensor, *, head: str = "sigmoid",
+                        shards: torch.Tensor, starts, fake: torch.Tensor,
+                        *, head: str = "sigmoid",
                         d_loss_half: bool = False, is_image: bool = True,
                         lr: float = 2e-4, b1: float = 0.5, b2: float = 0.999):
-    """Run ``len(starts)`` local D steps for W clients.
+    """Run E = ``len(starts)`` local D steps for W clients.
 
     params/mu/nu: 6-tuples (w1 (W,din,h1), b1 (W,h1), w2, b2, w3, b3), all
     float32 or all bfloat16 (then returned in bfloat16, rounded once).
@@ -92,6 +95,11 @@ def fused_d_epoch_steps(params: Sequence[torch.Tensor],
     shards: (W, max_len, din), uint8 images (``is_image``: scaled to
     [-1, 1]) or float32 rows used as they are (2DMG); step e reads rows
     ``[starts[e], starts[e] + B)`` of every client's shard.
+    starts: the E window starts, an int32 ``(E,)`` tensor on the shards'
+    device (``common.device_starts``; host ints are copied there first).
+    The kernel and the plain version read them on the device, never on the
+    host, so a captured call replays with the starts the buffer holds then;
+    a start outside ``[0, max_len - B]`` fails the run on the device.
     fake: (B, din) shared or (W, B, din) per-client fakes, float32 or
     bfloat16.
 
@@ -104,6 +112,7 @@ def fused_d_epoch_steps(params: Sequence[torch.Tensor],
     if shards.dtype != want:
         raise ValueError(f"is_image={is_image} takes {want} shards, got "
                          f"{shards.dtype}")
+    starts = device_starts(starts, shards.device)
     if shards.device.type == "cuda":
         return _launch(params, mu, nu, count, shards, starts, fake, head,
                        d_loss_half, lr, b1, b2)
@@ -121,6 +130,15 @@ def state_dtype(params, mu, nu) -> torch.dtype:
         raise ValueError(f"fused_dstep state tensors of mixed dtypes "
                          f"{sorted(map(str, dtypes))}")
     return dtypes.pop()
+
+
+def check_starts(starts: torch.Tensor, hi: int) -> None:
+    """Fail the run where a window start lies outside ``[0, hi]``: an
+    assertion queued on the starts' device (on a card it fails the stream
+    without making the host wait; on the CPU it raises at once).  Nothing
+    is clamped."""
+    torch._assert_async(((starts >= 0) & (starts <= hi)).all(),
+                        f"fused_dstep: a window start outside [0, {hi}]")
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -142,8 +160,11 @@ def fused_d_epoch_steps_plain(params, mu, nu, count, shards, starts, fake,
     operands rounded to bfloat16 (their products are exact in float32, so
     the sums are float32 sums), everything else in the work dtype, the
     state rounded to bfloat16 once at the end."""
-    W, E = shards.shape[0], len(starts)
+    starts = device_starts(starts, shards.device)
+    W, E = shards.shape[0], starts.shape[0]
     B = fake.shape[-2]
+    check_starts(starts, shards.shape[1] - B)
+    rows = torch.arange(B, device=shards.device)
     out_dtype = state_dtype(params, mu, nu)
     low = out_dtype == torch.bfloat16
     work = lambda ts: [t.to(work_dtype) for t in ts] if low else list(ts)
@@ -162,8 +183,7 @@ def fused_d_epoch_steps_plain(params, mu, nu, count, shards, starts, fake,
     loss = None
     for e in range(E):
         w1, bb1, w2, bb2, w3, bb3 = state[0]
-        s = int(starts[e])
-        real = shards[:, s:s + B]
+        real = shards.index_select(1, starts[e] + rows)
         if real.dtype == torch.uint8:
             real = normalize_images(real)
         x = torch.cat([real.to(dt), fk.to(dt)], 1)
@@ -253,7 +273,11 @@ _WORK: Dict[tuple, List[torch.Tensor]] = {}
 def _scratch(dev, stream: int, W, B, din, h1, h2, dout) -> List[torch.Tensor]:
     """The call's work space (X, H1, H2, G3, PER, DZ2, DZ1), kept per device,
     stream and shape: every call on a stream overwrites it in stream order
-    and nothing of it is returned."""
+    and nothing of it is returned.  A captured call (``algos/runner.py``
+    ``RoundProgram``) records the buffers of its capture stream, which the
+    warm-up calls on that stream made before capture; the module keeps
+    them, so they outlive the graph, and only that stream's calls and the
+    graph's replays use them."""
     key = (dev.index, stream, W, B, din, h1, h2, dout)
     if key not in _SCRATCH:
         R = 2 * B
@@ -283,8 +307,8 @@ def _library() -> ctypes.CDLL:
         vp, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
         pp = ctypes.POINTER(vp)
         lib.fused_dstep.argtypes = [
-            pp, pp, pp, i, pp, vp, i, ctypes.c_longlong, ctypes.POINTER(i),
-            vp, i, i, vp, vp, i, i, i, i, i, i, i, i, f, f, f, f, f, f, f, f,
+            pp, pp, pp, i, pp, vp, i, ctypes.c_longlong, vp, vp, i, i, vp,
+            vp, i, i, i, i, i, i, i, i, f, f, f, f, f, f, f, f,
             vp]
         lib.fused_dstep.restype = i
         lib.fused_dstep_error_string.argtypes = [i]
@@ -297,7 +321,7 @@ def _launch(params, mu, nu, count, shards, starts, fake, head, d_loss_half,
             lr, b1, b2):
     global launches
     W, max_len, din = shards.shape
-    E = len(starts)
+    E = starts.shape[0]
     h1, h2, dout = params[0].shape[2], params[2].shape[2], params[4].shape[2]
     B = fake.shape[-2]
     dev = shards.device
@@ -316,9 +340,10 @@ def _launch(params, mu, nu, count, shards, starts, fake, head, d_loss_half,
            STATE_DTYPES)
     if head == "logits2" and dout != 2 or head == "sigmoid" and dout != 1:
         raise ValueError(f"head {head!r} with {dout} outputs")
-    if any(not 0 <= int(s) <= max_len - B for s in starts):
-        raise ValueError(f"window starts {list(starts)} outside [0, "
-                         f"{max_len - B}]")
+    # the starts' range is checked by the kernel, on the device
+    if starts.ndim != 1 or not starts.is_contiguous():
+        raise ValueError(f"starts: shape {tuple(starts.shape)}, expected "
+                         f"a contiguous (E,)")
     state_out = [torch.empty_like(t) for t in state_in]
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = _scratch(dev, stream, W, B, din, h1, h2, dout)
@@ -333,8 +358,7 @@ def _launch(params, mu, nu, count, shards, starts, fake, head, d_loss_half,
     rc = lib.fused_dstep(
         ptrs(state_in), ptrs(state_out), ptrs(work), int(bf16),
         ptrs(scratch), shards.data_ptr(),
-        int(shards.dtype == torch.uint8), max_len,
-        (ctypes.c_int * E)(*[int(s) for s in starts]),
+        int(shards.dtype == torch.uint8), max_len, starts.data_ptr(),
         fake.data_ptr(), int(fake.dtype == torch.bfloat16), int(per_client),
         cc.data_ptr(), loss.data_ptr(),
         W, E, B, din, h1, h2, dout, HEADS[head], mult * 0.5, mult * 0.5 / B,

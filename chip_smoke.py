@@ -54,14 +54,33 @@ Phases, each printing one JSON line:
             reported beside); then CAP-GAN from its seed with no stream
             injected: the card's init equal to the CPU's, one round each;
   main      16-client CAP-GAN on MNIST shapes at epoch=5 (the kernel path),
-            20 rounds through ``build_runner`` and ``train``; the kernel's
-            launch count must rise by exactly 20 and every metric be finite;
+            20 rounds through ``build_runner`` and ``train`` (replays of
+            the runner's captured round, as in ``cgl``, ``bf16``, ``cli``,
+            ``serve`` and ``eval_image``; the profile after them is of
+            eager ``round_fn`` rounds); the kernel's launch count must rise
+            by exactly 20 (once a replay) and every metric be finite;
   autograd  the same configuration at epoch=1 (the autograd D path);
   draws     the CAP-GAN main path at epoch=5 and the FL-GAN 2DMG kernel
             path, 20 rounds drawing their own streams against the same
             rounds fed the same streams drawn beforehand, in turns: both
             rounds/s, the launches a round the draws add (the CAP-GAN
             path: at most 10), the end states held to each other;
+  graph     the CGL family's MLP runners through ``train`` as replays of
+            one captured round (``algos/runner.py`` ``RoundProgram``), at
+            full width, each case from one state: the main config at e=1
+            and e=5, e=5 in bf16 with ``pallas_dstep=True``, CGL-GAN and
+            Mix-G on ``CGL_MNIST`` at e=5, the main config at e=5 with
+            E=2, and at e=1 with a cloud-sync period that fires at round
+            10 only; 20 replays (a tick a round) against 20 eager
+            ``round_fn`` rounds, every state tensor and metric under
+            ``torch.equal``; ``fused_dstep`` launches once a replay,
+            ``threefry``'s a replay as captured plus the tables' fills;
+            every piece's replays under ``set_sync_debug_mode("error")``;
+            one capture across every ``train`` call of the runner;
+            rounds/s eager and graph in turns (eager, graph, graph,
+            eager), the host's launch calls, device ms a round and the
+            busy share of each, capture seconds and the graph pool's
+            memory;
   eval_image
             the proxy image evaluator (FID / Inception Score) on the main
             path's config: threefry draws and the random-conv extractor's
@@ -232,8 +251,8 @@ Each phase prints ``{"starting": name}`` before it runs.  Then the card
 line, the ``kernels`` line and, last, the ok line.  Any failure raises and
 exits non-zero; without a card it exits 2 and prints no result.
 ``--phases a,b`` runs only the named phases (of ``dstep dstep_bf16 sweep
-adam threefry reference main draws eval_image fedavg fedavg_image cgl mdgan
-bf16 conv conv_baselines conv_bf16 inception cli serve mesh tp``)
+adam threefry reference main draws graph eval_image fedavg fedavg_image cgl
+mdgan bf16 conv conv_baselines conv_bf16 inception cli serve mesh tp``)
 for a short first look at a new kernel; the
 ``kernels`` and ok lines are printed only by a full run.  Imports nothing
 of JAX.
@@ -479,7 +498,9 @@ def dstep_inputs(gen, W, E, B, din, h1, h2, dout, six=None, max_len=1000,
     else:
         shards = torch.randint(0, 256, (W, max_len, din), generator=gen,
                                dtype=torch.uint8).to(dev)
-    starts = torch.randint(0, max_len - B + 1, (E,), generator=gen).tolist()
+    # int32 on the card, as a round's table row hands them to the kernel
+    starts = torch.randint(0, max_len - B + 1, (E,), generator=gen).to(
+        device=dev, dtype=torch.int32)
     if servers:
         fake = torch.tanh(torch.randn((servers, 1, B, din), generator=gen))
         fake = fake.expand(servers, W // servers, B, din).reshape(W, B, din)
@@ -1352,7 +1373,7 @@ def seed_round():
     merr = max(abs(float(mg[k]) - float(mc[k])) for k in mg)
     res = {"phase": "reference", "algo": "capgan from its seed",
            "init_equal": init_equal,
-           "starts_equal": list(card_draws[0]) == list(cpu_draws[0]),
+           "starts_equal": card_draws[0].tolist() == cpu_draws[0].tolist(),
            "z_max_ulps": max(u for u, _ in z_apart),
            "z_elements_differing": sum(n for _, n in z_apart),
            "max_scaled_err": errs, "tol_scaled": TOL_SCALED,
@@ -1994,6 +2015,208 @@ def phase_rounds(phase, label, algo, base, epoch, part, rounds=ROUNDS,
     res["profile"] = profile_rounds(runner, out["state"], PROFILE_ROUNDS)
     emit(res)
     return res, launches
+
+
+# the ``graph`` phase: the CGL family's MLP rounds as replays of one captured
+# round (``algos/runner.py`` ``RoundProgram``), each case from one state;
+# ``None`` as num_communication: the CAP-GAN cadence case, whose cloud sync
+# fires at round GRAPH_SYNC_AT only (its period, from the partition, + that)
+GRAPH_ROUNDS = 20
+GRAPH_SYNC_AT = 10
+GRAPH_CASES = (("capgan e1", "capgan", MAIN, 1, {}),
+               ("capgan e5", "capgan", MAIN, 5, {}),
+               ("capgan e5 bf16 kernel", "capgan", MAIN, 5,
+                dict(dtype="bfloat16", pallas_dstep=True)),
+               ("cglgan e5", "cglgan", CGL_MNIST, 5, {}),
+               ("mixgan e5", "mixgan", CGL_MNIST, 5, {}),
+               ("capgan e5 E=2", "capgan", MAIN, 5, dict(E=2)),
+               ("capgan e1 cadence", "capgan", MAIN, 1,
+                dict(num_communication=None)))
+# the host's CUDA launch calls, as the profiler names them
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def graph_profile(fn, rounds):
+    """``fn()`` (``rounds`` rounds) under the profiler: the host's CUDA
+    launch calls a round by name (a graph replay is one ``cudaGraphLaunch``),
+    device ms and events a round (every kernel and copy, those a replay
+    runs included) with the 10 largest, wall ms a round and the busy
+    share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cglgan_tpu_torch.utils.profiling import device_kernel_sums
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    calls = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA and \
+                ev.name() in HOST_LAUNCH_CALLS:
+            calls[ev.name()] = calls.get(ev.name(), 0) + 1
+    kernels = sorted(device_kernel_sums(prof).items(), key=lambda k: -k[1][0])
+    device_us = sum(us for _, (us, _) in kernels)
+    return {"host_launch_calls_per_round": sum(calls.values()) / rounds,
+            "host_calls_by_name": {k: v / rounds for k, v in calls.items()},
+            "device_ms_per_round": device_us / 1e3 / rounds,
+            "wall_ms_per_round": wall * 1e3 / rounds,
+            "device_busy_share": device_us / 1e6 / wall,
+            "device_events_per_round": sum(n for _, (_, n) in kernels) / rounds,
+            "top": [{"kernel": name[:80], "ms_per_round": us / 1e3 / rounds,
+                     "calls_per_round": n / rounds}
+                    for name, (us, n) in kernels[:10]]}
+
+
+def phase_graph(part_of):
+    """The CGL family's MLP runners through ``train`` as replays of one
+    captured round, at full width (``GRAPH_CASES``), each case from one
+    state: GRAPH_ROUNDS replays (a tick a round) against as many eager
+    ``round_fn`` rounds, every state tensor and metric under
+    ``torch.equal``; ``fused_dstep`` launches counted once a replay and
+    ``threefry``'s as the capture counted them a replay plus the tables'
+    fills; every piece's replays under ``set_sync_debug_mode("error")``;
+    rounds/s eager (the per-round loop, ``program=None``) and graph in
+    turns (eager, graph, graph, eager); host launch calls, device ms a
+    round and busy share of each; capture seconds and the graph pool's
+    memory; one capture across every ``train`` call of the runner."""
+    import torch
+    from cglgan_tpu_torch.algos import runner as rmod
+    from cglgan_tpu_torch.algos.registry import build_runner
+    from cglgan_tpu_torch.core.config import FedGANConfig
+    from cglgan_tpu_torch.fed import topology
+    from cglgan_tpu_torch.ops import fused_dstep
+    from cglgan_tpu_torch.ops import threefry as tk
+    from cglgan_tpu_torch.utils.tree import tree_leaves
+
+    N = GRAPH_ROUNDS
+    leaves = lambda st: tree_leaves([[n.params, n.bn, n.opt.count, n.opt.mu,
+                                      n.opt.nu] for n in (st.g, st.d)]
+                                    + [st.lam])
+    results, launches = [], {}
+    for label, algo, base, epoch, extra in GRAPH_CASES:
+        part = part_of(algo, base)
+        extra = dict(extra)
+        sync_at = None
+        if "num_communication" in extra:
+            cfg = FedGANConfig(algo=algo, epoch=epoch, **base)
+            period = int(max(1, topology.server_data_len(
+                part.lengths, cfg.num_servers)[0] * cfg.cloud_epoch
+                // cfg.batch_size))
+            if period <= N:
+                raise AssertionError(f"{label}: a sync period of {period}")
+            extra["num_communication"] = period + GRAPH_SYNC_AT
+            sync_at = GRAPH_SYNC_AT
+        cfg = FedGANConfig(algo=algo, epoch=epoch, **base, **extra)
+        t_build = time.perf_counter()
+        runner = build_runner(cfg, part)
+        program = runner.program
+        if program is None:
+            raise AssertionError(f"{label}: no RoundProgram")
+        state0 = runner.init_state()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t_build
+        captures0 = rmod.captures
+
+        plain_run = program.run
+
+        def watched(t, n, _run=plain_run, _p=program):
+            """A piece's replays with any host synchronisation an error
+            (the capture, which synchronises, runs before them)."""
+            if _p.graph is None:
+                return _run(t, n)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _run(t, n)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        program.run = watched
+        # equality: N eager rounds, then N replays a tick each
+        s, eager_m = state0, []
+        for _ in range(N):
+            s, m = runner.round_fn(s)
+            eager_m.append(m)
+        fill_before = tk.launches
+        program.keys.fill(0, 1)
+        per_fill = tk.launches - fill_before
+        fused_dstep.launches = tk.launches = 0
+        out = rmod.train(runner, N, eval_every=1, state=state0,
+                         evaluator=False)
+        torch.cuda.synchronize()
+        dstep_n, tf_n = fused_dstep.launches, tk.launches
+        unequal = [i for i, (a, b) in enumerate(zip(
+            leaves(out["state"]), leaves(s), strict=True))
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+        bad_metrics = [(i, k, tick[k], float(m[k]))
+                       for i, (tick, m) in enumerate(zip(out["history"],
+                                                         eager_m))
+                       for k in m if tick[k] != float(m[k])]
+        per_replay = {mod.__name__.rsplit(".", 1)[1]: n
+                      for mod, n in program.per_replay.items()}
+        uses_kernel = fused_dstep.eligible(cfg)
+        want_dstep = N if uses_kernel else 0
+        want_tf = N * per_replay.get("threefry", 0) + N * per_fill
+        if sync_at is not None:
+            syncs = [t for t in range(N)
+                     if (cfg.num_communication - t) % (
+                         cfg.num_communication - sync_at) == 0]
+            if syncs != [sync_at]:
+                raise AssertionError(f"{label}: syncs at {syncs}")
+        # speed in turns: eager (the per-round loop), graph, graph, eager
+        eager_runner = runner._replace(program=None)
+        walls = {"eager": [], "graph": []}
+        for name in ("eager", "graph", "graph", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rmod.train(eager_runner if name == "eager" else runner, N,
+                       eval_every=N, state=state0, evaluator=False)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+        prof = {name: graph_profile(
+            lambda r=r: rmod.train(r, N, eval_every=N, state=state0,
+                                   evaluator=False), N)
+            for name, r in (("eager", eager_runner), ("graph", runner))}
+        captured = rmod.captures - captures0
+        res = {"phase": "graph", "case": label,
+               "config": {"algo": algo, **base, "epoch": epoch, **extra},
+               "path": "kernel" if uses_kernel else "autograd",
+               "rounds": N, "equal_state": not unequal,
+               "unequal_leaves": unequal[:10],
+               "unequal_metrics": bad_metrics[:10],
+               "sync_at": sync_at,
+               "fused_dstep_launches": dstep_n,
+               "threefry_launches": tf_n, "threefry_expected": want_tf,
+               "per_replay": per_replay, "threefry_per_fill": per_fill,
+               "captures": captured,
+               "capture_s": program.capture_s,
+               "graph_pool_mb": program.pool_bytes / 1e6,
+               "build_s": build_s,
+               "rounds_per_s_eager": [N / w for w in walls["eager"]],
+               "rounds_per_s_graph": [N / w for w in walls["graph"]],
+               "profile": prof}
+        emit(res)
+        if unequal or bad_metrics:
+            raise AssertionError(f"{label}: replays differ from eager "
+                                 f"rounds: leaves {unequal[:10]}, metrics "
+                                 f"{bad_metrics[:10]}")
+        if dstep_n != want_dstep or tf_n != want_tf:
+            raise AssertionError(f"{label}: fused_dstep launches {dstep_n} "
+                                 f"(expected {want_dstep}), threefry "
+                                 f"{tf_n} (expected {want_tf})")
+        if captured != 1:
+            raise AssertionError(f"{label}: {captured} captures across "
+                                 f"the runner's train calls")
+        if prof["graph"]["host_calls_by_name"].get("cudaGraphLaunch") != 1:
+            raise AssertionError(f"{label}: not one replay a round: "
+                                 f"{prof['graph']['host_calls_by_name']}")
+        results.append(res)
+        launches[label] = dstep_n
+    return results, launches
 
 
 def fedavg_shrunk(algo, **extra):
@@ -3861,7 +4084,8 @@ def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     all_phases = ("dstep", "dstep_bf16", "sweep", "adam", "threefry",
-                  "reference", "main", "draws", "eval_image", "fedavg",
+                  "reference", "main", "draws", "graph", "eval_image",
+                  "fedavg",
                   "fedavg_image", "cgl", "mdgan", "bf16", "conv",
                   "conv_baselines", "conv_bf16", "inception", "cli",
                   "serve", "mesh", "tp")
@@ -3945,6 +4169,13 @@ def main(argv=None):
         done["threefry_launches capgan e1"] = res["threefry_launches"]
     if run("draws"):
         phase_draws(part_of("capgan", MAIN))
+    if run("graph"):
+        _, graph_launches = phase_graph(part_of)
+        for label, n in graph_launches.items():
+            if n and "bf16" in label:
+                done["dstep_bf16_launches graph"] = n
+            elif n:
+                done[f"dstep_launches graph {label}"] = n
     if run("eval_image"):
         done["dstep_launches capgan eval"] = phase_eval_image(
             card, part_of("capgan", MAIN))
@@ -4040,7 +4271,8 @@ def main(argv=None):
     dstep_bf16["launches_by_path"] = {
         "capgan bf16": done["dstep_bf16_launches"],
         "cglgan bf16": done["dstep_bf16_launches cglgan"],
-        "mdgan bf16": done["dstep_bf16_launches mdgan"]}
+        "mdgan bf16": done["dstep_bf16_launches mdgan"],
+        "graph capgan bf16": done["dstep_bf16_launches graph"]}
     # the FL-GAN pair's shape; launches from its 20 kernel-path rounds, and
     # the CLI's FL-GAN 2DMG run beside them
     sweep = entry(fused_sweep, done["sweep_launches"], done["sweep"],
