@@ -24,6 +24,16 @@ the Adam state stays with the client:
   anchors for params and BN carried in the state's ``lam`` slot, zero at
   init and replaced on exchange rounds only).
 
+The round loop (``algos/runner.py``): ``train`` runs an MLP runner without
+a mesh as replays of one captured CUDA graph of a round (``RoundProgram``,
+the reference's ``scan_rounds``).  Its ``round_body`` reads the round
+counter, key and window starts on the device, draws the survival draw and
+MD-GAN's permutation from that key every round, and exchanges every round,
+keeping the result where ``(t + 1) % E == 0``, as the reference's jitted
+round.  ``round_fn`` (the per-round loop: conv, a mesh, injected streams)
+runs the same body from a host counter, which exchanges only on the
+rounds that do.
+
 Layout: G state stacked ``(S, ...)``, D state flat ``(W, ...)`` with
 clients ``[s*k, (s+1)*k)`` on server s (viewed ``(S, k, ...)`` where a
 server sees only its own clients).  The local-D phase runs the fused CUDA
@@ -61,7 +71,7 @@ import torch
 
 from cglgan_tpu_torch.algos import common
 from cglgan_tpu_torch.algos.common import FedState, NetState
-from cglgan_tpu_torch.algos.runner import Runner
+from cglgan_tpu_torch.algos.runner import RoundProgram, Runner
 from cglgan_tpu_torch.core import device as device_mod
 from cglgan_tpu_torch.core import meshes, prng, threefry
 from cglgan_tpu_torch.core.meshes import CLIENTS, P
@@ -171,35 +181,62 @@ def build_mdgan_family(cfg, part: Partition, device=None,
             cfg.lr_g, cfg.b1, cfg.b2)
         return NetState(new_p, gbn2, new_opt), g_loss.detach(), both[1]
 
-    # the injected streams: the three draws, with conv the dropout keys at
-    # slots 3 and 4, then the survival draw and the swap permutation
+    # the streams: the three draws, with conv the dropout keys at slots 3
+    # and 4, then the survival draw and the swap permutation
     first_extra = 5 if cfg.conv else 3
 
-    def extras_for(t: int, streams):
-        """(survival draw or None, swap permutation or None): injected as
-        the entries of ``streams`` after its draws and keys (a missing
-        permutation is None) or drawn for round t."""
-        if streams is not None and len(streams) > first_extra:
-            rest = list(streams[first_extra:]) + [None]
-            return rest[0], rest[1]
-        alive = rounds.survival(t, W) if dropout else None
-        perm = rounds.permutation(t, W) if shuffle else None
+    def extras_of(key):
+        """(survival draw or None, swap permutation or None) from the
+        round's key: a host round's row of the tables, or the captured
+        round's device row (the same code on both loops)."""
+        alive = prng.survival_of_key(cfg, key, W) if dropout else None
+        perm = prng.permutation_of_key(key, W) if shuffle else None
         return alive, perm
 
-    def round_fn(state: FedState, streams=None):
-        """One federated round.  ``streams``: optional injected
-        ``(starts (E,), z_d (S,B,zdim), z_g (S,B,zdim)[, alive (W,),
-        perm (W,)])`` (``alive`` the survival draw, ``perm`` MD-GAN's
-        shuffle; either may be None where the config uses none); with conv
-        each server's dropout keys ``k_d, k_drop`` (S, 2) threefry key data
-        come at slots 3 and 4, before ``alive`` and ``perm``, and a conv
-        stream without them raises ValueError.  By default they are the
-        reference's draws for round ``state.t`` (``core/prng.py``)."""
-        t = state.t
-        alive, perm = extras_for(t, streams)
-        if streams is None:
-            streams = (rounds.device_starts(t),
-                       *prng.server_draws(cfg, rounds.key(t)))
+    def exchange_d(d: NetState, lam, t, perm):
+        """The every-E-rounds exchange of the Ds after round ``t`` (module
+        docstring), and the delta gossip's anchors.  A host ``t`` decides
+        on the host: only the rounds at ``(t + 1) % E == 0`` exchange (on a
+        mesh only they run the collectives).  A device ``t`` exchanges
+        every round and keeps the result, anchors included, where ``(t +
+        1) % E == 0``, as the reference's ``jnp.where(do_share, ...)``
+        (``cglgan_tpu/algos/mdgan_family.py:216-236``)."""
+        device_t = isinstance(t, torch.Tensor)
+        if not device_t and (t + 1) % cfg.E:
+            return d, lam
+        blocked = lambda tree: tree_map(
+            lambda x: x.reshape((S, k_loc) + x.shape[1:]), tree)
+        flat = lambda tree: tree_map(
+            lambda x: x.reshape((S * k_loc,) + x.shape[2:]), tree)
+        old = (d.params, d.bn)
+        new_lam = lam
+        if shuffle:
+            cur = collectives.permute_tree(
+                old, torch.as_tensor(perm, device=dev), mesh)
+        elif swap:
+            cur = collectives.ring_shift_tree(old, 1, mesh)
+        elif delta:
+            cur, new_lam = collectives.delta_share_tree(
+                blocked(old), blocked(lam), k, blocked=True, mesh=mesh)
+            cur, new_lam = flat(cur), flat(new_lam)
+        else:
+            cur = flat(collectives.neighbor_share_tree(
+                blocked(old), k, blocked=True, mesh=mesh))
+        if device_t and cfg.E > 1:
+            due = torch.remainder(t + 1, cfg.E) == 0
+            keep = lambda new, was: tree_map(
+                lambda a, b: torch.where(due, a, b), new, was)
+            cur = keep(cur, old)
+            if delta:
+                new_lam = keep(new_lam, lam)
+        return NetState(cur[0], cur[1], d.opt), new_lam
+
+    def round_body(state: FedState, t, streams):
+        """One federated round from its draws ``streams`` (``round_fn``'s)
+        at round ``t``: a host int, or an int64 0-dim device tensor (the
+        captured round's counter).  The host reads no tensor here.  The
+        state's ``t`` is left as it is."""
+        alive, perm = (*streams[first_extra:], None, None)[:2]
         starts, z_d, z_g = streams[:3]
         d_keys = drop_keys = None
         if cfg.conv:
@@ -242,26 +279,41 @@ def build_mdgan_family(cfg, part: Partition, device=None,
                        "g_loss": g_loss.mean()}
 
         lam = state.lam
-        if exchange and (t + 1) % cfg.E == 0:
-            blocked = lambda tree: tree_map(
-                lambda x: x.reshape((S, k_loc) + x.shape[1:]), tree)
-            flat = lambda tree: tree_map(
-                lambda x: x.reshape((S * k_loc,) + x.shape[2:]), tree)
-            cur = (new_d.params, new_d.bn)
-            if shuffle:
-                cur = collectives.permute_tree(
-                    cur, torch.as_tensor(perm, device=dev), mesh)
-            elif swap:
-                cur = collectives.ring_shift_tree(cur, 1, mesh)
-            elif delta:
-                cur, lam = collectives.delta_share_tree(
-                    blocked(cur), blocked(lam), k, blocked=True, mesh=mesh)
-                cur, lam = flat(cur), flat(lam)
-            else:
-                cur = flat(collectives.neighbor_share_tree(
-                    blocked(cur), k, blocked=True, mesh=mesh))
-            new_d = NetState(cur[0], cur[1], new_d.opt)
-        return FedState(new_g, new_d, lam, t + 1), metrics
+        if exchange:
+            new_d, lam = exchange_d(new_d, lam, t, perm)
+        return FedState(new_g, new_d, lam, state.t), metrics
+
+    def round_fn(state: FedState, streams=None):
+        """One federated round.  ``streams``: optional injected
+        ``(starts (E,), z_d (S,B,zdim), z_g (S,B,zdim)[, alive (W,),
+        perm (W,)])`` (``alive`` the survival draw, ``perm`` MD-GAN's
+        shuffle; either may be None where the config uses none); with conv
+        each server's dropout keys ``k_d, k_drop`` (S, 2) threefry key data
+        come at slots 3 and 4, before ``alive`` and ``perm``, and a conv
+        stream without them raises ValueError.  By default they are the
+        reference's draws for round ``state.t`` (``core/prng.py``); streams
+        that stop before ``alive`` take the round's own survival draw and
+        permutation."""
+        t = state.t
+        if streams is None:
+            streams = (rounds.device_starts(t),
+                       *prng.server_draws(cfg, rounds.key(t)))
+        if len(streams) == first_extra:
+            streams = (*streams, *extras_of(rounds.key(t)))
+        new, metrics = round_body(state, t, streams)
+        return new._replace(t=t + 1), metrics
+
+    program = None
+    if not cfg.conv and mesh is None:
+        # the MLP runners without a mesh: ``train`` runs them as replays
+        # of one captured round (algos/runner.py); the tables hold the
+        # longest piece the reference's rule gives
+        piece = prng.scan_piece(cfg, max_len, 1 << 62)
+        program = RoundProgram(
+            lambda state, t, key, starts: round_body(
+                state, t, (starts, *prng.server_draws(cfg, key),
+                           *extras_of(key))),
+            prng.RoundKeys(cfg, max_len, cfg.epoch, dev, piece=piece), dev)
 
     @torch.no_grad()
     def gen(state: FedState, z):
@@ -282,4 +334,4 @@ def build_mdgan_family(cfg, part: Partition, device=None,
 
     return Runner(cfg, part, init_state, round_fn, sample, gen=gen,
                   gen_batch_multiple=S, device=dev, mesh=mesh,
-                  layout=layout)
+                  layout=layout, program=program)

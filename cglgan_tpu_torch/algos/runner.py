@@ -4,13 +4,13 @@ Port of ``cglgan_tpu/algos/runner.py``.  A round is one Python call
 ``round_fn(state) -> (state, metrics)`` whose work is queued on the device.
 
 ``train`` runs a runner's rounds one of two ways, by a fixed rule: where
-the runner has a ``program`` (the CGL family's MLP runners without a mesh:
-CAP-GAN, CGL-GAN and Mix-G, float32 and bf16, every epoch), through it,
-the counterpart of the reference's ``scan_rounds``; every other runner
-(conv models, the MD-GAN and FedAvg families, any runner on a mesh) by
-calling ``round_fn`` once a round.  Either way a tick's metric sums stay on
-the device and the host waits for the device once a tick, and then for the
-evaluator's metrics, if any.
+the runner has a ``program`` (the MLP runners without a mesh of the CGL
+family, CAP-GAN, CGL-GAN and Mix-G, and of the MD-GAN family, MD-GAN and
+AC-GAN; float32 and bf16, every epoch), through it, the counterpart of the
+reference's ``scan_rounds``; every other runner (conv models, the FedAvg
+family, any runner on a mesh) by calling ``round_fn`` once a round.
+Either way a tick's metric sums stay on the device and the host waits for
+the device once a tick, and then for the evaluator's metrics, if any.
 
 ``RoundProgram``: a round on static buffers (the state, a device round
 counter, the metric sums) that reads its key and window starts from the
@@ -37,6 +37,7 @@ G to rank 0 a tick first.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
@@ -67,7 +68,8 @@ class Runner(NamedTuple):
     # (core.meshes.place_state)
     layout: Optional[Dict[str, tuple]] = None
     # the round as a RoundProgram, where ``train`` runs it so (module
-    # docstring); None: ``train`` calls ``round_fn`` once a round
+    # docstring: the CGL and MD-GAN families' MLP runners without a mesh);
+    # None: ``train`` calls ``round_fn`` once a round
     program: Any = None
 
 
@@ -208,14 +210,24 @@ class RoundProgram:
                     self._outputs()
             torch.cuda.current_stream(self.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
+            # a graph freed while this one records ends the capture (an
+            # earlier runner's, left in a reference cycle, goes whenever
+            # the collector runs): collect now, and not during the capture
+            gc.collect()
             # the capture empties the allocator's cache first; so does this,
             # so that what it reserves after is the graph's pool
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
             at_capture = [mod.launches for mod in counters]
-            with torch.cuda.graph(graph, stream=side):
-                self._step()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, stream=side):
+                    self._step()
+            finally:
+                if collecting:
+                    gc.enable()
             self.per_replay = {
                 mod: mod.launches - n
                 for mod, n in zip(counters, at_capture)

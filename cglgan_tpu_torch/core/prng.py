@@ -29,7 +29,9 @@ slices its ragged sweep with host ints, copied once a piece
 (``RoundKeys.starts``).  The piece follows the reference's rule
 (``scan_piece``).  ``round_streams``, ``sweep_streams``, ``survival`` and
 ``swap_permutation`` give one round's draws as the round functions take
-them injected (``round_fn(state, streams=...)``).
+them injected (``round_fn(state, streams=...)``); ``survival_of_key`` and
+``permutation_of_key`` draw the last two from a round's key, which a
+captured round reads on the device.
 """
 from __future__ import annotations
 
@@ -153,18 +155,31 @@ class RoundKeys:
         return self._host[i]
 
     def survival(self, t: int, n: int) -> torch.Tensor:
-        """Round t's dropout draw: bool (n,) Bernoulli(1 - dropout_rate),
-        the input of ``algos/common.py`` ``participation_mask``."""
+        """Round t's dropout draw (``survival_of_key``); FeGAN's from
+        ``fold_in(root, t)``."""
         base = threefry.fold_in(self.root, t) if self.cfg.algo == "fegan" \
             else self.key(t)
-        return threefry.bernoulli(threefry.fold_in(base, FOLD_SURVIVAL),
-                                  1.0 - self.cfg.dropout_rate, (n,))
+        return survival_of_key(self.cfg, base, n)
 
     def permutation(self, t: int, n: int) -> torch.Tensor:
-        """Round t's MD-GAN shuffle D-swap: a permutation of the n clients
-        (int64 (n,))."""
-        return threefry.permutation(threefry.fold_in(self.key(t), ROLE_SWAP),
-                                    n)
+        """Round t's MD-GAN shuffle D-swap (``permutation_of_key``)."""
+        return permutation_of_key(self.key(t), n)
+
+
+def survival_of_key(cfg, key: torch.Tensor, n: int) -> torch.Tensor:
+    """A round's dropout draw from its key ``(2,)``, a host int's row of
+    the tables or the captured round's device row: bool (n,)
+    ``bernoulli(fold_in(key, FOLD_SURVIVAL), 1 - dropout_rate)``, the input
+    of ``algos/common.py`` ``participation_mask``."""
+    return threefry.bernoulli(threefry.fold_in(key, FOLD_SURVIVAL),
+                              1.0 - cfg.dropout_rate, (n,))
+
+
+def permutation_of_key(key: torch.Tensor, n: int) -> torch.Tensor:
+    """A round's MD-GAN shuffle D-swap from its key ``(2,)``: a permutation
+    of the n clients (int64 (n,)), ``permutation(fold_in(key, ROLE_SWAP),
+    n)``."""
+    return threefry.permutation(threefry.fold_in(key, ROLE_SWAP), n)
 
 
 def server_draws(cfg, key: torch.Tensor) -> tuple:

@@ -2017,10 +2017,13 @@ def phase_rounds(phase, label, algo, base, epoch, part, rounds=ROUNDS,
     return res, launches
 
 
-# the ``graph`` phase: the CGL family's MLP rounds as replays of one captured
-# round (``algos/runner.py`` ``RoundProgram``), each case from one state;
-# ``None`` as num_communication: the CAP-GAN cadence case, whose cloud sync
-# fires at round GRAPH_SYNC_AT only (its period, from the partition, + that)
+# the ``graph`` phase: the CGL and MD-GAN families' MLP rounds as replays of
+# one captured round (``algos/runner.py`` ``RoundProgram``), each case from
+# one state; ``None`` as num_communication: the CAP-GAN cadence case, whose
+# cloud sync fires at round GRAPH_SYNC_AT only (its period, from the
+# partition, + that).  The MD-GAN family's cases are ``MDGAN_RUNS``' (the
+# archived reference runs, the exchanges and dropout at E=2) and MD-GAN's
+# forced bf16-state kernel.
 GRAPH_ROUNDS = 20
 GRAPH_SYNC_AT = 10
 GRAPH_CASES = (("capgan e1", "capgan", MAIN, 1, {}),
@@ -2031,7 +2034,24 @@ GRAPH_CASES = (("capgan e1", "capgan", MAIN, 1, {}),
                ("mixgan e5", "mixgan", CGL_MNIST, 5, {}),
                ("capgan e5 E=2", "capgan", MAIN, 5, dict(E=2)),
                ("capgan e1 cadence", "capgan", MAIN, 1,
-                dict(num_communication=None)))
+                dict(num_communication=None)),
+               *((f"{label} e{epoch}" if not extra else label, algo, base,
+                  epoch, extra)
+                 for label, algo, base, epoch, extra in MDGAN_RUNS),
+               ("mdgan e5 bf16 kernel", "mdgan", MDGAN_MNIST, 5,
+                dict(dtype="bfloat16", pallas_dstep=True)))
+
+
+def threefry_per_round(cfg) -> int:
+    """``threefry`` launches a replayed MLP round makes, predicted from the
+    config: ``prng.server_draws`` 3 (two splits, one normal draw of both
+    latents); the survival draw 2 (``fold_in``, ``bernoulli``); MD-GAN's
+    shuffle permutation 3 (``fold_in``, then one round of ``split`` and
+    ``random_bits`` below 1 626 clients), every round under capture."""
+    shuffle = cfg.algo == "mdgan" and cfg.E > 0 and cfg.d_swap == "shuffle"
+    return 3 + 2 * (cfg.dropout_rate > 0) + 3 * shuffle
+
+
 # the host's CUDA launch calls, as the profiler names them
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
@@ -2073,13 +2093,14 @@ def graph_profile(fn, rounds):
 
 
 def phase_graph(part_of):
-    """The CGL family's MLP runners through ``train`` as replays of one
-    captured round, at full width (``GRAPH_CASES``), each case from one
-    state: GRAPH_ROUNDS replays (a tick a round) against as many eager
-    ``round_fn`` rounds, every state tensor and metric under
+    """The CGL and MD-GAN families' MLP runners through ``train`` as
+    replays of one captured round, at full width (``GRAPH_CASES``), each
+    case from one state: GRAPH_ROUNDS replays (a tick a round) against as
+    many eager ``round_fn`` rounds, every state tensor and metric under
     ``torch.equal``; ``fused_dstep`` launches counted once a replay and
-    ``threefry``'s as the capture counted them a replay plus the tables'
-    fills; every piece's replays under ``set_sync_debug_mode("error")``;
+    ``threefry``'s as the capture counted them a replay (which must be
+    ``threefry_per_round``'s prediction) plus the tables' fills; every
+    piece's replays under ``set_sync_debug_mode("error")``;
     rounds/s eager (the per-round loop, ``program=None``) and graph in
     turns (eager, graph, graph, eager); host launch calls, device ms a
     round and busy share of each; capture seconds and the graph pool's
@@ -2192,6 +2213,7 @@ def phase_graph(part_of):
                "fused_dstep_launches": dstep_n,
                "threefry_launches": tf_n, "threefry_expected": want_tf,
                "per_replay": per_replay, "threefry_per_fill": per_fill,
+               "threefry_per_replay_predicted": threefry_per_round(cfg),
                "captures": captured,
                "capture_s": program.capture_s,
                "graph_pool_mb": program.pool_bytes / 1e6,
@@ -2204,10 +2226,13 @@ def phase_graph(part_of):
             raise AssertionError(f"{label}: replays differ from eager "
                                  f"rounds: leaves {unequal[:10]}, metrics "
                                  f"{bad_metrics[:10]}")
-        if dstep_n != want_dstep or tf_n != want_tf:
+        if dstep_n != want_dstep or tf_n != want_tf or \
+                per_replay.get("threefry") != threefry_per_round(cfg):
             raise AssertionError(f"{label}: fused_dstep launches {dstep_n} "
                                  f"(expected {want_dstep}), threefry "
-                                 f"{tf_n} (expected {want_tf})")
+                                 f"{tf_n} (expected {want_tf}), a replay "
+                                 f"{per_replay.get('threefry')} (predicted "
+                                 f"{threefry_per_round(cfg)})")
         if captured != 1:
             raise AssertionError(f"{label}: {captured} captures across "
                                  f"the runner's train calls")
@@ -4107,6 +4132,7 @@ def main(argv=None):
                                       fused_sweep)
     from cglgan_tpu_torch.ops import threefry as tk
 
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -4123,10 +4149,12 @@ def main(argv=None):
                     for k in _build.KERNELS}})
 
     def run(phase):
-        """Whether ``phase`` runs; prints its name first, so that a
-        failure's traceback follows the name of the phase it stopped."""
+        """Whether ``phase`` runs; prints its name first, with the
+        script's seconds so far, so that a failure's traceback follows the
+        name of the phase it stopped."""
         if phase in phases:
-            emit({"starting": phase})
+            emit({"starting": phase,
+                  "script_s": time.perf_counter() - started})
         return phase in phases
 
     done = {}
@@ -4173,7 +4201,7 @@ def main(argv=None):
         _, graph_launches = phase_graph(part_of)
         for label, n in graph_launches.items():
             if n and "bf16" in label:
-                done["dstep_bf16_launches graph"] = n
+                done[f"dstep_bf16_launches graph {label}"] = n
             elif n:
                 done[f"dstep_launches graph {label}"] = n
     if run("eval_image"):
@@ -4239,6 +4267,7 @@ def main(argv=None):
     if run("tp"):
         for path, n in phase_tp(card).items():
             done[f"threefry_launches {path}"] = n
+    emit({"phases_done": phases, "script_s": time.perf_counter() - started})
     if len(phases) != len(all_phases):
         print(card, flush=True)
         emit({"partial": phases})
@@ -4272,7 +4301,8 @@ def main(argv=None):
         "capgan bf16": done["dstep_bf16_launches"],
         "cglgan bf16": done["dstep_bf16_launches cglgan"],
         "mdgan bf16": done["dstep_bf16_launches mdgan"],
-        "graph capgan bf16": done["dstep_bf16_launches graph"]}
+        **{k.split(" ", 1)[1]: v for k, v in done.items()
+           if k.startswith("dstep_bf16_launches graph ")}}
     # the FL-GAN pair's shape; launches from its 20 kernel-path rounds, and
     # the CLI's FL-GAN 2DMG run beside them
     sweep = entry(fused_sweep, done["sweep_launches"], done["sweep"],

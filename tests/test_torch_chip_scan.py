@@ -1,5 +1,5 @@
-"""The CGL family's round loop as CUDA-graph replays (``algos/runner.py``
-``RoundProgram``) on the card.
+"""The CGL and MD-GAN families' round loop as CUDA-graph replays
+(``algos/runner.py`` ``RoundProgram``) on the card.
 
 N replays through ``train`` against N eager ``round_fn`` rounds from one
 state: every state tensor and every round's metrics equal under
@@ -33,6 +33,14 @@ CASES = {
                                   cloud_epoch=2, segema=0.25,
                                   num_communication=10, dtype="bfloat16",
                                   pallas_dstep=True),
+    # MD-GAN: autograd, the E=2 shuffle (a permutation drawn every round
+    # from the device key, the swap kept on the rounds that exchange)
+    "mdgan_e1_shuffle": dict(algo="mdgan", num_servers=1, epoch=1,
+                             d_swap="shuffle"),
+    # AC-GAN: the fused local-D phase, a server's batch to its clients,
+    # the E=2 delta gossip and its anchors
+    "acgan_e2_delta_kernel": dict(algo="acgan", num_servers=2, epoch=2,
+                                  gossip="delta"),
 }
 
 
@@ -86,11 +94,13 @@ def test_replays_equal_eager_rounds(cuda, case):
 
 
 @pytest.mark.cuda
-def test_one_capture_a_runner(cuda):
+@pytest.mark.parametrize("case", ["cglgan_e1", "mdgan_e1_shuffle",
+                                  "acgan_e2_delta_kernel"])
+def test_one_capture_a_runner(cuda, case):
     """Two ``train`` calls of one runner capture once; a second runner
     captures its own; the first call's returned state does not move when
     the runner trains again."""
-    run = _runner("cglgan_e1", cuda)
+    run = _runner(case, cuda)
     captures = runner.captures
     first = runner.train(run, 3, 3, evaluator=False)["state"]
     kept = [x.clone() for x in _leaves(first)]
@@ -99,5 +109,5 @@ def test_one_capture_a_runner(cuda):
     assert second.t == 7
     for a, b in zip(_leaves(first), kept, strict=True):
         assert torch.equal(a, b)
-    runner.train(_runner("cglgan_e1", cuda), 1, 1, evaluator=False)
+    runner.train(_runner(case, cuda), 1, 1, evaluator=False)
     assert runner.captures == captures + 2

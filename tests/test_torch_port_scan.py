@@ -1,5 +1,6 @@
 """The CGL family's chunked round loop (``algos/runner.py`` ``RoundProgram``,
-the counterpart of the reference's ``scan_rounds``) on the CPU.
+the counterpart of the reference's ``scan_rounds``) on the CPU; the MD-GAN
+family's is ``tests/test_torch_port_scan_mdgan.py``'s.
 
 On the card ``train`` replays one captured round; here the same round body
 runs eagerly, one call a round, on the same static buffers, device round
@@ -384,24 +385,29 @@ def test_piece_reads_no_tensor_on_the_host(case, monkeypatch):
 
 
 def test_which_runners_have_a_program():
-    """The rule in ``algos/runner.py``: the CGL family's MLP runners
-    without a mesh run as a program; conv, the MD-GAN and FedAvg
-    families keep the per-round loop."""
+    """The rule in ``algos/runner.py``: the CGL and MD-GAN families' MLP
+    runners without a mesh run as a program, in float32 and bf16; conv and
+    the FedAvg family keep the per-round loop."""
     assert _runner("capgan_e1").program is not None
     assert _runner("mixgan_e1_bf16").program is not None
     _, part = _partition("synthetic-mnist")
-    for kw in (dict(algo="mdgan"), dict(algo="acgan", num_servers=2),
-               dict(algo="flgan"), dict(algo="fegan")):
+    for kw, has in ((dict(algo="mdgan"), True),
+                    (dict(algo="acgan", num_servers=2), True),
+                    (dict(algo="acgan", num_servers=2, dtype="bfloat16"),
+                     True),
+                    (dict(algo="flgan"), False), (dict(algo="fegan"), False)):
         cfg = FedGANConfig(dataset="synthetic-mnist", num_workers=NW,
                            img_size=8, batch_size=8, **kw)
-        assert build_runner(cfg, part, device="cpu").program is None
+        program = build_runner(cfg, part, device="cpu").program
+        assert (program is not None) == has, kw
     rng = np.random.default_rng(1)
     conv_part = Partition(
         rng.integers(0, 256, (NW, 48, 1024)).astype(np.uint8),
         np.zeros((NW, 48), np.int32), LENGTHS, np.zeros((NW, 10), np.int64),
         np.zeros((10, 1024), np.uint8))
-    conv = FedGANConfig(algo="capgan", dataset="synthetic-mnist",
-                        conv=True, num_workers=NW, num_servers=S,
-                        batch_size=4)
-    assert build_runner(conv, conv_part, device="cpu").program is None
+    for algo in ("capgan", "acgan"):
+        conv = FedGANConfig(algo=algo, dataset="synthetic-mnist",
+                            conv=True, num_workers=NW, num_servers=S,
+                            batch_size=4)
+        assert build_runner(conv, conv_part, device="cpu").program is None
     assert runner.captures == runner.replays == 0      # no card here
